@@ -29,3 +29,9 @@ def sampling_client(small_graph, partitioned):
         VertexRouter(small_graph, ep, 4),
         seed=0,
     )
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skips without one); run with -m gpu"
+    )
