@@ -1,38 +1,52 @@
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
-Builds the Hopper kernels from ``src/repro_torch/kernels/csrc/``, holds
-each against its plain PyTorch version on the card, then runs the port's
-serving path at the paper's model width on the ``ogbn-paper`` stand-in
-graph (150,000 vertices, 1.05 M edges):
-``GLISPSystem.build -> infer_layerwise -> server().submit/step/response``,
-for SAGE (3 layers, 128 -> 256 -> 256 -> 256, fanouts 15/10/5) and for
-GAT (4 heads, same widths). Weights are random, drawn with numpy from
-seed 0. Launch counters are zeroed just before each path and read just
-after; each path must have gone through its kernel.
+Builds the Hopper kernels from ``src/repro_torch/kernels/csrc/`` (one nvcc
+per source, in parallel), holds each kernel and each backward kernel
+against its plain PyTorch version on the card, then runs the port's paths
+at the paper's model width on the ``ogbn-paper`` stand-in graph (150,000
+vertices, 1.05 M edges, 4 parts, fanouts 15/10/5), for SAGE (3 layers,
+128 -> 256 -> 256 -> 256, head 256 -> 16) and GAT (4 heads, same widths):
+
+* inference and serving: ``GLISPSystem.build -> infer_layerwise ->
+  server().submit/step/response``; 32 Zipf requests served batched and
+  solo must agree bit for bit;
+* training: ``system.trainer(model, train_ids).train(max_steps=...)``,
+  20 SAGE steps and 10 GAT steps (batch 256, prefetch 2, AdamW lr 1e-3,
+  weight decay 1e-4), then the first batch's loss and every gradient
+  with kernels vs plain versions, and determinism: two 6-step runs, and a
+  run checkpointed at step 3 and resumed to 6, must end with the same bits.
+
+Weights are random, drawn with numpy from seed 0. Launch counters are
+zeroed just before each path and read just after; each path must launch
+exactly the kernels it implies (per training step: SAGE 3 gathers + 2
+gather backwards; GAT 3 softmax aggregates + 3 backwards + 6 row-gather
+backwards).
 
 Prints the ``-Xptxas -v`` build report, every comparison with its maximum
-error, wall times, a ``{"kernels": [...]}`` line with each kernel's time,
-bound, plain-version and library times, the card's name and power limit,
-and, last, ``{"ok": true, "device": {...}}``. Any failed check raises and
-exits non-zero before that line. Exits non-zero without CUDA, and where
-the repository's ``src/`` is missing.
+error, wall times, the dense call forms of the gather and segment sums, a
+``{"kernels": [...]}`` line with each kernel's time, bound, plain-version
+and library times, the card's name and power limit, and, last,
+``{"ok": true, "device": {...}}``. Any failed check raises and exits
+non-zero before that line. Exits non-zero without CUDA, and where the
+repository's ``src/`` is missing.
 
-Kernel times, at the largest batch each kernel saw on the path, with the
+Kernel times, at the largest call each kernel saw on the path, with the
 inputs rotated over four copies so that every call reads device memory:
-``ms`` is the wrapper's device time (flag reset, offsets kernel,
-reduction) from CUDA-graph replay, ``kernel_ms`` the reduction kernel
-alone, ``eager_ms`` the wrapper called back to back from Python (bound by
-host issue time); ``plain_ms`` and ``library_ms`` are eager calls timed
-with CUDA events.
+``ms`` is the wrapper's device time (index work, offsets kernel, kernel)
+from CUDA-graph replay, ``kernel_ms`` the kernel alone, ``eager_ms`` the
+wrapper called back to back from Python (bound by host issue time);
+``plain_ms`` and ``library_ms`` are eager calls timed with CUDA events.
 
-Tolerances: kernel vs plain float32 rtol 1e-5 / atol 1e-5; bfloat16
-rtol 1e-2 / atol 1e-2, about one rounding of the output, against the plain
-version run on the inputs upcast to float32 and rounded to bfloat16 (the
-kernels sum in float32 and round once); whole layer slices and served
-responses float32 rtol 1e-4 / atol 1e-5 (a matmul follows the
-aggregation).
+Tolerances: kernel vs plain float32 rtol 1e-5 / atol 1e-5 (sums in
+another order); the GAT backward's logit gradient rtol 1e-4 / atol 1e-5
+(a difference of two dot products); bfloat16 rtol 1e-2 / atol 1e-2, about
+one rounding of the output, against the plain version run on the inputs
+upcast to float32 and rounded to bfloat16 (the kernels sum in float32 and
+round once); whole layer slices float32 rtol 1e-4 / atol 1e-5 (a matmul
+follows the aggregation); a training batch's loss and gradients rtol
+1e-4 / atol 1e-6.
 """
 from __future__ import annotations
 
@@ -68,7 +82,7 @@ def fail(msg: str) -> None:
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     if a.numel() == 0:
         return 0.0
-    return float((a.float() - b.float()).abs().max())
+    return float((a.detach().float() - b.detach().float()).abs().max())
 
 
 def check_close(name, got, want, dtype=torch.float32, tol=None) -> float:
@@ -250,6 +264,116 @@ def compare_kernels() -> None:
                     tol=(0.0, 0.0))
 
 
+def gather_inputs(e, f, n, d, valid, seed, *, shuffle=False, pad=True, dev="cuda"):
+    """Gather-sum inputs: feats [f, d], idx and seg [e] int32 (seg sorted
+    with a padding tail after ``valid`` edges, or shuffled), an upstream
+    gradient [n, d]."""
+    rng = np.random.default_rng(seed)
+    seg = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    idx = rng.integers(0, f, e).astype(np.int32)
+    if pad:
+        seg[valid:] = -1
+        idx[valid:] = -1
+    if shuffle:
+        perm = rng.permutation(e)
+        seg, idx = seg[perm], idx[perm]
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return (t(rng.standard_normal((f, d)).astype(np.float32)), t(idx), t(seg),
+            t(rng.standard_normal((n, d)).astype(np.float32)))
+
+
+def compare_training_kernels() -> None:
+    """The gather kernel (forward and backward) and the GAT backward kernel
+    against their plain versions, float32, at the training path's widths
+    and at random shapes with padding."""
+    from repro_torch.kernels import fused_gnn
+    from repro_torch.kernels.ref import (
+        gat_softmax_aggregate_backward_ref,
+        gather_spmm_ragged_backward_ref,
+        gather_spmm_ref,
+    )
+
+    log("phase: training kernels (forward and backward) vs plain versions on the card")
+    for e, f, n, d, valid, shuffle in (
+        (240000, 100000, 100000, 128, 235000, False),  # SAGE layer 0 at full width
+        (60000, 100000, 100000, 256, 45000, False),
+        (16384, 5000, 4096, 128, 15000, True),
+        (3000, 700, 900, 16, 2100, True),
+        (0, 50, 40, 8, 0, False),
+        (4096, 300, 256, 64, 0, False),
+    ):
+        feats, idx, seg, grad = gather_inputs(e, f, n, d, valid, e + d, shuffle=shuffle)
+        x = feats.clone().requires_grad_(True)
+        out = fused_gnn.gather_spmm_ragged(x, idx, seg, n)
+        label = f"E={e} F={f} n={n} D={d} valid={valid} shuffle={shuffle}"
+        check_close(f"gather_spmm_ragged {label}", out, gather_spmm_ref(feats, idx, seg, n))
+        out.backward(grad)
+        check_close(f"gather_spmm_ragged backward {label}", x.grad,
+                    gather_spmm_ragged_backward_ref(grad, idx, seg, f))
+        rows = feats.clone().requires_grad_(True)
+        g_rows = torch.randn(e, d, device="cuda", generator=torch.Generator("cuda").manual_seed(e))
+        fused_gnn.gather_rows(rows, idx).backward(g_rows)
+        each = torch.arange(e, dtype=torch.int32, device="cuda")  # edge e gathers grad row e
+        check_close(f"gather_rows backward {label}", rows.grad,
+                    gather_spmm_ragged_backward_ref(g_rows, idx, each, f))
+    for e, n, h, dh, valid, shuffle in (
+        (240000, 100000, 4, 64, 235000, False),  # GAT layer 0 at full width
+        (65536, 4096, 4, 64, 50000, True),
+        (300, 50, 4, 6, 150, True),
+        (0, 7, 2, 8, 0, False),
+        (8192, 4096, 4, 64, 0, False),
+    ):
+        seg, msg, logits = edges(e, n, valid, e + 5, (h,), dh, torch.float32, shuffle=shuffle)
+        lg = logits.clone().requires_grad_(True)
+        mg = msg.clone().requires_grad_(True)
+        grad = torch.randn(n, h, dh, device="cuda", generator=torch.Generator("cuda").manual_seed(e))
+        fused_gnn.gat_softmax_aggregate(lg, mg, seg, n).backward(grad)
+        want = [gat_softmax_aggregate_backward_ref(grad[:, j], logits[:, j], msg[:, j], seg, n)
+                for j in range(h)]
+        label = f"E={e} n={n} H={h} dh={dh} valid={valid} shuffle={shuffle}"
+        check_close(f"gat_softmax_aggregate backward dmsg {label}", mg.grad,
+                    torch.stack([w[1] for w in want], 1))
+        check_close(f"gat_softmax_aggregate backward dlogit {label}", lg.grad,
+                    torch.stack([w[0] for w in want], 1), tol=(1e-4, 1e-5))
+
+
+def dense_forms() -> list:
+    """Kernels 3 and 1 at the call form of the dense TPU kernels
+    (``gather_spmm_pallas``, ``segment_spmm_pallas``): unpadded ids in no
+    order, which the kernels serve through their scan path. Held against
+    the plain versions and timed (CUDA-graph replay)."""
+    from repro_torch.kernels import fused_gnn
+    from repro_torch.kernels.ref import gather_spmm_ref, segment_spmm_ref
+
+    log("phase: dense call forms (unpadded, unsorted ids)")
+    rows = []
+    for e, f, n, d in ((2048, 1024, 256, 128), (8192, 4096, 1024, 128)):
+        feats, idx, seg, _ = gather_inputs(e, f, n, d, e, 7, shuffle=True, pad=False)
+        msg = feats[idx.long()].contiguous()
+        label = f"E={e} F={f} n={n} D={d}"
+        err3 = check_close(f"gather_spmm_ragged dense form {label}",
+                           fused_gnn.gather_spmm_ragged(feats, idx, seg, n),
+                           gather_spmm_ref(feats, idx, seg, n))
+        err1 = check_close(f"segment_spmm_ragged dense form {label}",
+                           fused_gnn.segment_spmm_ragged(msg, seg, n),
+                           segment_spmm_ref(msg, seg, n))
+        rows.append({
+            "shape": {"E": e, "F": f, "n": n, "D": d},
+            "gather_spmm_pallas_form": {
+                "kernel": "gather_spmm_ragged", "max_abs_err": err3,
+                "ms": graph_ms(rotating(fused_gnn.gather_spmm_ragged, feats, idx, seg, n)),
+                "plain_ms": time_ms(rotating(gather_spmm_ref, feats, idx, seg, n)),
+            },
+            "segment_spmm_pallas_form": {
+                "kernel": "segment_spmm_ragged", "max_abs_err": err1,
+                "ms": graph_ms(rotating(fused_gnn.segment_spmm_ragged, msg, seg, n)),
+                "plain_ms": time_ms(rotating(segment_spmm_ref, msg, seg, n)),
+            },
+        })
+    log("dense_forms: " + json.dumps(rows))
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: the serving path at full width
 # ---------------------------------------------------------------------------
@@ -281,16 +405,17 @@ class SliceRecorder:
 
 
 class LargestCall:
-    """Wraps an aggregation entry point and keeps the arguments of its
-    largest call (by message elements): the path's biggest kernel shape."""
+    """Wraps a kernel entry point and keeps the arguments of its largest
+    call by ``size(args)`` (default: elements of the messages, the third
+    argument from the end): the path's biggest kernel shape."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, size=lambda args: args[-3].numel()):
         self.fn = fn
+        self.size = size
         self.args = None
 
     def __call__(self, *args):
-        msg = args[-3]
-        if self.args is None or msg.numel() > self.args[-3].numel():
+        if self.args is None or self.size(args) > self.size(self.args):
             self.args = args
         return self.fn(*args)
 
@@ -352,20 +477,10 @@ def zipf_requests(g, count: int, seed: int) -> list:
     return reqs
 
 
-def matmul_rows_equal(w: torch.Tensor, small: int, large: int) -> bool:
-    """Whether ``x @ w`` gives its first ``small`` rows the same bits as
-    a [small, K] product as inside a [large, K] one: serving's
-    batched-equals-solo invariant needs it, and cuBLAS picks its algorithm
-    per shape."""
-    gen = torch.Generator(device=w.device).manual_seed(0)
-    x = torch.randn(large, w.shape[0], generator=gen, device=w.device)
-    return bool(torch.equal((x @ w)[:small], x[:small] @ w))
-
-
-def serve(system, reqs, kernel: str, launches: dict, w: torch.Tensor) -> dict:
+def serve(system, reqs, kernel: str, launches: dict) -> dict:
     """Serve ``reqs`` batched (all admitted, then drained), then each solo;
-    responses must agree. ``w`` is the served layer's first weight, for the
-    matmul check. Returns serving numbers."""
+    every response must have the same bits both ways (every batch runs at
+    the engine's one serving shape). Returns serving numbers."""
     from repro_torch.kernels import fused_gnn
 
     fused_gnn.reset_launches()
@@ -393,12 +508,9 @@ def serve(system, reqs, kernel: str, launches: dict, w: torch.Tensor) -> dict:
             fail(f"request {rid}: shape {b.embeddings.shape}")
         if not np.all(np.isfinite(b.embeddings)):
             fail(f"request {rid}: non-finite embeddings")
-        np.testing.assert_allclose(b.embeddings, s.embeddings, rtol=1e-4, atol=1e-5)
         bitwise += int(np.array_equal(b.embeddings, s.embeddings))
         diff = max(diff, float(np.abs(b.embeddings - s.embeddings).max()))
     lat = solo.stats.latency
-    small = system.infer_engine._vertex_bucket(max(len(np.unique(v)) for v in reqs))
-    large = batched.stats.padded_rows // batched.stats.batches
     out = {
         "requests": len(reqs),
         "batched_batches": batched.stats.batches,
@@ -410,15 +522,14 @@ def serve(system, reqs, kernel: str, launches: dict, w: torch.Tensor) -> dict:
         "batched_p99_ms": batched.stats.latency.p99,
         "bitwise_equal": f"{bitwise}/{len(reqs)}",
         "max_batched_vs_solo_diff": diff,
-        "matmul_rows_bitwise": {
-            "solo_bucket": small,
-            "batched_bucket": large,
-            "K": w.shape[0],
-            "equal": matmul_rows_equal(w, small, large),
-        },
+        "serving_shape": list(system.infer_engine.serving_shape(
+            len(system.infer_engine.layer_fns) - 1, 1, 1)),
         "launches": fused_gnn.LAUNCHES[kernel],
     }
     log(f"  serve {kernel}: " + json.dumps(out))
+    if bitwise != len(reqs):
+        fail(f"serving {kernel}: only {bitwise}/{len(reqs)} responses bitwise equal batched "
+             f"vs solo (max difference {diff})")
     return out
 
 
@@ -475,13 +586,254 @@ def run_model(system, kind: str, kernel: str, launches: dict, captured: dict) ->
             plain = model.layer_slice(0, *first)
     check_close(f"{kind} layer-0 first batch kernel vs plain", kern, plain,
                 tol=(1e-4, 1e-5))
-    info["serve"] = serve(system, zipf_requests(g, 32, 1), kernel, launches,
-                          model.layers[-1]["w"])
+    info["serve"] = serve(system, zipf_requests(g, 32, 1), kernel, launches)
     return info
 
 
 # ---------------------------------------------------------------------------
-# phase 6: kernel times at the path's largest shape
+# phases 6-8: training at full width
+# ---------------------------------------------------------------------------
+
+
+TRAIN_STEPS = {"sage": 20, "gat": 10}
+# kernel launches per training step that the 3-layer path implies: SAGE
+# gathers once per layer and runs the gather backward for layers 1-2 (layer
+# 0's input needs no gradient); GAT runs one softmax aggregate and its
+# backward per layer, and two row gathers (z[src], z[dst]) per layer whose
+# backwards are the gather kernel. Degrees come from the host: no segment
+# sum.
+PER_STEP = {
+    "sage": {"gather_spmm_ragged": 3, "gather_spmm_ragged_backward": 2},
+    "gat": {
+        "gat_softmax_aggregate": 3,
+        "gat_softmax_aggregate_backward": 3,
+        "gather_spmm_ragged_backward": 6,
+    },
+}
+
+
+def fresh_model(kind: str):
+    from repro_torch.models.gnn import GNNModel, load_jax_params
+
+    model = GNNModel(kind, 128, hidden=256, num_layers=3, num_classes=16, num_heads=4,
+                     device="cuda")
+    return load_jax_params(model, model.init_numpy(0))
+
+
+class StepRecorder:
+    """Wraps ``GNNTrainer.train_step``: keeps the first batch, the host
+    clock at each step's start, and CUDA events around each step
+    (forward, backward, update; no host sync)."""
+
+    def __init__(self):
+        self.first = None
+        self.starts = []
+        self.events = []
+
+    def patched(self):
+        from repro_torch.train.loop import GNNTrainer
+
+        orig = GNNTrainer.train_step
+
+        def train_step(trainer, batch):
+            self.starts.append(time.perf_counter())
+            if self.first is None:
+                self.first = batch
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(trainer, batch)
+            stop.record()
+            self.events.append((start, stop))
+            return out
+
+        return mock.patch.object(GNNTrainer, "train_step", train_step)
+
+    def device_ms(self) -> list:
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def gather_sum_in_row_order(feats, idx, seg, n):
+    """``gather_spmm_ref``'s function summed as the kernel sums: each row
+    from 0, adding its edges one at a time in index order, as plain tensor
+    ops (autograd works). Step j adds each row's j-th edge with one
+    ``index_add`` whose rows are distinct, so every addition is rounded
+    once, in the kernel's order, and the result has the kernel's bits."""
+    ok = (idx >= 0) & (seg >= 0) & (seg < n)
+    edges = torch.nonzero(ok).squeeze(1)
+    rows = seg[edges].long()
+    by_row = torch.sort(rows, stable=True).indices
+    edges, rows = edges[by_row], rows[by_row]
+    counts = torch.bincount(rows, minlength=n)
+    rank = torch.arange(rows.shape[0], device=rows.device) - (torch.cumsum(counts, 0) - counts)[rows]
+    out = feats.new_zeros((n, feats.shape[1]))
+    for j in range(int(counts.max()) if rows.numel() else 0):
+        take = rank == j
+        out = out.index_add(0, rows[take], feats.index_select(0, idx[edges[take]].long()))
+    return out
+
+
+@contextmanager
+def plain_training():
+    """The training layers' aggregations and gathers through the plain
+    versions (autograd through them), on the card. The gcn/sage gather sums
+    in the kernel's order: ReLU follows it, and a pre-activation within
+    float noise of 0 would otherwise take the other side of the kink and
+    move a gradient element by its whole upstream value (one run in three
+    at full width), which says nothing about the kernels."""
+    from repro_torch.kernels import fused_gnn
+    from repro_torch.models.gnn import models
+
+    def gather(feats, idx, seg, n, idx_order=None):
+        return gather_sum_in_row_order(feats, idx, seg, n)
+
+    def rows(x, idx, idx_order=None):
+        return fused_gnn._rows(x, idx)
+
+    with mock.patch.object(models, "gnn_gather_aggregate", gather), \
+            mock.patch.object(models, "gather_rows", rows), \
+            mock.patch.object(models, "gnn_gat_aggregate", plain_gat):
+        yield
+
+
+def compare_first_batch(kind: str, batch) -> float:
+    """The loss and every parameter gradient of one batch from the same
+    start, kernels vs plain versions; returns the largest gradient error."""
+    def loss_and_grads():
+        model = fresh_model(kind)
+        loss = model.loss(batch)
+        loss.backward()
+        return loss.detach(), [(name, p.grad) for name, p in model.named_parameters()]
+
+    loss_k, grads_k = loss_and_grads()
+    with plain_training():
+        loss_p, grads_p = loss_and_grads()
+    tol = (1e-4, 1e-6)
+    check_close(f"{kind} first training batch: loss, kernels vs plain", loss_k[None],
+                loss_p[None], tol=tol)
+    return max(
+        check_close(f"{kind} first training batch: d {name}", a, b, tol=tol)
+        for (name, a), (_, b) in zip(grads_k, grads_p)
+    )
+
+
+def keep_largest(captured: dict, name: str, call: LargestCall) -> None:
+    if call.args is not None and (
+        name not in captured or call.size(call.args) > call.size(captured[name])
+    ):
+        captured[name] = call.args
+
+
+def train_model(system, kind: str, train_ids, launches: dict, captured: dict) -> dict:
+    """``system.trainer(model, train_ids).train(max_steps=...)`` with the
+    config's prefetch; checks the launches and the losses, then holds the
+    first batch against the plain versions."""
+    from repro_torch.kernels import fused_gnn
+    from repro_torch.models.gnn import models
+
+    steps = TRAIN_STEPS[kind]
+    trainer = system.trainer(fresh_model(kind), train_ids)
+    rec = StepRecorder()
+    edge_width = lambda a: a[1].shape[0] * a[0].shape[1]  # noqa: E731  edges x D
+    calls = {
+        "gather_spmm_ragged": LargestCall(models.gnn_gather_aggregate, edge_width),
+        "gather_spmm_ragged_backward": LargestCall(fused_gnn.gather_spmm_ragged_backward,
+                                                   edge_width),
+        "gat_softmax_aggregate_backward": LargestCall(fused_gnn.gat_softmax_aggregate_backward,
+                                                      lambda a: a[2].numel()),
+    }
+    fused_gnn.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with rec.patched(), \
+                mock.patch.object(models, "gnn_gather_aggregate", calls["gather_spmm_ragged"]), \
+                mock.patch.object(fused_gnn, "gather_spmm_ragged_backward",
+                                  calls["gather_spmm_ragged_backward"]), \
+                mock.patch.object(fused_gnn, "gat_softmax_aggregate_backward",
+                                  calls["gat_softmax_aggregate_backward"]):
+            tlog = trainer.train(max_steps=steps, log_every=1)
+        torch.cuda.synchronize()
+    finally:
+        trainer.pipeline.close()
+    wall_s = time.perf_counter() - t0
+    got = {k: v for k, v in fused_gnn.LAUNCHES.items() if v}
+    want = {k: v * steps for k, v in PER_STEP[kind].items()}
+    if got != want:
+        fail(f"{kind} training launched {got}, the path implies {want}")
+    for name, n in got.items():
+        launches[name] += n
+    for name, call in calls.items():
+        keep_largest(captured, name, call)
+    losses = tlog.losses
+    if len(losses) != steps or not np.all(np.isfinite(losses)):
+        fail(f"{kind} training losses {losses}")
+    step_ms = rec.device_ms()
+    span_s = sum(step_ms) / 1e3
+    gaps = np.diff(rec.starts) * 1e3
+    b = rec.first
+    info = {
+        "steps": steps,
+        "wall_s": wall_s,
+        "step_wall_ms_mean": wall_s / steps * 1e3,
+        "step_wall_ms_steady_median": float(np.median(gaps)) if gaps.size else None,
+        "step_host_ms_mean": tlog.compute_time / steps * 1e3,
+        "sample_time_s": tlog.sample_time,
+        "step_device_span_ms": step_ms,
+        "device_span_s": span_s,
+        "device_idle_share": 1.0 - span_s / wall_s,
+        "losses": losses,
+        "layer0_batch": {
+            "vertices": int(b.valid.sum()),
+            "padded_vertices": int(b.feats.shape[0]),
+            "edges": int((b.layer_dst[0] >= 0).sum()),
+            "padded_edges": int(b.layer_dst[0].shape[0]),
+        },
+        "launches": got,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    log(f"  train {kind}: " + json.dumps(info))
+    info["first_batch_max_grad_err"] = compare_first_batch(kind, b)
+    return info
+
+
+def determinism(system, kind: str, train_ids, steps: int = 6, cut: int = 3) -> dict:
+    """Two runs from the same start, and a run checkpointed at ``cut`` and
+    resumed in a new trainer, must end with bit-identical parameters and
+    optimizer state."""
+    from repro_torch.train.optim import tree_leaves
+
+    def run(stop, resume=None):
+        tr = system.trainer(fresh_model(kind), train_ids)
+        try:
+            if resume is not None:
+                tr.resume(resume)
+            tr.train(max_steps=stop)
+        finally:
+            tr.pipeline.close()
+        return tr
+
+    def state(tr):
+        return tree_leaves({"params": tr.params, "opt": tr.opt_state})
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(state(a), state(b)))
+
+    first, second = run(steps), run(steps)
+    path = run(cut).save(str(WORKDIR / f"{kind}_step{cut}.npz"), step=cut)
+    resumed = run(steps, resume=path)
+    out = {"steps": steps, "checkpoint_step": cut,
+           "two_runs_bitwise_equal": equal(first, second),
+           "resumed_bitwise_equal": equal(first, resumed)}
+    log(f"  determinism {kind}: " + json.dumps(out))
+    if not (out["two_runs_bitwise_equal"] and out["resumed_bitwise_equal"]):
+        fail(f"{kind} training is not bit-reproducible: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: kernel times at the path's largest shape
 # ---------------------------------------------------------------------------
 
 
@@ -576,6 +928,164 @@ def time_gat(args, launches: int) -> dict:
     }
 
 
+def adjacency(rows, cols, shape):
+    """The CSR matrix with ``A[r, c]`` = the number of edges (r, c): the
+    sparse operand of the gather sums' library yardstick."""
+    ones = torch.ones(rows.shape[0], device=rows.device)
+    coo = torch.sparse_coo_tensor(torch.stack([rows.long(), cols.long()]), ones, shape)
+    return coo.coalesce().to_sparse_csr()
+
+
+def gather_row_dict(name, replaces, launches, err, fn, args, kernel_args, plain, lib, nbytes,
+                    flops, shape) -> dict:
+    from repro_torch.kernels import fused_gnn
+
+    bound, by = bound_ms(nbytes, flops)
+    with torch.no_grad():
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/segment_sum.cu",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": err,
+            "ms": graph_ms(rotating(fn, *args)),
+            "kernel_ms": graph_ms(rotating(fused_gnn.launch_gather_sum, *kernel_args)),
+            "eager_ms": time_ms(rotating(fn, *args)),
+            "plain_ms": time_ms(rotating(plain, *args[:4])),
+            "bound_ms": bound,
+            "bound_by": by,
+            "library_ms": time_ms(rotating(lib, args[0])),
+            "shape": shape,
+        }
+
+
+def time_gather(args, launches: int) -> dict:
+    """Kernel 3 at the training path's largest gather: bound = the distinct
+    gathered rows read once, idx and seg, the output written once."""
+    from repro_torch.kernels import fused_gnn
+    from repro_torch.kernels.ref import gather_spmm_ref
+
+    feats, idx, seg, n, order = args
+    feats = feats.detach()
+    f, d = feats.shape
+    index = fused_gnn.segment_index(seg, n)
+    if int(index[n + 1]):
+        fail("the path's seg was not sorted")
+    ok = (idx >= 0) & (seg >= 0)
+    valid = int(ok.sum())
+    rows = int(torch.unique(idx[ok]).numel())
+    with torch.no_grad():
+        got = fused_gnn.gather_spmm_ragged(feats, idx, seg, n, order)
+    err = check_close(f"gather_spmm_ragged on the path's largest call E={idx.shape[0]} D={d}",
+                      got, gather_spmm_ref(feats, idx, seg, n))
+    a = adjacency(seg[ok], idx[ok], (n, f))
+    check_close("torch.sparse.mm of the CSR adjacency on the same call",
+                torch.sparse.mm(a, feats), got)
+    esize = feats.element_size()
+    return gather_row_dict(
+        "gather_spmm_ragged", "src/repro/kernels/fused_gnn.py:159", launches, err,
+        fused_gnn.gather_spmm_ragged, (feats, idx, seg, n, order),
+        (feats, idx, seg, index, torch.empty_like(got)), gather_spmm_ref,
+        lambda x: torch.sparse.mm(a, x),
+        rows * d * esize + 2 * idx.shape[0] * 4 + n * d * esize, valid * d,
+        {"E": idx.shape[0], "valid_edges": valid, "distinct_rows_read": rows, "F": f, "n": n,
+         "D": d, "dtype": str(feats.dtype)},
+    )
+
+
+def time_gather_backward(args, launches: int) -> dict:
+    """Kernel 3 as the backward of the gathers, at the largest call on the
+    training path: dfeats[f] = sum_{idx[e]==f} grad[seg[e]] over the
+    idx-sorted edges. Bound: the distinct gradient rows read once, idx,
+    seg and the order, the output written once."""
+    from repro_torch.kernels import fused_gnn
+    from repro_torch.kernels.ref import gather_spmm_ragged_backward_ref
+
+    grad, idx, seg, f, order = args
+    grad = grad.detach().contiguous()
+    n, d = grad.shape
+    got = fused_gnn.gather_spmm_ragged_backward(grad, idx, seg, f, order)
+    err = check_close(
+        f"gather_spmm_ragged_backward on the path's largest call E={idx.shape[0]} D={d}",
+        got, gather_spmm_ragged_backward_ref(grad, idx, seg, f))
+    g_idx, g_seg = fused_gnn._swapped(idx, seg, order, n)
+    index = fused_gnn.segment_index(g_seg, f)
+    if int(index[f + 1]):
+        fail("the path's order does not sort idx")
+    ok = (g_idx >= 0) & (g_seg >= 0)
+    valid = int(ok.sum())
+    rows = int(torch.unique(g_idx[ok]).numel())
+    a = adjacency(g_seg[ok], g_idx[ok], (f, n))
+    check_close("torch.sparse.mm of the transposed adjacency on the same call",
+                torch.sparse.mm(a, grad), got)
+    esize = grad.element_size()
+    return gather_row_dict(
+        "gather_spmm_ragged_backward", "src/repro/kernels/fused_gnn.py:159", launches, err,
+        fused_gnn.gather_spmm_ragged_backward, (grad, idx, seg, f, order),
+        (grad, g_idx, g_seg, index, torch.empty_like(got)),
+        gather_spmm_ragged_backward_ref, lambda x: torch.sparse.mm(a, x),
+        rows * d * esize + 3 * idx.shape[0] * 4 + f * d * esize, valid * d,
+        {"E": idx.shape[0], "valid_edges": valid, "distinct_rows_read": rows, "rows_out": f,
+         "grad_rows": n, "D": d, "dtype": str(grad.dtype)},
+    )
+
+
+def plain_gat_backward(grad, logits, msg, seg, index, out, stats):
+    from repro_torch.kernels.ref import gat_softmax_aggregate_backward_ref
+
+    n = grad.shape[0]
+    parts = [gat_softmax_aggregate_backward_ref(grad[:, j], logits[:, j], msg[:, j], seg, n)
+             for j in range(msg.shape[1])]
+    return torch.stack([p[0] for p in parts], 1), torch.stack([p[1] for p in parts], 1)
+
+
+def time_gat_backward(args, launches: int) -> dict:
+    """The GAT backward kernel at the largest call on the training path.
+    Bound: logits, msg, the upstream gradient, out, stats and seg read
+    once; dmsg and dlogit written once."""
+    from repro_torch.kernels import fused_gnn
+
+    grad, logits, msg, seg, index, out, stats = (
+        a.detach().contiguous() if torch.is_tensor(a) else a for a in args
+    )
+    e, h, dh = msg.shape
+    n = out.shape[0]
+    dlogit, dmsg = fused_gnn.gat_softmax_aggregate_backward(grad, logits, msg, seg, index, out,
+                                                            stats)
+    want_l, want_m = plain_gat_backward(grad, logits, msg, seg, index, out, stats)
+    err = check_close(f"gat_softmax_aggregate_backward dmsg on the path's largest call E={e}",
+                      dmsg, want_m)
+    err = max(err, check_close("gat_softmax_aggregate_backward dlogit on the same call",
+                               dlogit, want_l, tol=(1e-4, 1e-5)))
+    valid = int(index[n])
+    esize = msg.element_size()
+    nbytes = (valid * h * (4 + dh * esize) + 2 * n * h * dh * esize + 2 * n * h * 4 + e * 4
+              + e * h * (dh * esize + 4))
+    bound, by = bound_ms(nbytes, valid * h * (4 * dh + 6))
+    dm, dl = torch.empty_like(msg), torch.empty_like(logits)
+    fn_args = (grad, logits, msg, seg, index, out, stats)
+    return {
+        "name": "gat_softmax_aggregate_backward",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gat_softmax_backward.cu",
+        "replaces": "src/repro/kernels/fused_gnn.py:285",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": graph_ms(rotating(fused_gnn.gat_softmax_aggregate_backward, *fn_args)),
+        "kernel_ms": graph_ms(rotating(
+            fused_gnn.launch_gat_softmax_aggregate_backward,
+            logits, msg, out, grad, stats, seg, index, dm, dl)),
+        "eager_ms": time_ms(rotating(fused_gnn.gat_softmax_aggregate_backward, *fn_args)),
+        "plain_ms": time_ms(rotating(plain_gat_backward, *fn_args)),
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,
+        "shape": {"E": e, "valid_edges": valid, "n": n, "H": h, "dh": dh,
+                  "dtype": str(msg.dtype)},
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one CUDA card",
@@ -592,9 +1102,12 @@ def main() -> int:
     log(f"device: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
     t_start = time.perf_counter()
     shutil.rmtree(WORKDIR, ignore_errors=True)
+    WORKDIR.mkdir(parents=True)
 
     build_kernels()
     compare_kernels()
+    compare_training_kernels()
+    dense_forms()
 
     log("phase: build the system (ogbn-paper stand-in, 4 parts, fanouts 15/10/5)")
     t0 = time.perf_counter()
@@ -603,20 +1116,37 @@ def main() -> int:
     log(f"  graph {g.num_vertices} vertices {g.num_edges} edges; "
         f"build {time.perf_counter() - t0:.2f} s")
 
-    launches = {"segment_spmm_ragged": 0, "gat_softmax_aggregate": 0}
+    launches = {k: 0 for k in (
+        "segment_spmm_ragged", "gat_softmax_aggregate", "gather_spmm_ragged",
+        "gather_spmm_ragged_backward", "gat_softmax_aggregate_backward")}
     captured: dict = {}
     log("phase: SAGE 128->256x3, infer_layerwise + serving")
     sage = run_model(system, "sage", "segment_spmm_ragged", launches, captured)
     log("phase: GAT 4 heads 128->256x3, infer_layerwise + serving")
     gat = run_model(system, "gat", "gat_softmax_aggregate", launches, captured)
 
+    train_ids = np.sort(np.random.default_rng(0).choice(g.num_vertices, g.num_vertices // 5,
+                                                        replace=False))
+    log(f"phase: training, {len(train_ids)} training vertices, batch "
+        f"{system.config.batch_size}, prefetch {system.config.prefetch}")
+    trained = {k: train_model(system, k, train_ids, launches, captured) for k in TRAIN_STEPS}
+    log("phase: determinism (two runs, and a checkpoint-resume run)")
+    det = {k: determinism(system, k, train_ids) for k in TRAIN_STEPS}
+
     log("phase: kernel times at the path's largest shapes (CUDA events, 100 calls, "
         f"{COPIES} rotating input copies)")
     rows = [
         time_segment_sum(captured["segment_spmm_ragged"], launches["segment_spmm_ragged"]),
         time_gat(captured["gat_softmax_aggregate"], launches["gat_softmax_aggregate"]),
+        time_gather(captured["gather_spmm_ragged"], launches["gather_spmm_ragged"]),
+        time_gather_backward(captured["gather_spmm_ragged_backward"],
+                             launches["gather_spmm_ragged_backward"]),
+        time_gat_backward(captured["gat_softmax_aggregate_backward"],
+                          launches["gat_softmax_aggregate_backward"]),
     ]
     for r in rows:
+        if r["launches"] <= 0:
+            fail(f"{r['name']} was never launched on the main path")
         log(f"  {r['name']}: ms {r['ms']:.4f} kernel_ms {r['kernel_ms']:.4f} "
             f"eager_ms {r['eager_ms']:.4f} "
             f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) "
@@ -626,6 +1156,14 @@ def main() -> int:
         "gat_infer_wall_s": gat["wall_s"],
         "sage_slice_device_span_ms": sage["slice_device_span_ms"],
         "gat_slice_device_span_ms": gat["slice_device_span_ms"],
+        "serve_bitwise": {"sage": sage["serve"]["bitwise_equal"],
+                          "gat": gat["serve"]["bitwise_equal"]},
+        "train": {k: {"step_wall_ms_mean": v["step_wall_ms_mean"],
+                      "step_wall_ms_steady_median": v["step_wall_ms_steady_median"],
+                      "device_idle_share": v["device_idle_share"],
+                      "first_loss": v["losses"][0], "last_loss": v["losses"][-1]}
+                  for k, v in trained.items()},
+        "determinism": det,
         "total_s": time.perf_counter() - t_start,
     }))
     shutil.rmtree(WORKDIR, ignore_errors=True)

@@ -3,6 +3,7 @@
     from repro_torch.api import GLISPConfig, GLISPSystem
 
     system = GLISPSystem.build(graph, GLISPConfig(num_parts=4))
+    trainer = system.train(model, train_ids, epochs=2)  # on the model's device
     system.infer_layerwise(model_layer_fns, workdir)   # device="cuda"
     server = system.server()
 """
@@ -20,6 +21,7 @@ from repro_torch.api.backends import (
     SamplerBackend,
 )
 from repro_torch.api.config import GLISPConfig
+from repro_torch.api.pipeline import BatchPipeline
 from repro_torch.api.system import GLISPSystem
 from repro_torch.core.faults import (
     CircuitBreaker,
@@ -36,13 +38,23 @@ from repro_torch.core.sampling.service import (
     SamplingService,
     SamplingSpec,
 )
-from repro_torch.core.storage import DFSTier, HybridCache, IOCost, StorageTier
+from repro_torch.core.storage import (
+    ArrayFeatureSource,
+    DFSTier,
+    FeatureSource,
+    HybridCache,
+    IOCost,
+    StorageTier,
+    StoreFeatureSource,
+    as_feature_source,
+)
 from repro_torch.serve import GNNServer, ServeRequest, ServeResponse, ServeStats
 from repro_torch.utils import Registry
 
 __all__ = [
     "GLISPConfig",
     "GLISPSystem",
+    "BatchPipeline",
     "Registry",
     "PartitionPlan",
     "Partitioner",
@@ -68,6 +80,10 @@ __all__ = [
     "HybridCache",
     "IOCost",
     "StorageTier",
+    "FeatureSource",
+    "ArrayFeatureSource",
+    "StoreFeatureSource",
+    "as_feature_source",
     "PARTITIONERS",
     "SAMPLERS",
     "REORDERS",

@@ -4,12 +4,15 @@
 
     system = GLISPSystem.build(g, GLISPConfig(num_parts=4, fanouts=(15, 10, 5)))
     sub = system.sample(seeds)                          # Gather-Apply K-hop
+    for seeds, batch in system.loader(train_ids):       # prefetching pipeline
+        ...
+    trainer = system.train(model, train_ids, epochs=2)  # on the model's device
     result = system.infer_layerwise(layer_fns, workdir)  # on the card
     server = system.server()                            # online serving
 
-Counterpart of ``repro/api/system.py`` for this slice: build, sampling,
-layerwise inference and serving. The training surfaces (``loader``,
-``trainer``, ``train``, ``dp_trainer``) come with the training slice.
+Counterpart of ``repro/api/system.py``: build, sampling, the batch
+pipeline, training, layerwise inference and serving. ``dp_trainer`` (data
+parallel) comes in a later slice.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from repro_torch.api.backends import (
     SamplerBackend,
 )
 from repro_torch.api.config import GLISPConfig
+from repro_torch.api.pipeline import BatchPipeline
 from repro_torch.graph.graph import GraphPartition, HeteroGraph
 from repro_torch.graph.metrics import partition_metrics
 
@@ -181,6 +185,130 @@ class GLISPSystem:
 
     def reset_stats(self) -> None:
         self.backend.reset_stats()
+
+    # -- batch pipeline ------------------------------------------------
+    def loader(
+        self,
+        seeds: np.ndarray,
+        num_layers: int | None = None,
+        *,
+        batch_size: int | None = None,
+        prefetch: int | None = None,
+        seed: int | None = None,
+        fanouts=None,
+        spec=None,
+        inflight: int | None = None,
+        feature_source=None,
+        device="cuda",
+    ) -> BatchPipeline:
+        """A prefetching seed->batch pipeline over this system's service,
+        yielding batches on ``device``.
+
+        ``feature_source`` (a ``repro_torch.core.storage.FeatureSource``)
+        swaps the in-memory feature matrix for e.g. a disk-backed tiered
+        store; batches are bit-identical either way."""
+        cfg = self.config
+        partition_of = (
+            self.plan.vertex_owner if cfg.balance_partitions else None
+        )
+        if spec is None:
+            spec = cfg.sampling_spec(fanouts=fanouts)
+        elif fanouts is not None:
+            raise ValueError("pass either a SamplingSpec or fanouts, not both")
+        return BatchPipeline(
+            self.backend,
+            self.graph,
+            seeds,
+            list(spec.fanouts),
+            num_layers if num_layers is not None else len(spec.fanouts),
+            batch_size=batch_size if batch_size is not None else cfg.batch_size,
+            spec=spec,
+            prefetch=prefetch if prefetch is not None else cfg.prefetch,
+            inflight=inflight if inflight is not None else cfg.inflight,
+            seed=cfg.seed if seed is None else seed,
+            partition_of=partition_of,
+            balance_partitions=cfg.balance_partitions,
+            vertex_quantum=cfg.vertex_quantum,
+            edge_quantum=cfg.edge_quantum,
+            feature_source=feature_source,
+            ticket_timeout=cfg.ticket_timeout,
+            worker_respawns=cfg.worker_respawns,
+            device=device,
+        )
+
+    # -- training ------------------------------------------------------
+    def trainer(
+        self,
+        model,
+        train_ids: np.ndarray,
+        *,
+        opt=None,
+        batch_size: int | None = None,
+        prefetch: int | None = None,
+        worker_cores: tuple | None = None,
+        spec=None,
+        inflight: int | None = None,
+        feature_source=None,
+    ):
+        """A ``GNNTrainer`` wired to this system's backend and config; it
+        trains ``model``'s parameters in place, on the model's device."""
+        from repro_torch.train.loop import GNNTrainer  # lazy: avoids import cycle
+
+        cfg = self.config
+        spec = spec if spec is not None else cfg.sampling_spec()
+        return GNNTrainer(
+            model,
+            self.backend,
+            self.graph,
+            list(spec.fanouts),
+            train_ids,
+            batch_size=batch_size if batch_size is not None else cfg.batch_size,
+            opt=opt,
+            spec=spec,
+            seed=cfg.seed,
+            prefetch=prefetch if prefetch is not None else cfg.prefetch,
+            inflight=inflight if inflight is not None else cfg.inflight,
+            worker_cores=worker_cores,
+            partition_of=(
+                self.plan.vertex_owner if cfg.balance_partitions else None
+            ),
+            balance_partitions=cfg.balance_partitions,
+            feature_source=feature_source,
+            checkpoint_dir=cfg.checkpoint_dir,
+            checkpoint_every=cfg.checkpoint_every,
+            ticket_timeout=cfg.ticket_timeout,
+            worker_respawns=cfg.worker_respawns,
+        )
+
+    def train(
+        self,
+        model,
+        train_ids: np.ndarray,
+        *,
+        epochs: int = 1,
+        opt=None,
+        log_every: int = 10,
+        batch_size: int | None = None,
+        prefetch: int | None = None,
+        worker_cores: tuple | None = None,
+    ):
+        """Build a trainer, run ``epochs``, return the (trained) trainer."""
+        tr = self.trainer(
+            model,
+            train_ids,
+            opt=opt,
+            batch_size=batch_size,
+            prefetch=prefetch,
+            worker_cores=worker_cores,
+        )
+        tr.train(epochs=epochs, log_every=log_every)
+        return tr
+
+    def dp_trainer(self, *args, **kwargs):
+        """The data-parallel trainer of the reference; not in the port yet."""
+        raise NotImplementedError(
+            "the data-parallel trainer (repro.train.data_parallel) is not ported yet"
+        )
 
     # -- layerwise inference -------------------------------------------
     def infer_layerwise(

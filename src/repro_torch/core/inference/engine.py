@@ -11,10 +11,11 @@ the graph reorder algorithm (PDS by default).
 Execution modes
 ---------------
 ``mode="bucketed"`` (default) is the device path: each batch's
-(self, nbr, seg, etype) arrays are padded to a power-of-two shape bucket,
-copied to the device once, run through the layer's tensor slice
+(self, nbr, seg, etype) arrays are copied to the device once, padded there
+to a power-of-two shape bucket, run through the layer's tensor slice
 (``layer_fn.torch``, see ``GNNModel.embed_layer_fn``), and the result is
-copied back once. Plain numpy layer callables still work and get the
+copied back once. Online batches (:meth:`run_layer_batch`) all run at one
+fixed shape instead (:meth:`serving_shape`). Plain numpy layer callables still work and get the
 vectorized gather without the device copies.
 
 ``mode="reference"`` keeps the per-vertex slice-and-concatenate gathers
@@ -312,6 +313,18 @@ class LayerwiseInferenceEngine:
                     return int(cap)
         return _pow2_ceil(e, 256)
 
+    def serving_shape(self, k: int, b: int, e: int) -> tuple[int, int]:
+        """The padded (vertex, edge) shape of an online batch of ``b`` rows
+        and ``e`` edges at layer ``k``: one fixed shape, the buckets of the
+        batcher's capacity (``batch_size`` rows, ``batch_size * fanout``
+        edges). A row then meets the same matmul shapes whether its request
+        was served alone or in any batch; cuBLAS picks its algorithm, and
+        with it a row's bits, per shape. A batch beyond the capacity (an
+        oversized first request) takes the bucket of its own size."""
+        cap = self.batch_size
+        bp = self._vertex_bucket(cap) if b <= cap else _pow2_ceil(b, 64)
+        return bp, self._edge_bucket(max(e, cap * self.fanouts[k]))
+
     def _slice_fn(self, layer_fn):
         """The layer's tensor slice for the bucketed path, or None (the
         numpy callable runs eagerly)."""
@@ -488,26 +501,28 @@ class LayerwiseInferenceEngine:
     # -- online serving entry point --------------------------------------
     def run_layer_batch(self, k, h_self, h_nbr, seg, et=None) -> np.ndarray:
         """One layer-``k`` slice over an online batch, outside ``run()``,
-        through the same bucket ladder and device slice as the offline
-        path. Falls back to the plain numpy layer callable when the layer
-        has no tensor slice."""
+        through the offline path's device slice at the fixed
+        :meth:`serving_shape`. Falls back to the plain numpy layer callable
+        when the layer has no tensor slice."""
         layer_fn = self.layer_fns[k]
         slice_fn = self._slice_fn(layer_fn)
         if slice_fn is not None:
             shim = _ServeSliceStats()
-            return self._run_slice(k, slice_fn, h_self, h_nbr, seg, et, shim)
+            shape = self.serving_shape(k, h_self.shape[0], seg.shape[0])
+            return self._run_slice(k, slice_fn, h_self, h_nbr, seg, et, shim, shape=shape)
         if getattr(layer_fn, "needs_etype", False):
             return np.asarray(layer_fn(k, h_self, h_nbr, seg, et))
         return np.asarray(layer_fn(k, h_self, h_nbr, seg))
 
     # -- bucketed device execution --------------------------------------
-    def _run_slice(self, k, slice_fn, h_self, h_nbr, seg, et, result, stats=None):
-        """Pad one batch to its (vertex, edge) shape bucket and run the
-        tensor slice: one host→device copy per padded array, one
+    def _run_slice(self, k, slice_fn, h_self, h_nbr, seg, et, result, stats=None, shape=None):
+        """Run the tensor slice over one batch padded to ``shape`` (default:
+        its (vertex, edge) shape bucket): one host→device copy of each
+        array's real rows into a device buffer of the padded shape, one
         device→host copy of the result. Padding rows are zero and padding
         edges have ``seg == -1`` at the tail."""
         b, e = h_self.shape[0], seg.shape[0]
-        bp, ep = self._vertex_bucket(b), self._edge_bucket(e)
+        bp, ep = shape or (self._vertex_bucket(b), self._edge_bucket(e))
         key = (k, bp, ep)
         if key not in self._shapes_seen:
             self._shapes_seen.add(key)
@@ -515,20 +530,20 @@ class LayerwiseInferenceEngine:
         self._shapes_lifetime.add(key)
         if stats is not None:
             stats.note_batch(b, bp, e, ep)
-        hs = np.zeros((bp, h_self.shape[1]), h_self.dtype)
-        hs[:b] = h_self
-        hn = np.zeros((ep, h_nbr.shape[1]), h_nbr.dtype)
-        hn[:e] = h_nbr
-        sg = np.full(ep, -1, np.int32)
-        sg[:e] = seg
-        etp = np.zeros(ep, np.int32)
-        if et is not None:
-            etp[:e] = et
         dev = self.device
+
+        def padded(a, rows, fill):
+            a = np.ascontiguousarray(a)
+            buf = torch.full((rows,) + a.shape[1:], fill, dtype=torch.from_numpy(a).dtype,
+                             device=dev)
+            buf[: a.shape[0]] = torch.from_numpy(a).to(dev)
+            return buf
+
         out = slice_fn(
-            torch.from_numpy(hs).to(dev),
-            torch.from_numpy(hn).to(dev),
-            torch.from_numpy(sg).to(dev),
-            torch.from_numpy(etp).to(dev),
+            padded(h_self, bp, 0),
+            padded(h_nbr, ep, 0),
+            padded(seg.astype(np.int32, copy=False), ep, -1),
+            padded(np.zeros(0, np.int32) if et is None else et.astype(np.int32, copy=False),
+                   ep, 0),
         )
         return out[:b].cpu().numpy()

@@ -7,9 +7,9 @@ input features (training):
     MemoryTier/DiskTier  bounded cache tiers above it (STORAGE_TIERS)
     CACHE_POLICIES   fifo | lru | locality eviction policies
     HybridCache      the ordered tier stack with plan_fill()/evict()
+    FeatureSource    the training-side feature-fetch surface
 
-A copy of ``repro.core.storage``; the training-side ``FeatureSource``
-(``features.py``) comes with the training slice.
+A copy of ``repro.core.storage``.
 """
 from repro_torch.core.storage.store import (
     ChunkCorruptionError,
@@ -36,14 +36,22 @@ from repro_torch.core.storage.policies import (
     resolve_policy,
 )
 from repro_torch.core.storage.hybrid import FillPlan, HybridCache, HybridStats, build_tiers
+from repro_torch.core.storage.features import (
+    ArrayFeatureSource,
+    FeatureSource,
+    StoreFeatureSource,
+    as_feature_source,
+)
 
 __all__ = [
+    "ArrayFeatureSource",
     "CACHE_POLICIES",
     "ChunkCorruptionError",
     "ChunkReadError",
     "DFSTier",
     "DiskTier",
     "EvictionPolicy",
+    "FeatureSource",
     "FifoPolicy",
     "FillPlan",
     "HybridCache",
@@ -54,8 +62,10 @@ __all__ = [
     "MemoryTier",
     "STORAGE_TIERS",
     "StorageTier",
+    "StoreFeatureSource",
     "StoreStats",
     "TierStats",
+    "as_feature_source",
     "block_checksum",
     "build_tiers",
     "chunk_runs",

@@ -36,9 +36,15 @@ SIGNATURES = {
     "segment_sum": {
         "segment_offsets": (_p, _c, _c, _p, _p),
         "segment_sum": (_p, _p, _c, _p, _c, _c, _c, _c, _c, _p, _p),
+        "gather_segment_sum": (_p, _p, _p, _c, _p, _c, _c, _c, _c, _c, _p, _p),
     },
     "gat_softmax_aggregate": {
-        "gat_softmax_aggregate": (_p, _p, _p, _c, _p, _c, _c, _c, _c, _c, _c, _p, _p),
+        "gat_softmax_aggregate": (_p, _p, _p, _c, _p, _c, _c, _c, _c, _c, _c, _p, _p, _p),
+    },
+    "gat_softmax_backward": {
+        "gat_softmax_aggregate_backward": (
+            _p, _p, _p, _p, _p, _p, _c, _p, _c, _c, _c, _c, _c, _c, _p, _p, _p,
+        ),
     },
 }
 

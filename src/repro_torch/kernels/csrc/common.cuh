@@ -46,6 +46,17 @@ __device__ __forceinline__ void for_each_edge(int row, int n, const int* __restr
   }
 }
 
+// Sum of `v` over the `tpr` lanes of this thread's group (tpr a power of two
+// up to 32; groups are aligned within the warp, as every kernel here lays
+// them out). Every lane of the group gets the total; the butterfly order is
+// fixed, so the result is the same on every run.
+__device__ __forceinline__ float group_sum(float v, int tpr) {
+  const unsigned base = (threadIdx.x & 31u) & ~static_cast<unsigned>(tpr - 1);
+  const unsigned mask = tpr == 32 ? 0xffffffffu : ((1u << tpr) - 1u) << base;
+  for (int off = tpr / 2; off > 0; off /= 2) v += __shfl_xor_sync(mask, v, off, tpr);
+  return v;
+}
+
 template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];

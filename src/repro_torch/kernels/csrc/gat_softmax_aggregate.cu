@@ -14,7 +14,10 @@
 // kernel does. The work is bound by the bytes of `msg`; the exp per edge
 // is recomputed by each lane of a group instead of being shared, which
 // costs no memory traffic. No atomics, so a row's result is batch-order
-// independent.
+// independent. For training, the kernel also writes each (row, head)'s max
+// and denominator (m_out, z_out, when not null), the running max and
+// denominator the TPU kernel outputs too; the backward
+// (gat_softmax_backward.cu) recomputes each edge's weight from them.
 #include "common.cuh"
 
 namespace repro_torch {
@@ -27,7 +30,9 @@ __global__ void gat_softmax_aggregate_kernel(const float* __restrict__ logits,
                                              const int* __restrict__ seg, int E,
                                              const int* __restrict__ row_ptr,
                                              const int* __restrict__ unsorted, int n, int H,
-                                             int dh, int tpr, T* __restrict__ out) {
+                                             int dh, int tpr, T* __restrict__ out,
+                                             float* __restrict__ m_out,
+                                             float* __restrict__ z_out) {
   const long long g = static_cast<long long>(blockIdx.x) * (blockDim.x / tpr) + threadIdx.x / tpr;
   const int lane = threadIdx.x % tpr;
   if (g >= static_cast<long long>(n) * H) return;
@@ -52,6 +57,10 @@ __global__ void gat_softmax_aggregate_kernel(const float* __restrict__ logits,
 #pragma unroll
       for (int i = 0; i < VEC; ++i) acc[i] += p * x[i];
     });
+    if (c == 0 && m_out != nullptr) {
+      m_out[g] = m;
+      z_out[g] = z;
+    }
     const float zc = fmaxf(z, 1e-9f);
 #pragma unroll
     for (int i = 0; i < VEC; ++i) acc[i] = acc[i] / zc;
@@ -62,13 +71,14 @@ __global__ void gat_softmax_aggregate_kernel(const float* __restrict__ logits,
 template <typename T, int VEC>
 static cudaError_t launch_gat(const float* logits, const void* msg, const int* seg, int E,
                               const int* row_ptr, const int* unsorted, int n, int H, int dh,
-                              int tpr, void* out, cudaStream_t stream) {
+                              int tpr, void* out, float* m_out, float* z_out,
+                              cudaStream_t stream) {
   const int groups_per_block = kThreads / tpr;
   const long long groups = static_cast<long long>(n) * H;
   const long long blocks = (groups + groups_per_block - 1) / groups_per_block;
   gat_softmax_aggregate_kernel<T, VEC><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       logits, static_cast<const T*>(msg), seg, E, row_ptr, unsorted, n, H, dh, tpr,
-      static_cast<T*>(out));
+      static_cast<T*>(out), m_out, z_out);
   return cudaGetLastError();
 }
 
@@ -77,17 +87,22 @@ static cudaError_t launch_gat(const float* logits, const void* msg, const int* s
 using namespace repro_torch;
 
 // logits [E, H] float32, msg [E, H, dh] (dtype), seg [E], index [n + 2]
-// from segment_offsets (segment_sum.cu), out [n, H, dh] (dtype).
+// from segment_offsets (segment_sum.cu), out [n, H, dh] (dtype); stats
+// null, or float32 [2, n, H] for the max and the denominator of each
+// (row, head).
 extern "C" int gat_softmax_aggregate(const void* logits, const void* msg, const void* seg, int E,
                                      const void* index, int n, int H, int dh, int dtype, int vec,
-                                     int tpr, void* out, void* stream) {
+                                     int tpr, void* out, void* stats, void* stream) {
   if (n == 0 || H == 0) return 0;
   const float* lg = static_cast<const float*>(logits);
   const int* sg = static_cast<const int*>(seg);
   const int* rp = static_cast<const int*>(index);
   const int* un = rp + n + 1;
+  float* m_out = static_cast<float*>(stats);
+  float* z_out = m_out == nullptr ? nullptr : m_out + static_cast<size_t>(n) * H;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_GAT(T, V) launch_gat<T, V>(lg, msg, sg, E, rp, un, n, H, dh, tpr, out, s)
+#define REPRO_GAT(T, V) \
+  launch_gat<T, V>(lg, msg, sg, E, rp, un, n, H, dh, tpr, out, m_out, z_out, s)
   if (dtype == kF32) {
     switch (vec) {
       case 4: return REPRO_GAT(float, 4);

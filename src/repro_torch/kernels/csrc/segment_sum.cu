@@ -1,14 +1,23 @@
-// Sorted-segment (CSR) sum: out[r] = sum of msg[e] over the edges of row r.
+// Sorted-segment (CSR) sums, with or without a gather:
+//   segment_sum:        out[r] = sum of msg[e] over the edges e of row r
+//   gather_segment_sum: out[r] = sum of feats[idx[e]] over the edges e of row r
 //
-// Replaces src/repro/kernels/fused_gnn.py::segment_spmm_ragged_pallas, which
-// turns the scatter into a one-hot matmul per edge tile for the TPU's MXU.
-// On Hopper the sum does no arithmetic worth a tensor core (one add per
-// element read), so it is bound by the bytes of `msg`. Each row is reduced
-// by a group of `tpr` threads that walks the row's edge slots in order with
-// 16-byte loads per thread and a float accumulator per column; the row is
-// written once, cast to the message dtype at the end. No float atomics:
-// the sum order of a row is fixed by the edge order, so a row's result is
-// the same in any batch.
+// segment_sum replaces src/repro/kernels/fused_gnn.py::segment_spmm_ragged_pallas,
+// gather_segment_sum replaces fused_gnn.py::gather_spmm_ragged_pallas (and,
+// unpadded with unsorted ids, the dense gather_spmm_pallas / segment_spmm_pallas
+// call forms). The TPU kernels turn the scatter into a one-hot matmul per
+// edge tile for the MXU, with the gather done inside the tile so the [E, D]
+// message array never exists. On Hopper the sum does no arithmetic worth a
+// tensor core (one add per element read), so it is bound by the bytes of the
+// rows it reads. Each row is reduced by a group of `tpr` threads that walks
+// the row's edge slots in order with 16-byte loads per thread and a float
+// accumulator per column; the gather form reads the row through `idx` in the
+// load (idx < 0 drops the edge), so it too never writes an [E, D] array. The
+// row is written once, cast to the dtype at the end. No float atomics: the
+// sum order of a row is fixed by its edge order, so a row's result is the
+// same in any batch and on every run. The training backward of the gather
+// is the gather form itself over the edges sorted by idx, with idx and seg
+// swapped (kernels/fused_gnn.py).
 #include "common.cuh"
 
 namespace repro_torch {
@@ -28,8 +37,11 @@ __global__ void segment_offsets_kernel(const int* __restrict__ seg, int E, int n
   if (e > 0 && e < E && hi < lo - 1) *unsorted = 1;
 }
 
-template <typename T, int VEC>
-__global__ void segment_sum_kernel(const T* __restrict__ msg, const int* __restrict__ seg, int E,
+// GATHER false: row r sums src[e]; true: row r sums src[idx[e]], skipping
+// idx[e] < 0.
+template <typename T, int VEC, bool GATHER>
+__global__ void segment_sum_kernel(const T* __restrict__ src, const int* __restrict__ idx,
+                                   const int* __restrict__ seg, int E,
                                    const int* __restrict__ row_ptr,
                                    const int* __restrict__ unsorted, int n, int D, int tpr,
                                    T* __restrict__ out) {
@@ -42,8 +54,13 @@ __global__ void segment_sum_kernel(const T* __restrict__ msg, const int* __restr
 #pragma unroll
     for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
     for_each_edge(row, n, row_ptr, seg, E, scan, [&](int e) {
+      int r = e;
+      if constexpr (GATHER) {
+        r = idx[e];
+        if (r < 0) return;
+      }
       float x[VEC];
-      load_vec<VEC>(msg + static_cast<size_t>(e) * D + c, x);
+      load_vec<VEC>(src + static_cast<size_t>(r) * D + c, x);
 #pragma unroll
       for (int i = 0; i < VEC; ++i) acc[i] += x[i];
     });
@@ -51,15 +68,45 @@ __global__ void segment_sum_kernel(const T* __restrict__ msg, const int* __restr
   }
 }
 
-template <typename T, int VEC>
-static cudaError_t launch_sum(const void* msg, const int* seg, int E, const int* row_ptr,
-                              const int* unsorted, int n, int D, int tpr, void* out,
-                              cudaStream_t stream) {
+template <typename T, int VEC, bool GATHER>
+static cudaError_t launch_sum(const void* src, const int* idx, const int* seg, int E,
+                              const int* row_ptr, const int* unsorted, int n, int D, int tpr,
+                              void* out, cudaStream_t stream) {
   const int rows_per_block = kThreads / tpr;
   const int blocks = (n + rows_per_block - 1) / rows_per_block;
-  segment_sum_kernel<T, VEC><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(msg), seg, E, row_ptr, unsorted, n, D, tpr, static_cast<T*>(out));
+  segment_sum_kernel<T, VEC, GATHER><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(src), idx, seg, E, row_ptr, unsorted, n, D, tpr,
+      static_cast<T*>(out));
   return cudaGetLastError();
+}
+
+template <bool GATHER>
+static int dispatch_sum(const void* src, const void* idx, const void* seg, int E,
+                        const void* index, int n, int D, int dtype, int vec, int tpr, void* out,
+                        void* stream) {
+  if (n == 0) return 0;
+  const int* ix = static_cast<const int*>(idx);
+  const int* sg = static_cast<const int*>(seg);
+  const int* rp = static_cast<const int*>(index);
+  const int* un = rp + n + 1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_SUM(T, V) launch_sum<T, V, GATHER>(src, ix, sg, E, rp, un, n, D, tpr, out, s)
+  if (dtype == kF32) {
+    switch (vec) {
+      case 4: return REPRO_SUM(float, 4);
+      case 2: return REPRO_SUM(float, 2);
+      case 1: return REPRO_SUM(float, 1);
+    }
+  } else if (dtype == kBF16) {
+    switch (vec) {
+      case 8: return REPRO_SUM(__nv_bfloat16, 8);
+      case 4: return REPRO_SUM(__nv_bfloat16, 4);
+      case 2: return REPRO_SUM(__nv_bfloat16, 2);
+      case 1: return REPRO_SUM(__nv_bfloat16, 1);
+    }
+  }
+#undef REPRO_SUM
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace repro_torch
@@ -81,24 +128,13 @@ extern "C" int segment_offsets(const void* seg, int E, int n, void* index, void*
 // chosen by the wrapper.
 extern "C" int segment_sum(const void* msg, const void* seg, int E, const void* index, int n,
                            int D, int dtype, int vec, int tpr, void* out, void* stream) {
-  if (n == 0) return 0;
-  const int* sg = static_cast<const int*>(seg);
-  const int* rp = static_cast<const int*>(index);
-  const int* un = rp + n + 1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) {
-    switch (vec) {
-      case 4: return launch_sum<float, 4>(msg, sg, E, rp, un, n, D, tpr, out, s);
-      case 2: return launch_sum<float, 2>(msg, sg, E, rp, un, n, D, tpr, out, s);
-      case 1: return launch_sum<float, 1>(msg, sg, E, rp, un, n, D, tpr, out, s);
-    }
-  } else if (dtype == kBF16) {
-    switch (vec) {
-      case 8: return launch_sum<__nv_bfloat16, 8>(msg, sg, E, rp, un, n, D, tpr, out, s);
-      case 4: return launch_sum<__nv_bfloat16, 4>(msg, sg, E, rp, un, n, D, tpr, out, s);
-      case 2: return launch_sum<__nv_bfloat16, 2>(msg, sg, E, rp, un, n, D, tpr, out, s);
-      case 1: return launch_sum<__nv_bfloat16, 1>(msg, sg, E, rp, un, n, D, tpr, out, s);
-    }
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_sum<false>(msg, nullptr, seg, E, index, n, D, dtype, vec, tpr, out, stream);
+}
+
+// feats [F, D] (dtype), idx [E] int32 rows of feats (-1 = padding), seg [E],
+// index [n + 2] from segment_offsets over seg, out [n, D] (dtype).
+extern "C" int gather_segment_sum(const void* feats, const void* idx, const void* seg, int E,
+                                  const void* index, int n, int D, int dtype, int vec, int tpr,
+                                  void* out, void* stream) {
+  return dispatch_sum<true>(feats, idx, seg, E, index, n, D, dtype, vec, tpr, out, stream);
 }

@@ -1,22 +1,35 @@
-"""Hopper kernels of the GNN inference path and their wrappers.
+"""Hopper kernels of the GNN path, their wrappers and their backwards.
 
 * :func:`segment_spmm_ragged` replaces
   ``repro/kernels/fused_gnn.py::segment_spmm_ragged_pallas`` (``:220``);
   kernel in ``csrc/segment_sum.cu``. :func:`segment_sum_and_count` runs it
   twice over one CSR index: the sum, and the edges per row (D = 1).
+* :func:`gather_spmm_ragged` replaces
+  ``repro/kernels/fused_gnn.py::gather_spmm_ragged_pallas`` (``:159``):
+  ``out[s] = sum_{seg[e]==s} feats[idx[e]]`` with the gather done in the
+  load of the same kernel (``gather_segment_sum``), so no [E, D] message
+  array is written. It is differentiable in ``feats``: the backward is the
+  same kernel over the edges sorted by ``idx``, with ``idx`` and ``seg``
+  swapped (``dfeats[f] = sum_{idx[e]==f} grad[seg[e]]``).
+* :func:`gather_rows` is the plain gather ``x[idx]`` (zero rows where
+  ``idx < 0``) whose backward, a scatter-add, is that kernel again over the
+  idx-sorted order: no float atomics, so the gradient has the same bits on
+  every run.
 * :func:`gat_softmax_aggregate` replaces
   ``repro/kernels/fused_gnn.py::gat_softmax_aggregate_pallas`` (``:285``);
   kernel in ``csrc/gat_softmax_aggregate.cu``. It takes one head (logits
   [E], msg [E, D]) as the TPU kernel does, or all heads at once (logits
-  [E, H], msg [E, H, dh]) in one launch.
+  [E, H], msg [E, H, dh]) in one launch. When autograd needs it, the
+  forward keeps each (row, head)'s max and denominator, and the backward
+  is one kernel (``csrc/gat_softmax_backward.cu``).
 
-Both are bound by the bytes of the messages: a sum adds one float per
-element read, and the softmax adds one exp per edge and head. The TPU
-kernels multiply one-hot tiles on the MXU because a scatter is slow there;
-on Hopper each destination row is a contiguous run of edges (a CSR row),
-reduced by a small thread group with 16-byte loads, float accumulation
-and no atomics. That keeps every row's sum order fixed by its own edges,
-so a batched row equals the same row computed alone.
+All are bound by bytes: a sum adds one float per element read, and the
+softmax adds one exp per edge and head. The TPU kernels multiply one-hot
+tiles on the MXU because a scatter is slow there; on Hopper each
+destination row is a contiguous run of edges (a CSR row), reduced by a
+small thread group with 16-byte loads, float accumulation and no atomics.
+That keeps every row's sum order fixed by its own edges, so a batched row
+equals the same row computed alone, and a training run repeats bit for bit.
 
 Sorted input. The engine and the server pass ``seg`` non-decreasing with
 the padding (-1) at the tail. A first kernel derives the CSR row offsets
@@ -27,28 +40,51 @@ sort gives. So any ``seg`` gives what the TPU kernel gives, and the
 wrappers never wait for the card.
 
 Dispatch follows the tensors' device: a CPU tensor goes to the plain
-version in ``ref.py``; a CUDA tensor launches the kernel or raises. Each
-kernel launch adds one to ``LAUNCHES[name]``.
+version in ``ref.py`` (autograd runs through it); a CUDA tensor launches
+the kernel or raises. Each kernel launch adds one to ``LAUNCHES[name]``,
+under the name of the call form: the gather kernel counts under
+``gather_spmm_ragged`` (forward) and ``gather_spmm_ragged_backward`` (the
+backwards of both the gather aggregate and :func:`gather_rows`).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.kernels.build import check, library
-from repro_torch.kernels.ref import gat_softmax_aggregate_ref, segment_spmm_ref
+from repro_torch.kernels.ref import (
+    gat_softmax_aggregate_ref,
+    gather_spmm_ragged_backward_ref,
+    gather_spmm_ref,
+    segment_spmm_ref,
+)
 
 __all__ = [
     "LAUNCHES",
     "reset_launches",
     "segment_index",
+    "sort_order",
     "launch_segment_sum",
+    "launch_gather_sum",
     "launch_gat_softmax_aggregate",
+    "launch_gat_softmax_aggregate_backward",
     "segment_spmm_ragged",
     "segment_sum_and_count",
+    "gather_spmm_ragged",
+    "gather_spmm_ragged_backward",
+    "gather_rows",
     "gat_softmax_aggregate",
+    "gat_softmax_aggregate_backward",
 ]
 
-LAUNCHES = {"segment_spmm_ragged": 0, "gat_softmax_aggregate": 0}
+LAUNCHES = {
+    "segment_spmm_ragged": 0,
+    "gat_softmax_aggregate": 0,
+    "gather_spmm_ragged": 0,
+    "gather_spmm_ragged_backward": 0,
+    "gat_softmax_aggregate_backward": 0,
+}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2**31 - 1
@@ -68,12 +104,12 @@ def _is_cpu(*ts: torch.Tensor) -> bool:
     return False
 
 
-def _vec_tpr(row: int, t: torch.Tensor) -> tuple[int, int]:
-    """Elements per load (16 bytes at most, dividing the row and the base
+def _vec_tpr(row: int, *ts: torch.Tensor) -> tuple[int, int]:
+    """Elements per load (16 bytes at most, dividing the row and every base
     address) and threads per row (a power of two up to a warp)."""
-    esize = t.element_size()
+    esize = ts[0].element_size()
     vec = 16 // esize
-    while vec > 1 and (row % vec or t.data_ptr() % (vec * esize)):
+    while vec > 1 and (row % vec or any(t.data_ptr() % (vec * esize) for t in ts)):
         vec //= 2
     tpr = 1
     while tpr < 32 and tpr * vec < row:
@@ -129,12 +165,37 @@ def launch_segment_sum(msg, seg, index, out) -> None:
     check(code, "segment_sum")
 
 
-def launch_gat_softmax_aggregate(logits, msg, seg, index, out) -> None:
+def launch_gather_sum(feats, idx, seg, index, out) -> None:
+    """Launch ``gather_segment_sum`` (``csrc/segment_sum.cu``) on checked
+    CUDA tensors (feats [F, D], idx and seg [E], out [n, D]) and the index
+    of ``seg`` from :func:`segment_index`. Counts nothing."""
+    n, d = out.shape
+    vec, tpr = _vec_tpr(d, feats, out)
+    code = library("segment_sum").gather_segment_sum(
+        feats.data_ptr(),
+        idx.data_ptr(),
+        seg.data_ptr(),
+        seg.shape[0],
+        index.data_ptr(),
+        n,
+        d,
+        _DTYPE_CODE[feats.dtype],
+        vec,
+        tpr,
+        out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream,
+    )
+    check(code, "gather_segment_sum")
+
+
+def launch_gat_softmax_aggregate(logits, msg, seg, index, out, stats=None) -> None:
     """Launch ``csrc/gat_softmax_aggregate.cu`` on checked CUDA tensors
     (float32 logits [E, H], msg [E, H, dh], seg [E], out [n, H, dh]) and the
-    index from :func:`segment_index`. Counts nothing."""
+    index from :func:`segment_index`; ``stats``, when given, float32
+    [2, n, H], receives each (row, head)'s max and denominator. Counts
+    nothing."""
     n, h, dh = out.shape
-    vec, tpr = _vec_tpr(dh, msg)
+    vec, tpr = _vec_tpr(dh, msg, out)
     code = library("gat_softmax_aggregate").gat_softmax_aggregate(
         logits.data_ptr(),
         msg.data_ptr(),
@@ -148,9 +209,42 @@ def launch_gat_softmax_aggregate(logits, msg, seg, index, out) -> None:
         vec,
         tpr,
         out.data_ptr(),
+        None if stats is None else stats.data_ptr(),
         torch.cuda.current_stream().cuda_stream,
     )
     check(code, "gat_softmax_aggregate")
+
+
+def launch_gat_softmax_aggregate_backward(
+    logits, msg, out, grad, stats, seg, index, dmsg, dlogit
+) -> None:
+    """Launch ``csrc/gat_softmax_backward.cu`` on checked CUDA tensors: the
+    forward's float32 logits [E, H], msg [E, H, dh], out [n, H, dh] and
+    stats [2, n, H], the upstream grad [n, H, dh], seg [E] and its index;
+    writes dmsg [E, H, dh] and float32 dlogit [E, H]. Needs n * H > 0.
+    Counts nothing."""
+    n, h, dh = out.shape
+    vec, tpr = _vec_tpr(dh, msg, out, grad, dmsg)
+    code = library("gat_softmax_backward").gat_softmax_aggregate_backward(
+        logits.data_ptr(),
+        msg.data_ptr(),
+        out.data_ptr(),
+        grad.data_ptr(),
+        stats.data_ptr(),
+        seg.data_ptr(),
+        seg.shape[0],
+        index.data_ptr(),
+        n,
+        h,
+        dh,
+        _DTYPE_CODE[msg.dtype],
+        vec,
+        tpr,
+        dmsg.data_ptr(),
+        dlogit.data_ptr(),
+        torch.cuda.current_stream().cuda_stream,
+    )
+    check(code, "gat_softmax_aggregate_backward")
 
 
 def _sum_on_card(msg, seg, num_segments, index) -> torch.Tensor:
@@ -209,6 +303,215 @@ def segment_sum_and_count(
         )
 
 
+def sort_order(idx: torch.Tensor) -> torch.Tensor:
+    """The int32 permutation that stable-sorts ``idx`` with its padding
+    (``idx < 0``) last, on ``idx``'s device: the edge order a gather's
+    backward reads."""
+    key = torch.where(idx < 0, torch.iinfo(torch.int32).max, idx.to(torch.int32))
+    return torch.sort(key, stable=True).indices.to(torch.int32)
+
+
+def _check_index(t: torch.Tensor, e: int, what: str) -> None:
+    if t.dtype != torch.int32 or t.dim() != 1 or t.shape[0] != e:
+        raise TypeError(
+            f"{what} must be a 1-D int32 tensor of {e} edges, got {t.dtype} {tuple(t.shape)}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def _check_gather_args(feats, idx, seg, num_segments, order) -> None:
+    if feats.dtype not in _DTYPE_CODE:
+        raise TypeError(f"feats dtype must be float32 or bfloat16, got {feats.dtype}")
+    if feats.dim() != 2 or not feats.is_contiguous():
+        raise ValueError(f"feats must be a contiguous [F, D] tensor, got {tuple(feats.shape)}")
+    e = idx.shape[0] if idx.dim() == 1 else -1
+    _check_index(idx, e, "idx")
+    _check_index(seg, e, "seg")
+    if order is not None:
+        _check_index(order, e, "idx_order")
+    if not 0 <= num_segments < _INT_MAX or max(e, feats.shape[0]) >= _INT_MAX:
+        raise ValueError(f"sizes out of int32 range: E={e} F={feats.shape[0]} n={num_segments}")
+
+
+def _gather_on_card(feats, idx, seg, num_segments, name) -> torch.Tensor:
+    """Checked CUDA tensors through the gather kernel, counted under
+    ``name``."""
+    d = feats.shape[1]
+    out = torch.empty((num_segments, d), dtype=feats.dtype, device=feats.device)
+    if num_segments == 0 or d == 0:
+        return out
+    launch_gather_sum(feats, idx, seg, segment_index(seg, num_segments), out)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _swapped(idx, seg, order, num_segments):
+    """The backward's (gather index, segment) pairs: the forward's edges
+    in ``order`` (idx-sorted), gathering the upstream gradient at ``seg``
+    (padding where ``seg`` is out of range) into the rows ``idx``."""
+    o = order.long()
+    s = seg[o]
+    s = torch.where((s >= 0) & (s < num_segments), s, -1)
+    return s, idx[o]
+
+
+def gather_spmm_ragged_backward(
+    grad: torch.Tensor,
+    idx: torch.Tensor,
+    seg: torch.Tensor,
+    num_rows: int,
+    idx_order: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """d feats [num_rows, D] of :func:`gather_spmm_ragged` for the upstream
+    ``grad`` [n, D]: ``dfeats[f] = sum_{idx[e]==f} grad[seg[e]]``, the gather
+    kernel over the edges in ``idx_order`` (None: sorted on the card) with
+    idx and seg swapped. CPU tensors take the plain twin."""
+    if _is_cpu(grad, idx, seg):
+        return gather_spmm_ragged_backward_ref(grad, idx, seg, num_rows)
+    grad = grad.contiguous()
+    _check_gather_args(grad, idx, seg, num_rows, idx_order)
+    with torch.cuda.device(grad.device):
+        order = sort_order(idx) if idx_order is None else idx_order
+        g_idx, g_seg = _swapped(idx, seg, order, grad.shape[0])
+        return _gather_on_card(grad, g_idx, g_seg, num_rows, "gather_spmm_ragged_backward")
+
+
+class _GatherSum(torch.autograd.Function):
+    """:func:`gather_spmm_ragged` on checked CUDA tensors; the backward is
+    the same kernel over the idx-sorted edges, idx and seg swapped."""
+
+    @staticmethod
+    def forward(ctx, feats, idx, seg, num_segments, order):
+        ctx.save_for_backward(idx, seg, order)
+        ctx.num_rows = feats.shape[0]
+        return _gather_on_card(feats, idx, seg, num_segments, "gather_spmm_ragged")
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, seg, order = ctx.saved_tensors
+        dfeats = gather_spmm_ragged_backward(grad, idx, seg, ctx.num_rows, order)
+        return dfeats, None, None, None, None
+
+
+def gather_spmm_ragged(
+    feats: torch.Tensor,
+    idx: torch.Tensor,
+    seg: torch.Tensor,
+    num_segments: int,
+    idx_order: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """out[s] = sum over edges e with seg[e] == s of feats[idx[e]], in
+    feats' dtype (float32 accumulation). feats [F, D] float32/bfloat16;
+    idx, seg [E] int32 with -1 padding (idx in [-1, F)).
+
+    Differentiable in ``feats``. ``idx_order`` is the int32 permutation
+    that stable-sorts ``idx`` with the padding last (:func:`sort_order`);
+    the backward reads the edges in that order. Batches carry it; None
+    sorts on the card at the backward. The kernel reads CSR rows when
+    ``seg`` is sorted (padding last) and scans otherwise (see
+    ``segment_index``)."""
+    if _is_cpu(feats, idx, seg):
+        return gather_spmm_ref(feats, idx, seg, num_segments)
+    _check_gather_args(feats, idx, seg, num_segments, idx_order)
+    with torch.cuda.device(feats.device):
+        return _GatherSum.apply(feats, idx, seg, num_segments, idx_order)
+
+
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx] with zero rows where idx < 0."""
+    if x.shape[0] == 0:
+        return x.new_zeros((idx.shape[0],) + tuple(x.shape[1:]))
+    ok = (idx >= 0).view((-1,) + (1,) * (x.dim() - 1))
+    return torch.where(ok, x.index_select(0, idx.clamp_min(0).long()), 0.0)
+
+
+class _GatherRows(torch.autograd.Function):
+    """:func:`gather_rows` on checked CUDA tensors; the backward sums the
+    gradient rows of each ``idx`` value: the gather aggregate's backward
+    with each edge its own segment."""
+
+    @staticmethod
+    def forward(ctx, x, idx, order):
+        ctx.save_for_backward(idx, order)
+        ctx.shape = x.shape
+        return _rows(x, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, order = ctx.saved_tensors
+        g = grad.reshape(grad.shape[0], math.prod(ctx.shape[1:]))
+        each = torch.arange(g.shape[0], dtype=torch.int32, device=g.device)
+        dx = gather_spmm_ragged_backward(g, idx, each, ctx.shape[0], order)
+        return dx.view(ctx.shape), None, None
+
+
+def gather_rows(
+    x: torch.Tensor, idx: torch.Tensor, idx_order: torch.Tensor | None = None
+) -> torch.Tensor:
+    """out[e] = x[idx[e]], zero where idx[e] < 0; x [N, ...], idx [E]
+    int32. Differentiable in ``x``: on the card the backward
+    ``dx[f] = sum_{idx[e]==f} grad[e]`` is the gather kernel over
+    ``idx_order`` (the int32 permutation that stable-sorts ``idx`` with the
+    padding last; None sorts on the card), not an atomic scatter-add, so
+    the gradient has the same bits on every run."""
+    if _is_cpu(x, idx):
+        return _rows(x, idx)
+    if x.dtype not in _DTYPE_CODE or not x.is_contiguous():
+        raise TypeError(f"x must be contiguous float32 or bfloat16, got {x.dtype}")
+    _check_index(idx, idx.shape[0] if idx.dim() == 1 else -1, "idx")
+    if idx_order is not None:
+        _check_index(idx_order, idx.shape[0], "idx_order")
+    with torch.cuda.device(x.device):
+        return _GatherRows.apply(x, idx, idx_order)
+
+
+def _gat_on_card(logits, msg, seg, num_segments, stats):
+    """Checked CUDA tensors (logits [E, H] float32, msg [E, H, dh], n, H,
+    dh > 0) through the forward kernel: (out, CSR index)."""
+    e, h, dh = msg.shape
+    out = torch.empty((num_segments, h, dh), dtype=msg.dtype, device=msg.device)
+    index = segment_index(seg, num_segments)
+    launch_gat_softmax_aggregate(logits, msg, seg, index, out, stats)
+    LAUNCHES["gat_softmax_aggregate"] += 1
+    return out, index
+
+
+class _GatSoftmaxAggregate(torch.autograd.Function):
+    """The all-heads forward kernel, keeping each (row, head)'s max and
+    denominator, and the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, logits, msg, seg, num_segments):
+        stats = torch.empty((2, num_segments, msg.shape[1]), dtype=torch.float32,
+                            device=msg.device)
+        out, index = _gat_on_card(logits, msg, seg, num_segments, stats)
+        ctx.save_for_backward(logits, msg, seg, index, out, stats)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, msg, seg, index, out, stats = ctx.saved_tensors
+        dlogit, dmsg = gat_softmax_aggregate_backward(grad, logits, msg, seg, index, out, stats)
+        return dlogit, dmsg, None, None
+
+
+def gat_softmax_aggregate_backward(grad, logits, msg, seg, index, out, stats):
+    """(d logits [E, H] float32, d msg [E, H, dh]) of the all-heads
+    forward on the card, from the tensors it kept (float32 logits [E, H],
+    msg, seg and its CSR index, out [n, H, dh], stats [2, n, H]) and the
+    upstream ``grad`` [n, H, dh]: one launch of ``csrc/gat_softmax_backward.cu``.
+    The plain twin is ``ref.gat_softmax_aggregate_backward_ref`` (one head)."""
+    dmsg = torch.empty_like(msg)
+    dlogit = torch.empty_like(logits)
+    with torch.cuda.device(msg.device):
+        launch_gat_softmax_aggregate_backward(
+            logits, msg, out, grad.contiguous(), stats, seg, index, dmsg, dlogit
+        )
+    LAUNCHES["gat_softmax_aggregate_backward"] += 1
+    return dlogit, dmsg
+
+
 def gat_softmax_aggregate(
     logits: torch.Tensor, msg: torch.Tensor, seg: torch.Tensor, num_segments: int
 ) -> torch.Tensor:
@@ -216,7 +519,9 @@ def gat_softmax_aggregate(
     ``max(z, 1e-9)`` so empty segments give 0, in msg's dtype.
 
     One head: logits [E], msg [E, D] -> [n, D]. All heads: logits [E, H],
-    msg [E, H, dh] -> [n, H, dh]. Logits are taken as float32."""
+    msg [E, H, dh] -> [n, H, dh]. Logits are taken as float32.
+    Differentiable in logits and msg; on the card the backward is one
+    kernel launch."""
     heads = logits.dim() == 2
     if logits.dim() != msg.dim() - 1 or logits.shape != msg.shape[:-1] or msg.dim() not in (2, 3):
         raise ValueError(
@@ -236,18 +541,14 @@ def gat_softmax_aggregate(
     _check_cuda_args(msg, seg, num_segments)
     h, dh = (msg.shape[1], msg.shape[2]) if heads else (1, msg.shape[1])
     out_shape = (num_segments, h, dh) if heads else (num_segments, dh)
-    out = torch.empty(out_shape, dtype=msg.dtype, device=msg.device)
     if num_segments == 0 or h == 0 or dh == 0:
-        return out
-    lf = logits.to(torch.float32).contiguous()
+        return torch.zeros(out_shape, dtype=msg.dtype, device=msg.device)
+    e = msg.shape[0]
+    lf = logits.to(torch.float32).contiguous().view(e, h)
+    mv = msg.view(e, h, dh)
     with torch.cuda.device(msg.device):
-        e = msg.shape[0]
-        launch_gat_softmax_aggregate(
-            lf.view(e, h),
-            msg.view(e, h, dh),
-            seg,
-            segment_index(seg, num_segments),
-            out.view(num_segments, h, dh),
-        )
-    LAUNCHES["gat_softmax_aggregate"] += 1
-    return out
+        if torch.is_grad_enabled() and (lf.requires_grad or mv.requires_grad):
+            out = _GatSoftmaxAggregate.apply(lf, mv, seg, num_segments)
+        else:
+            out, _ = _gat_on_card(lf, mv, seg, num_segments, None)
+    return out.view(out_shape)

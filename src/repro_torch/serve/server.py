@@ -17,18 +17,19 @@ Request lifecycle (cooperative, single-threaded like ``SamplingService``):
    sampling for everything queued rides in flight together, hiding hop
    latency behind the compute of earlier batches.
 2. ``step`` — the :class:`ContinuousBatcher` packs queue-order requests
-   into the engine's power-of-two shape buckets; partial buckets flush on
-   the ``max_batch_delay_ms`` timer.  Each flushed batch waits on its
-   tickets under the per-request deadline (``SampleTicket.result(timeout=)``),
+   up to the engine's batch size; partial batches flush on the
+   ``max_batch_delay_ms`` timer.  Each flushed batch waits on its tickets
+   under the per-request deadline (``SampleTicket.result(timeout=)``),
    completes deadline-missed requests with explicit ``timeout`` responses,
-   and runs one padded slice through the engine's cached jit — the same
-   (layer, bucket) compile the offline pass already traced.
+   and runs one slice through the engine's device path, padded on the card
+   to the one fixed serving shape (``engine.serving_shape``).
 3. ``response`` / ``drain`` — collect :class:`ServeResponse` objects.
 
-Determinism: each request's sample stream is keyed by its request id and
-its compute rows are padded row-independently, so the returned embeddings
-are bit-identical whether the request was served solo or packed into any
-batch mix (property-tested in tests/test_serve.py).
+Determinism: each request's sample stream is keyed by its request id, its
+compute rows are built row-independently, and every batch runs at the same
+padded shape, so every row meets the same matmul shapes and the returned
+embeddings are bit-identical whether the request was served solo or packed
+into any batch mix, on the CPU and on the card.
 """
 from __future__ import annotations
 
@@ -225,10 +226,11 @@ class GNNServer:
         return len(batch)
 
     def _compute(self, live: list) -> list[np.ndarray]:
-        """One bucketed slice over the batch.  Every request's arrays are
-        built independently and concatenated — segment ids only shift by a
-        base offset and the padded slice is row-independent, so each
-        request's output rows are bit-identical to a solo run."""
+        """One slice over the batch at the fixed serving shape.  Every
+        request's arrays are built independently and concatenated — segment
+        ids only shift by a base offset and the padded slice is
+        row-independent, so each request's output rows are bit-identical to
+        a solo run."""
         engine, g = self.engine, self.system.graph
         selfs, nbrs, segs, ets, metas = [], [], [], [], []
         base = 0
@@ -260,12 +262,8 @@ class GNNServer:
         seg = np.concatenate(segs).astype(np.int64)
         et = np.concatenate(ets).astype(np.int32) if ets else None
         h_new = engine.run_layer_batch(self.layer, h_self, h_nbr, seg, et)
-        self.stats.note_batch(
-            h_self.shape[0],
-            engine._vertex_bucket(h_self.shape[0]),
-            seg.shape[0],
-            engine._edge_bucket(seg.shape[0]),
-        )
+        bp, ep = engine.serving_shape(self.layer, h_self.shape[0], seg.shape[0])
+        self.stats.note_batch(h_self.shape[0], bp, seg.shape[0], ep)
         outs, lo = [], 0
         for (req, _), (nv, _ne) in zip(live, metas):
             block = h_new[lo : lo + nv]

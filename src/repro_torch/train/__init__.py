@@ -1,0 +1,26 @@
+"""Training: the hand-written optimizers, checkpoints and the GNN trainer.
+
+Counterpart of ``repro.train`` for the GNN side; the data-parallel trainer
+and the LM trainer come in later slices."""
+from repro_torch.train.checkpoint import CheckpointError, load_checkpoint, save_checkpoint
+from repro_torch.train.loop import GNNTrainer, TrainLog
+from repro_torch.train.optim import (
+    AdamWConfig,
+    adamw_init,
+    adamw_update,
+    clip_by_global_norm,
+    sgd_update,
+)
+
+__all__ = [
+    "AdamWConfig",
+    "adamw_init",
+    "adamw_update",
+    "sgd_update",
+    "clip_by_global_norm",
+    "CheckpointError",
+    "save_checkpoint",
+    "load_checkpoint",
+    "GNNTrainer",
+    "TrainLog",
+]

@@ -1,9 +1,12 @@
-"""Small shared host helpers: registries, CSR ranges, byte accounting, hashing.
+"""Small shared host helpers: registries, CSR ranges, byte accounting,
+hashing, a prefetching iterator.
 
 A copy of the helpers of ``repro/utils.py`` that this package uses, kept
 here so that the port imports nothing of the JAX package."""
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Generic, Iterator, TypeVar
 
 import numpy as np
@@ -12,6 +15,8 @@ __all__ = [
     "Registry",
     "nbytes_of",
     "ceil_div",
+    "round_up",
+    "prefetch_iterator",
     "stable_hash64",
     "concat_ranges",
     "csr_slots",
@@ -131,6 +136,81 @@ def nbytes_of(obj) -> int:
 
 def ceil_div(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def round_up(a: int, b: int) -> int:
+    return ceil_div(a, b) * b
+
+
+def prefetch_iterator(it, depth: int):
+    """Drain ``it`` on a background thread into a bounded queue of ``depth``
+    items, yielding them in order (double-buffered host/device overlap when
+    ``depth >= 2``).  The single producer preserves the source order, so the
+    stream is bit-identical to iterating ``it`` directly.  ``depth <= 0``
+    yields from ``it`` unchanged.  Producer exceptions re-raise at the
+    consumer.  Closing/abandoning the generator early signals the producer
+    to stop at its next item and unblocks it, so no thread or queued work is
+    pinned for the process lifetime (note: items the source already produced
+    ahead are discarded, and the source iterator is left mid-iteration)."""
+    if depth <= 0:
+        yield from it
+        return
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    _END, _ERR = object(), object()
+
+    def _safe_put(obj) -> bool:
+        """Bounded-wait put that gives up once the consumer signals stop
+        (a plain q.put could block forever against a full queue after the
+        consumer is gone — e.g. the depth=1 end-sentinel)."""
+        while not stop.is_set():
+            try:
+                q.put(obj, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _produce():
+        try:
+            for item in it:
+                if not _safe_put(item):
+                    return
+        except BaseException as exc:  # noqa: BLE001 - re-raised at consumer
+            _safe_put((_ERR, exc))
+            return
+        _safe_put(_END)
+
+    t = threading.Thread(target=_produce, daemon=True, name="glisp-prefetch")
+    t.start()
+    try:
+        while True:
+            try:
+                item = q.get(timeout=1.0)
+            except queue.Empty:
+                # a produced-then-died thread always enqueues _END/_ERR
+                # first, so an empty queue + dead producer means it was
+                # killed without reporting (the process-mode analogue
+                # raises the same way in BatchPipeline._next_msg)
+                if not t.is_alive():
+                    raise RuntimeError(
+                        "prefetch producer thread died without reporting"
+                    )
+                continue
+            if item is _END:
+                break
+            if isinstance(item, tuple) and len(item) == 2 and item[0] is _ERR:
+                raise item[1]
+            yield item
+        t.join()
+    finally:
+        stop.set()
+        while True:  # unblock a producer waiting on the full queue
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                break
+        t.join(timeout=5)
 
 
 def stable_hash64(x: np.ndarray, salt: int = 0) -> np.ndarray:

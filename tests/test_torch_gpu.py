@@ -9,7 +9,10 @@ Tolerances: float32 rtol 1e-5 / atol 1e-5 (the plain version sums with
 atomics in another order). For bfloat16 the plain version runs on the
 inputs upcast to float32 and its result is rounded to bfloat16, as the
 kernels sum in float32 and round once: rtol 1e-2 / atol 1e-2, about one
-rounding of the output.
+rounding of the output. The GAT backward's logit gradient: float32 rtol
+1e-4 / atol 1e-5 (a difference of two dot products, each summed in
+another order). Training runs and served responses are compared bit for
+bit.
 """
 import numpy as np
 import pytest
@@ -18,7 +21,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import fused_gnn  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
+    gat_softmax_aggregate_backward_ref,
     gat_softmax_aggregate_ref,
+    gather_spmm_ragged_backward_ref,
+    gather_spmm_ref,
     segment_spmm_ref,
 )
 
@@ -40,7 +46,8 @@ def _close(got, want, dtype):
     rtol, atol = _TOL[dtype]
     torch.cuda.synchronize()
     np.testing.assert_allclose(
-        got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=rtol, atol=atol
+        got.detach().float().cpu().numpy(), want.detach().float().cpu().numpy(),
+        rtol=rtol, atol=atol,
     )
 
 
@@ -215,3 +222,174 @@ def test_engine_and_server_launch_the_kernels(cuda, tmp_path):
         batched.drain()
         for rid, w in zip(rids, want):
             np.testing.assert_allclose(batched.response(rid).embeddings, w, rtol=1e-5, atol=1e-6)
+
+
+# (edges, rows of feats, segments, width, valid fraction, seed), up to the
+# training path's widths
+GATHER_SWEEP = [
+    (0, 4, 5, 8, 1.0, 0),
+    (37, 9, 11, 3, 1.0, 1),
+    (128, 20, 64, 6, 0.0, 2),
+    (300, 50, 400, 16, 1.0, 3),
+    (16384, 5000, 4096, 128, 0.9, 4),
+    (65536, 20000, 4096, 256, 0.8, 5),
+]
+
+
+def _gather_inputs(m, f, n, d, frac, seed, dtype, dev, shuffle):
+    rng = np.random.default_rng(seed)
+    valid = int(m * frac)
+    seg = np.sort(rng.integers(0, n, m)).astype(np.int32)
+    idx = rng.integers(0, f, m).astype(np.int32)
+    seg[valid:] = -1
+    idx[valid:] = -1
+    if shuffle:
+        p = rng.permutation(m)
+        seg, idx = seg[p], idx[p]
+    feats = rng.standard_normal((f, d)).astype(np.float32)
+    grad = rng.standard_normal((n, d)).astype(np.float32)
+    return (
+        torch.as_tensor(feats, device=dev).to(dtype),
+        torch.as_tensor(idx, device=dev),
+        torch.as_tensor(seg, device=dev),
+        torch.as_tensor(grad, device=dev).to(dtype),
+    )
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shuffle", [False, True])
+@pytest.mark.parametrize("m,f,n,d,frac,seed", GATHER_SWEEP)
+def test_gather_spmm_ragged_and_backward_match_plain(cuda, m, f, n, d, frac, seed, shuffle, dtype):
+    feats, idx, seg, grad = _gather_inputs(m, f, n, d, frac, seed, dtype, cuda, shuffle)
+    x = feats.clone().requires_grad_(True)
+    before = dict(fused_gnn.LAUNCHES)
+    out = fused_gnn.gather_spmm_ragged(x, idx, seg, n)
+    assert out.shape == (n, d) and out.dtype == dtype
+    _close(out, _plain(gather_spmm_ref, feats, idx, seg, n), dtype)
+    out.backward(grad)
+    _close(x.grad, _plain(gather_spmm_ragged_backward_ref, grad, idx, seg, f), dtype)
+    assert fused_gnn.LAUNCHES["gather_spmm_ragged"] == before["gather_spmm_ragged"] + 1
+    assert (fused_gnn.LAUNCHES["gather_spmm_ragged_backward"]
+            == before["gather_spmm_ragged_backward"] + (1 if f else 0))
+
+
+@pytest.mark.parametrize("m,f,n,d,frac,seed", GATHER_SWEEP)
+def test_gather_rows_backward_matches_plain(cuda, m, f, n, d, frac, seed):
+    feats, idx, _, _ = _gather_inputs(m, f, n, d, frac, seed, torch.float32, cuda, True)
+    x = feats.clone().requires_grad_(True)
+    rows = fused_gnn.gather_rows(x, idx)
+    want = torch.where((idx >= 0)[:, None], feats[idx.clamp_min(0).long()], 0.0)
+    assert torch.equal(rows, want)
+    g = torch.randn(m, d, device=cuda, generator=torch.Generator(cuda).manual_seed(seed))
+    before = fused_gnn.LAUNCHES["gather_spmm_ragged_backward"]
+    rows.backward(g)
+    assert fused_gnn.LAUNCHES["gather_spmm_ragged_backward"] == before + 1
+    each = torch.arange(m, dtype=torch.int32, device=cuda)  # edge e gathers gradient row e
+    _close(x.grad, gather_spmm_ragged_backward_ref(g, idx, each, f), torch.float32)
+
+
+@pytest.mark.parametrize("shuffle", [False, True])
+@pytest.mark.parametrize(
+    "m,n,heads,dh,frac", [(0, 7, 2, 8, 1.0), (300, 50, 4, 6, 0.5), (65536, 4096, 4, 64, 0.7)]
+)
+def test_gat_softmax_aggregate_backward_matches_plain(cuda, m, n, heads, dh, frac, shuffle):
+    """float32, the training path's dtype."""
+    dtype = torch.float32
+    seg, msg, logits = _inputs(m, n, int(m * frac), 13, dh, dtype, cuda, heads=heads,
+                               shuffle=shuffle)
+    lg = logits.clone().requires_grad_(True)
+    mg = msg.clone().requires_grad_(True)
+    grad = torch.randn(n, heads, dh, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    before = fused_gnn.LAUNCHES["gat_softmax_aggregate_backward"]
+    fused_gnn.gat_softmax_aggregate(lg, mg, seg, n).backward(grad)
+    assert fused_gnn.LAUNCHES["gat_softmax_aggregate_backward"] == before + 1
+    for h in range(heads):
+        dl, dm = gat_softmax_aggregate_backward_ref(grad[:, h], logits[:, h], msg[:, h], seg, n)
+        _close(mg.grad[:, h], dm, dtype)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(lg.grad[:, h].cpu().numpy(), dl.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-5)
+    pad = seg < 0
+    assert torch.all(lg.grad[pad] == 0) and torch.all(mg.grad[pad] == 0)
+
+
+def test_gat_one_head_backward_and_determinism(cuda):
+    seg, msg, logits = _inputs(20000, 3000, 18000, 7, 64, torch.float32, cuda)
+    grads = []
+    for _ in range(2):
+        lg = logits.clone().requires_grad_(True)
+        mg = msg.clone().requires_grad_(True)
+        fused_gnn.gat_softmax_aggregate(lg, mg, seg, 3000).sum().backward()
+        grads.append((lg.grad, mg.grad))
+    assert torch.equal(grads[0][0], grads[1][0]) and torch.equal(grads[0][1], grads[1][1])
+    dl, dm = gat_softmax_aggregate_backward_ref(torch.ones(3000, 64, device=cuda), logits, msg,
+                                                seg, 3000)
+    _close(grads[0][1], dm, torch.float32)
+
+
+def _small_system():
+    from repro_torch.api import GLISPConfig, GLISPSystem
+    from repro_torch.graph import power_law_graph
+
+    g = power_law_graph(1500, avg_degree=8, seed=3, feat_dim=32, num_classes=4)
+    return GLISPSystem.build(g, GLISPConfig(num_parts=2, fanouts=(6, 4)))
+
+
+def _trained(system, kind, steps, *, path=None, save_at=None, resume=None):
+    from repro_torch.models.gnn import GNNModel, load_jax_params
+
+    model = GNNModel(kind, 32, hidden=32, num_layers=2, num_classes=4, device="cuda")
+    load_jax_params(model, model.init_numpy(0))
+    tr = system.trainer(model, np.arange(0, 1500, 2), batch_size=64, prefetch=0)
+    if resume is not None:
+        tr.resume(resume)
+    tr.train(max_steps=save_at or steps, log_every=1)
+    if save_at is not None:
+        return tr.save(path, step=save_at)
+    return [p.detach().clone() for p in tr.model.parameters()], tr.log.losses
+
+
+def test_training_is_deterministic_and_resumes_bitwise(cuda, tmp_path):
+    """Two runs from the same start, and a run checkpointed and resumed,
+    end with the same bits; the kernels launch as the path implies
+    (2 layers: sage 2 gathers + 1 backward per step; gat 2 softmax
+    aggregates, 2 backwards and 4 row-gather backwards per step)."""
+    system = _small_system()
+    per_step = {
+        "sage": {"gather_spmm_ragged": 2, "gather_spmm_ragged_backward": 1},
+        "gat": {"gat_softmax_aggregate": 2, "gat_softmax_aggregate_backward": 2,
+                "gather_spmm_ragged_backward": 4},
+    }
+    for kind, want in per_step.items():
+        fused_gnn.reset_launches()
+        a, la = _trained(system, kind, 4)
+        launches = {k: v for k, v in fused_gnn.LAUNCHES.items() if v}
+        assert launches == {k: 4 * v for k, v in want.items()}
+        b, lb = _trained(system, kind, 4)
+        assert la == lb and all(torch.equal(x, y) for x, y in zip(a, b))
+        path = _trained(system, kind, 4, path=str(tmp_path / f"{kind}.npz"), save_at=2)
+        c, _ = _trained(system, kind, 4, resume=path)
+        assert all(torch.equal(x, y) for x, y in zip(a, c))
+        assert np.all(np.isfinite(la))
+
+
+def test_served_batched_equals_solo_bitwise_on_card(cuda, tmp_path):
+    """Every served batch runs at one fixed shape, so a request's rows have
+    the same bits alone and in any batch."""
+    from repro_torch.models.gnn import GNNModel
+
+    system = _small_system()
+    rng = np.random.default_rng(4)
+    reqs = [rng.choice(1500, size=int(rng.integers(1, 12)), replace=False) for _ in range(16)]
+    for kind in ("sage", "gat"):
+        model = GNNModel(kind, 32, hidden=32, num_layers=2, device="cuda")
+        system.infer_layerwise([model.embed_layer_fn(k) for k in range(2)],
+                               str(tmp_path / kind), out_dims=[32, 32], batch_size=256)
+        solo = system.server(max_batch_delay_ms=0.0, deadline_ms=None)
+        want = [solo.call(v).embeddings for v in reqs]
+        batched = system.server(max_batch_delay_ms=1e6, deadline_ms=None)
+        rids = [batched.submit(v) for v in reqs]
+        batched.drain()
+        assert batched.stats.mean_batch_requests() > 1.0
+        for rid, w in zip(rids, want):
+            assert np.array_equal(batched.response(rid).embeddings, w)

@@ -139,7 +139,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     heads = ops.gnn_gat_aggregate(
         torch.stack([tlog, 2 * tlog], 1), torch.stack([tmsg, -tmsg], 1), tseg, 9
     )
-    assert fused_gnn.LAUNCHES == {"segment_spmm_ragged": 0, "gat_softmax_aggregate": 0}
+    assert set(fused_gnn.LAUNCHES.values()) == {0}
     assert torch.equal(a, segment_spmm_ragged_ref(tmsg, tseg, 9)) and torch.equal(agg, a)
     assert torch.equal(cnt[:, 0], torch.bincount(tseg[tseg >= 0], minlength=9).float())
     assert torch.equal(b, gat_softmax_aggregate_ref(tlog, tmsg, tseg, 9))

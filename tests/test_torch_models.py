@@ -102,7 +102,8 @@ def test_hgt_uses_the_tanh_gelu():
 def test_load_jax_params_checks_keys_and_shapes():
     _, params, tm = _pair("sage")
     tree = jax.tree.map(np.asarray, params)
-    np.testing.assert_array_equal(tm.layers[1]["w"].numpy(), tree["layers"][1]["w"])
+    np.testing.assert_array_equal(tm.layers[1]["w"].detach().numpy(), tree["layers"][1]["w"])
+    np.testing.assert_array_equal(tm.out.detach().numpy(), tree["out"])
     bad = {"layers": [dict(tree["layers"][0], extra=np.zeros(1)), tree["layers"][1]]}
     with pytest.raises(ValueError):
         load_jax_params(tm, bad)
