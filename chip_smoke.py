@@ -7,7 +7,8 @@ per source, in parallel), holds each kernel and each backward kernel
 against its plain PyTorch version on the card, then runs the port's paths
 at the paper's model width on the ``ogbn-paper`` stand-in graph (150,000
 vertices, 1.05 M edges, 4 parts, fanouts 15/10/5), for SAGE (3 layers,
-128 -> 256 -> 256 -> 256, head 256 -> 16) and GAT (4 heads, same widths):
+128 -> 256 -> 256 -> 256, head 256 -> 16) and GAT (4 heads, same widths),
+and serves two language models at full width:
 
 * inference and serving: ``GLISPSystem.build -> infer_layerwise ->
   server().submit/step/response``; 32 Zipf requests served batched and
@@ -16,9 +17,21 @@ vertices, 1.05 M edges, 4 parts, fanouts 15/10/5), for SAGE (3 layers,
   20 SAGE steps and 10 GAT steps (batch 256, prefetch 2, AdamW lr 1e-3,
   weight decay 1e-4), then the first batch's loss and every gradient
   with kernels vs plain versions, and determinism: two 6-step runs, and a
-  run checkpointed at step 3 and resumed to 6, must end with the same bits.
+  run checkpointed at step 3 and resumed to 6, must end with the same bits;
+* transformer serving: ``repro_torch.launch.serve.serve`` for gemma-2b
+  (18 layers, d_model 2048, 8 query heads over 1 KV head of 256, GeGLU
+  16384, vocab 256,000) and mamba2-130m (24 layers, d_model 768, 24 SSD
+  heads of 64, state 128), both at their full configs in bf16: batch 4,
+  prompt 2048, 32 greedy tokens. Every prefill layer must launch the
+  flash-attention or the SSD-scan kernel once (18 and 24 per prefill;
+  decode is plain tensor code); a second run must give the same bits, and
+  the prefill's logits must agree with runs through the plain versions,
+  in float32 and in bf16 (``LM_F32_TOL``, ``LM_BF16_RATIO``). Before it,
+  both kernels are held against their plain versions at the path's shapes
+  and at ragged ones, float32 and bf16.
 
-Weights are random, drawn with numpy from seed 0. Launch counters are
+Weights are random, drawn with numpy from seed 0 (the LM weights on the
+card from a ``torch.Generator`` seeded with 0). Launch counters are
 zeroed just before each path and read just after; each path must launch
 exactly the kernels it implies (per training step: SAGE 3 gathers + 2
 gather backwards; GAT 3 softmax aggregates + 3 backwards + 6 row-gather
@@ -38,6 +51,11 @@ inputs rotated over four copies so that every call reads device memory:
 from CUDA-graph replay, ``kernel_ms`` the kernel alone, ``eager_ms`` the
 wrapper called back to back from Python (bound by host issue time);
 ``plain_ms`` and ``library_ms`` are eager calls timed with CUDA events.
+Bounds: bytes at 3.35 TB/s against operations at 67 TFLOP/s (float32, the
+GNN kernels) or 989 TFLOP/s (bf16 tensor cores, the LM kernels; causal
+attention counts the unmasked half of the square). The flash kernel's
+library yardstick is ``scaled_dot_product_attention``, timed here and
+never called by the port.
 
 Tolerances: kernel vs plain float32 rtol 1e-5 / atol 1e-5 (sums in
 another order); the GAT backward's logit gradient rtol 1e-4 / atol 1e-5
@@ -46,10 +64,15 @@ one rounding of the output, against the plain version run on the inputs
 upcast to float32 and rounded to bfloat16 (the kernels sum in float32 and
 round once); whole layer slices float32 rtol 1e-4 / atol 1e-5 (a matmul
 follows the aggregation); a training batch's loss and gradients rtol
-1e-4 / atol 1e-6.
+1e-4 / atol 1e-6. Flash attention float32 rtol 1e-4 / atol 1e-5, the SSD
+scan float32 rtol 1e-4 / atol 1e-4 (a step-by-step recurrence against the
+chunked plain version), both bf16 rtol 1e-2 / atol 1e-2 against the plain
+version on the bf16 inputs; the LM prefill logits ``LM_F32_TOL`` in
+float32 and ``LM_BF16_RATIO`` in bf16 (see there).
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import shutil
@@ -68,6 +91,7 @@ WORKDIR = ROOT / "build" / "chip_smoke"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bf16 dense on the tensor cores
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
 
 
@@ -138,9 +162,9 @@ def graph_ms(fn, iters: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(stop) / (replays * iters)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -341,7 +365,9 @@ def dense_forms() -> list:
     """Kernels 3 and 1 at the call form of the dense TPU kernels
     (``gather_spmm_pallas``, ``segment_spmm_pallas``): unpadded ids in no
     order, which the kernels serve through their scan path. Held against
-    the plain versions and timed (CUDA-graph replay)."""
+    the plain versions and timed (CUDA-graph replay), beside their bounds
+    and the library calls (``torch.sparse.mm`` of the adjacency;
+    ``index_add_`` into zeros)."""
     from repro_torch.kernels import fused_gnn
     from repro_torch.kernels.ref import gather_spmm_ref, segment_spmm_ref
 
@@ -351,6 +377,13 @@ def dense_forms() -> list:
         feats, idx, seg, _ = gather_inputs(e, f, n, d, e, 7, shuffle=True, pad=False)
         msg = feats[idx.long()].contiguous()
         label = f"E={e} F={f} n={n} D={d}"
+        # bounds as for kernels 3 and 1: the distinct rows gathered (or the
+        # messages) read once, the ids, the output written once
+        rows_read = int(torch.unique(idx).numel())
+        b4, by4 = bound_ms(rows_read * d * 4 + 2 * e * 4 + n * d * 4, e * d)
+        b6, by6 = bound_ms(e * d * 4 + e * 4 + n * d * 4, e * d)
+        adj = adjacency(seg, idx, (n, f))
+        zeros = torch.zeros((n, d), device="cuda")
         err3 = check_close(f"gather_spmm_ragged dense form {label}",
                            fused_gnn.gather_spmm_ragged(feats, idx, seg, n),
                            gather_spmm_ref(feats, idx, seg, n))
@@ -363,11 +396,16 @@ def dense_forms() -> list:
                 "kernel": "gather_spmm_ragged", "max_abs_err": err3,
                 "ms": graph_ms(rotating(fused_gnn.gather_spmm_ragged, feats, idx, seg, n)),
                 "plain_ms": time_ms(rotating(gather_spmm_ref, feats, idx, seg, n)),
+                "bound_ms": b4, "bound_by": by4,
+                "library_ms": time_ms(rotating(lambda x: torch.sparse.mm(adj, x), feats)),
             },
             "segment_spmm_pallas_form": {
                 "kernel": "segment_spmm_ragged", "max_abs_err": err1,
                 "ms": graph_ms(rotating(fused_gnn.segment_spmm_ragged, msg, seg, n)),
                 "plain_ms": time_ms(rotating(segment_spmm_ref, msg, seg, n)),
+                "bound_ms": b6, "bound_by": by6,
+                "library_ms": time_ms(rotating(
+                    lambda m, s_: zeros.clone().index_add_(0, s_.long(), m), msg, seg)),
             },
         })
     log("dense_forms: " + json.dumps(rows))
@@ -1086,6 +1124,416 @@ def time_gat_backward(args, launches: int) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# phases 10-11: LM kernels and transformer serving at full width
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = {"gemma-2b": "flash_attention", "mamba2-130m": "ssd_scan"}
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
+# The prefill's last logits, kernels vs plain versions. In float32 the two
+# differ by sums in another order through every layer (18 or 24): rtol
+# 1e-3 / atol 1e-3 on logits of scale 1-10. In bf16 the residual stream is
+# rounded after every layer and the plain attention also rounds its scores
+# and P, so one changed rounding grows through the stack (max abs 0.1-0.2
+# between the two bf16 runs); there the kernels' logits must be no further
+# from the float32 plain run than LM_BF16_RATIO times the plain versions'.
+LM_F32_TOL = (1e-3, 1e-3)
+LM_BF16_RATIO = 2.0
+ATTN_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
+SSD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+
+
+def lm_launches() -> dict:
+    from repro_torch.kernels import flash_attention, ssd_scan
+
+    return {**flash_attention.LAUNCHES, **ssd_scan.LAUNCHES}
+
+
+def reset_lm_launches() -> None:
+    from repro_torch.kernels import flash_attention, ssd_scan
+
+    flash_attention.reset_launches()
+    ssd_scan.reset_launches()
+
+
+def attn_inputs(b, sq, skv, h, hkv, d, dtype, seed):
+    g = torch.Generator("cuda").manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
+                 for shape in ((b, sq, h, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+
+
+def ssd_inputs(b, s, h, p, g, n, dtype, seed, init):
+    gen = torch.Generator("cuda").manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    x, B, C = r(b, s, h, p).to(dtype), r(b, s, g, n).to(dtype), r(b, s, g, n).to(dtype)
+    dt = torch.rand(b, s, h, generator=gen, device="cuda") * 0.5 + 0.01
+    A = -torch.rand(h, generator=gen, device="cuda") - 0.1
+    return x, dt, A, B, C, (r(b, h, p, n) if init else None)
+
+
+def compare_lm_kernels() -> None:
+    """Flash attention and the SSD scan against their plain versions, at
+    the serving path's shapes and at ragged ones, float32 and bf16."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_ref, ssd_chunked_ref
+
+    log("phase: LM kernels vs plain versions on the card")
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, sq, skv, h, hkv, d, causal, window, off in (
+            (4, 2048, 2048, 8, 1, 256, True, 0, 0),  # the gemma-2b prefill
+            (2, 1000, 1000, 16, 8, 128, True, 512, 0),
+            (2, 333, 1357, 16, 8, 128, True, 0, 1024),
+            (1, 77, 77, 4, 2, 64, False, 0, 0),
+        ):
+            q, k, v = attn_inputs(b, sq, skv, h, hkv, d, dtype, sq + d)
+            kw = dict(causal=causal, window=window, kv_offset=off)
+            check_close(f"flash_attention B={b} Sq={sq} Skv={skv} H={h}/{hkv} D={d} "
+                        f"causal={causal} window={window} kv_offset={off} {dtype}",
+                        ops.mha_attention(q, k, v, **kw), attention_ref(q, k, v, **kw),
+                        tol=ATTN_TOL[dtype])
+        for b, s, h, p, g, n, init in (
+            (4, 2048, 24, 64, 1, 128, False),  # the mamba2-130m prefill
+            (4, 2000, 24, 64, 1, 128, True),
+            (2, 333, 8, 32, 2, 64, True),
+        ):
+            x, dt, A, B, C, st = ssd_inputs(b, s, h, p, g, n, dtype, s + p, init)
+            y, state = ops.ssd_scan(x, dt, A, B, C, chunk=128, init_state=st)
+            want_y, want_st = ssd_chunked_ref(x, dt * A, dt, B, C, chunk=128, init_state=st)
+            label = f"B={b} S={s} H={h} P={p} G={g} N={n} init={init} {dtype}"
+            check_close(f"ssd_scan y {label}", y, want_y, tol=SSD_TOL[dtype])
+            check_close(f"ssd_scan final state {label}", state, want_st,
+                        tol=SSD_TOL[torch.float32])
+
+
+class FirstCall:
+    """Wraps an entry point and keeps the arguments of its first call."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.args = None
+
+    def __call__(self, *args, **kwargs):
+        if self.args is None:
+            self.args = (args, kwargs)
+        return self.fn(*args, **kwargs)
+
+
+@contextmanager
+def plain_lm():
+    """The model's attention and SSD through their plain versions, on the
+    card: the dense attention of the model's CPU path and the chunked SSD."""
+    from repro_torch.kernels.ref import ssd_chunked_ref
+    from repro_torch.models.transformer import layers, ssm
+
+    def attn(q, k, v, *, causal, window, kv_offset):
+        return layers._dense_attention(q, k, v, causal=causal, window=window, q_offset=kv_offset)
+
+    def scan(x, dt, A, B, C, *, chunk, init_state):
+        return ssd_chunked_ref(x, dt * A[None, None, :], dt, B, C, chunk=chunk,
+                               init_state=init_state)
+
+    with mock.patch.object(layers, "mha_attention", attn), mock.patch.object(ssm, "ssd_scan", scan):
+        yield
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+PROFILE_DECODE_STEPS = 8
+
+
+def device_ms_by_kind(prof) -> tuple[dict, list] | None:
+    """Device time (ms) of a ``torch.profiler`` trace's kernels, by kind:
+    the two LM kernels, matrix products (cuBLAS's ``nvjet``/``gemm`` and
+    CUTLASS names), PyTorch's elementwise and reduction kernels, and the
+    rest; with the five largest kernels by name. None when the trace holds
+    no device events."""
+    from torch.autograd import DeviceType
+
+    kinds: dict = {}
+    names: dict = {}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        name = evt.name.lower()
+        if "flash_attention_kernel" in name:
+            kind = "flash_attention"
+        elif "ssd_scan_kernel" in name:
+            kind = "ssd_scan"
+        elif any(t in name for t in ("nvjet", "gemm", "cutlass", "xmma", "matmul")):
+            kind = "matmul"
+        elif "elementwise" in name:
+            kind = "elementwise"
+        elif "reduce" in name:
+            kind = "reduce"
+        else:
+            kind = "other"
+        ms = evt.time_range.elapsed_us() / 1e3
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+        names[evt.name[:80]] = names.get(evt.name[:80], 0.0) + ms
+    if not kinds:
+        return None
+    return kinds, sorted(names.items(), key=lambda kv: -kv[1])[:5]
+
+
+def profile_lm(cfg, params, prefill_wall_ms: float, decode_wall_ms: float) -> dict:
+    """One prefill and ``PROFILE_DECODE_STEPS`` decode steps of the serving
+    path under ``torch.profiler``: device time by kind, and the device's
+    busy share against the unprofiled wall times of the same work (the
+    profiler's own host cost would inflate a profiled wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.specs import make_decode_step, make_prefill_step
+    from repro_torch.models.transformer.model import init_cache
+
+    rng = np.random.default_rng(0)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)), device="cuda")
+    cache = init_cache(cfg, LM_BATCH, LM_PROMPT + PROFILE_DECODE_STEPS, "cuda")
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        with profile(activities=acts) as pp:
+            logits, cache = prefill(params, cache, {"inputs": prompt})
+            torch.cuda.synchronize()
+        tok = logits[:, : cfg.vocab_size].argmax(dim=-1)
+        with profile(activities=acts) as pd:
+            for i in range(PROFILE_DECODE_STEPS):
+                logits, cache = decode(params, cache, {"inputs": tok[:, None]}, LM_PROMPT + i)
+                tok = logits[:, : cfg.vocab_size].argmax(dim=-1)
+            torch.cuda.synchronize()
+    out = {}
+    for label, prof, wall in (("prefill", pp, prefill_wall_ms),
+                              ("decode_step", pd, decode_wall_ms * PROFILE_DECODE_STEPS)):
+        found = device_ms_by_kind(prof)
+        if found is None:
+            out[label] = "not measured (the trace held no device events)"
+            continue
+        kinds, top = found
+        scale = PROFILE_DECODE_STEPS if label == "decode_step" else 1
+        busy = sum(kinds.values())
+        out[label] = {"device_ms_by_kind": {k: v / scale for k, v in kinds.items()},
+                      "device_busy_ms": busy / scale,
+                      "busy_share_of_unprofiled_wall": busy / wall,
+                      "top_kernels_ms": [[n, ms / scale] for n, ms in top]}
+    return out
+
+
+def serve_lm(arch: str, kernel: str, captured: dict) -> dict:
+    """``repro_torch.launch.serve.serve`` at the full config: batch 4,
+    prompt 2048, 32 greedy tokens, weights drawn on the card from seed 0
+    (as ``serve`` draws them itself). Counts are zeroed just before the run
+    and read just after: one kernel launch per layer's prefill, none in
+    decode. A second run must give the same bits, and one more prefill
+    and decode are profiled (:func:`profile_lm`). The prefill's logits are
+    then held against the plain versions: in float32 (the same weights
+    upcast) within ``LM_F32_TOL``, and in bf16 against the float32 plain
+    run, where the kernels' error may be at most ``LM_BF16_RATIO`` times
+    the plain versions' own."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import layers, ssm
+    from repro_torch.models.transformer.model import init_params
+
+    cfg = get_config(arch, reduced=False)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    owner, entry = (layers, "mha_attention") if kernel == "flash_attention" else (ssm, "ssd_scan")
+    first = FirstCall(getattr(ops, entry))
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+    kw = dict(batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN, seed=0, device="cuda",
+              params=params)
+    want = {kernel: cfg.num_layers}
+
+    def launched(what):
+        got = {k: v for k, v in lm_launches().items() if v}
+        if got != want:
+            fail(f"{arch} {what} launched {got}, the path implies {want}")
+        return got
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_lm_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(owner, entry, first):
+        out = serve(cfg, **kw)
+    wall_s = time.perf_counter() - t0
+    got = launched("serving")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    captured[kernel] = first.args
+    toks, logits = out["tokens"], out["logits"]
+    real = slice(0, cfg.vocab_size)
+    if toks.shape != (LM_BATCH, LM_GEN + 1) or not torch.isfinite(logits[:, real]).all():
+        fail(f"{arch}: tokens {toks.shape}, finite logits {bool(torch.isfinite(logits).all())}")
+    if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail(f"{arch}: a greedy token outside the vocabulary")
+    reset_lm_launches()
+    again = serve(cfg, **kw)
+    launched("second run")
+    bitwise = bool(np.array_equal(again["tokens"], toks) and torch.equal(again["logits"], logits))
+    reset_lm_launches()
+    with plain_lm():
+        plain = serve(cfg, **kw)
+    if any(lm_launches().values()):
+        fail(f"{arch} plain run launched {lm_launches()}")
+
+    up = tree_map(lambda t: t.float(), params)
+    kw32 = {**kw, "params": up, "gen": 0}
+    reset_lm_launches()
+    k32 = serve(cfg32, **kw32)
+    launched("float32 run")
+    with plain_lm():
+        p32 = serve(cfg32, **kw32)
+    ref = p32["logits"][:, real]
+    err32 = check_close(f"{arch} float32 prefill last logits, kernels vs plain versions",
+                        k32["logits"][:, real], ref, tol=LM_F32_TOL)
+    err_k = max_err(logits[:, real], ref)
+    err_p = max_err(plain["logits"][:, real], ref)
+    log(f"  {arch} bf16 prefill last logits vs the float32 plain run: kernels {err_k:.3e}, "
+        f"plain versions {err_p:.3e} (at most {LM_BF16_RATIO}x)")
+    info = {
+        "config": cfg.name,
+        "batch": LM_BATCH,
+        "prompt_len": LM_PROMPT,
+        "gen": LM_GEN,
+        "wall_s": wall_s,
+        "prefill_ms": out["prefill_ms"],
+        "decode_ms_per_token": out["decode_ms_per_token"],
+        "again_prefill_ms": again["prefill_ms"],
+        "again_decode_ms_per_token": again["decode_ms_per_token"],
+        "plain_prefill_ms": plain["prefill_ms"],
+        "plain_decode_ms_per_token": plain["decode_ms_per_token"],
+        "f32_prefill_ms": k32["prefill_ms"],
+        "f32_plain_prefill_ms": p32["prefill_ms"],
+        "peak_memory_gb": peak_gb,
+        "launches": got,
+        "two_runs_bitwise_equal": bitwise,
+        "bf16_logits_max_abs_err_vs_plain": max_err(logits[:, real], plain["logits"][:, real]),
+        "bf16_kernels_err_vs_f32": err_k,
+        "bf16_plain_err_vs_f32": err_p,
+        "f32_logits_max_abs_err_vs_plain": err32,
+        "logit_scale": float(ref.abs().max()),
+        "greedy_tokens_equal_to_plain": float(np.mean(plain["tokens"] == toks)),
+        "first_tokens": toks[0, :8].tolist(),
+    }
+    info["profile"] = profile_lm(cfg, params, again["prefill_ms"],
+                                 again["decode_ms_per_token"])
+    log(f"  serve {arch}: " + json.dumps(info))
+    if not bitwise:
+        fail(f"{arch}: two serving runs differ")
+    if err_k > LM_BF16_RATIO * err_p:
+        fail(f"{arch}: bf16 logits {err_k} from the float32 run, beyond {LM_BF16_RATIO}x the "
+             f"plain versions' {err_p}")
+    return info
+
+
+def time_flash(call, launches: int) -> dict:
+    """The flash kernel at the gemma-2b prefill's call. Bound: q, k, v read
+    once and the output written once at 3.35 TB/s, against the causal
+    products (4 D flops per unmasked (query, key) pair) at 989 TFLOP/s."""
+    import functools
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_ref
+
+    (q, k, v), kw = call
+    b, s, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    err = check_close(f"flash_attention on the path's call B={b} S={s} H={h}/{hkv} D={d}",
+                      fa.flash_attention(q, k, v, **kw), attention_ref(q, k, v, **kw),
+                      tol=ATTN_TOL[q.dtype])
+    if kw["window"] or kw["kv_offset"] or not kw["causal"] or s != skv:
+        fail(f"unexpected flash call on the path: {kw}")
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), is_causal=True, enable_gqa=True)
+
+    check_close("scaled_dot_product_attention on the same call", sdpa(q, k, v).transpose(1, 2),
+                fa.flash_attention(q, k, v, **kw), tol=ATTN_TOL[q.dtype])
+    pairs = b * h * s * (s + 1) // 2
+    esize = q.element_size()
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * esize
+    bound, by = bound_ms(nbytes, 4 * d * pairs, BF16_FLOPS)
+    out = torch.empty_like(q)
+    return {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:91",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": graph_ms(rotating(functools.partial(fa.flash_attention, **kw), q, k, v), iters=5),
+        "kernel_ms": graph_ms(rotating(
+            functools.partial(fa.launch_flash_attention, **kw), q, k, v, out), iters=5),
+        "eager_ms": time_ms(rotating(functools.partial(fa.flash_attention, **kw), q, k, v),
+                            iters=20),
+        "plain_ms": time_ms(rotating(functools.partial(attention_ref, **kw), q, k, v), iters=5,
+                            warmup=2),
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": time_ms(rotating(sdpa, q, k, v), iters=20),
+        "shape": {"B": b, "S": s, "H": h, "Hkv": hkv, "D": d, "causal_pairs": pairs,
+                  "dtype": str(q.dtype)},
+    }
+
+
+def time_ssd(call, launches: int) -> dict:
+    """The SSD kernel at the mamba2-130m prefill's call. Bound: x, B, C, a,
+    dt and the initial state read once, y and the final state written once
+    at 3.35 TB/s, against the recurrence's 6 P N flops per (step, head) at
+    989 TFLOP/s."""
+    import functools
+
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.kernels.ref import ssd_chunked_ref
+
+    (x, dt, A, B, C), kw = call
+    init = kw["init_state"]
+    a = dt * A[None, None, :]
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    y, state = sk.ssd_scan_fused(x, a, dt, B, C, **kw)
+    want_y, want_st = ssd_chunked_ref(x, a, dt, B, C, **kw)
+    err = max(
+        check_close(f"ssd_scan y on the path's call B={b} S={s} H={h} P={p} N={n}", y, want_y,
+                    tol=SSD_TOL[x.dtype]),
+        check_close("ssd_scan final state on the same call", state, want_st,
+                    tol=SSD_TOL[torch.float32]),
+    )
+    esize = x.element_size()
+    nbytes = ((2 * b * s * h * p + 2 * b * s * g * n) * esize + 2 * b * s * h * 4
+              + 2 * b * h * p * n * 4)
+    bound, by = bound_ms(nbytes, 6 * b * s * h * p * n, BF16_FLOPS)
+    ys, fs = torch.empty_like(y), torch.empty_like(state)
+    return {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:65",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": graph_ms(rotating(functools.partial(sk.ssd_scan_fused, **kw), x, a, dt, B, C),
+                       iters=5),
+        "kernel_ms": graph_ms(rotating(
+            lambda *t: sk.launch_ssd_scan(*t, init, ys, fs), x, a, dt, B, C), iters=5),
+        "eager_ms": time_ms(rotating(functools.partial(sk.ssd_scan_fused, **kw), x, a, dt, B, C),
+                            iters=20),
+        "plain_ms": time_ms(rotating(functools.partial(ssd_chunked_ref, **kw), x, a, dt, B, C),
+                            iters=5, warmup=2),
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,
+        "shape": {"B": b, "S": s, "H": h, "P": p, "G": g, "N": n, "chunk": kw["chunk"],
+                  "dtype": str(x.dtype)},
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one CUDA card",
@@ -1108,6 +1556,7 @@ def main() -> int:
     compare_kernels()
     compare_training_kernels()
     dense_forms()
+    compare_lm_kernels()
 
     log("phase: build the system (ogbn-paper stand-in, 4 parts, fanouts 15/10/5)")
     t0 = time.perf_counter()
@@ -1133,6 +1582,11 @@ def main() -> int:
     log("phase: determinism (two runs, and a checkpoint-resume run)")
     det = {k: determinism(system, k, train_ids) for k in TRAIN_STEPS}
 
+    log(f"phase: transformer serving at full width (batch {LM_BATCH}, prompt {LM_PROMPT}, "
+        f"{LM_GEN} greedy tokens)")
+    lm_captured: dict = {}
+    lm = {arch: serve_lm(arch, kernel, lm_captured) for arch, kernel in LM_ARCHS.items()}
+
     log("phase: kernel times at the path's largest shapes (CUDA events, 100 calls, "
         f"{COPIES} rotating input copies)")
     rows = [
@@ -1143,6 +1597,9 @@ def main() -> int:
                              launches["gather_spmm_ragged_backward"]),
         time_gat_backward(captured["gat_softmax_aggregate_backward"],
                           launches["gat_softmax_aggregate_backward"]),
+        time_flash(lm_captured["flash_attention"],
+                   lm["gemma-2b"]["launches"]["flash_attention"]),
+        time_ssd(lm_captured["ssd_scan"], lm["mamba2-130m"]["launches"]["ssd_scan"]),
     ]
     for r in rows:
         if r["launches"] <= 0:
@@ -1164,6 +1621,10 @@ def main() -> int:
                       "first_loss": v["losses"][0], "last_loss": v["losses"][-1]}
                   for k, v in trained.items()},
         "determinism": det,
+        "lm_serve": {k: {key: v[key] for key in (
+            "prefill_ms", "again_prefill_ms", "decode_ms_per_token", "peak_memory_gb",
+            "two_runs_bitwise_equal", "f32_logits_max_abs_err_vs_plain",
+            "bf16_kernels_err_vs_f32", "bf16_plain_err_vs_f32")} for k, v in lm.items()},
         "total_s": time.perf_counter() - t_start,
     }))
     shutil.rmtree(WORKDIR, ignore_errors=True)

@@ -2,7 +2,8 @@
 
 The port imports ``torch`` and numpy and nothing of the JAX package. Host
 modules that are numpy-only in ``repro`` are copies; tensor code is
-PyTorch; the GNN kernels are hand-written CUDA for Hopper (``kernels/``).
+PyTorch; the kernels (GNN aggregation, flash attention, the Mamba-2 SSD
+scan) are hand-written CUDA for Hopper (``kernels/``).
 Entry points that allocate tensors take ``device=`` and default to
 ``"cuda"``.
 """

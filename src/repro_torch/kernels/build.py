@@ -20,7 +20,9 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "library", "check", "ptxas_log"]
+__all__ = [
+    "CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "library", "check", "ptxas_log", "on_cpu",
+]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -30,6 +32,7 @@ NVCC_FLAGS = (
 )
 
 _c = ctypes.c_int
+_l = ctypes.c_longlong
 _p = ctypes.c_void_p
 # C signatures of every entry, by library (source stem) and symbol
 SIGNATURES = {
@@ -44,6 +47,15 @@ SIGNATURES = {
     "gat_softmax_backward": {
         "gat_softmax_aggregate_backward": (
             _p, _p, _p, _p, _p, _p, _c, _p, _c, _c, _c, _c, _c, _c, _p, _p, _p,
+        ),
+    },
+    "flash_attention": {
+        "flash_attention": (_p, _p, _p, _p, _c, _c, _c, _c, _c, _c, _c, _c, _c, _c, _p),
+    },
+    "ssd_scan": {
+        "ssd_scan": (
+            _p, _l, _l, _p, _p, _p, _l, _l, _p, _l, _l, _p, _p, _p,
+            _c, _c, _c, _c, _c, _c, _c, _p,
         ),
     },
 }
@@ -132,3 +144,15 @@ def check(code: int, what: str) -> None:
     """Raise if a C entry reported a CUDA error for its launch."""
     if code != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {code}")
+
+
+def on_cpu(*ts) -> bool:
+    """True when every tensor lies on the CPU (the wrapper then runs the
+    plain version), False when all lie on one CUDA device; raises for any
+    other mix."""
+    devs = {t.device.type for t in ts}
+    if devs == {"cpu"}:
+        return True
+    if devs != {"cuda"} or len({t.device for t in ts}) != 1:
+        raise ValueError(f"tensors must all lie on the CPU or on one CUDA device, got {devs}")
+    return False

@@ -52,7 +52,7 @@ import math
 
 import torch
 
-from repro_torch.kernels.build import check, library
+from repro_torch.kernels.build import check, library, on_cpu
 from repro_torch.kernels.ref import (
     gat_softmax_aggregate_ref,
     gather_spmm_ragged_backward_ref,
@@ -93,15 +93,6 @@ _INT_MAX = 2**31 - 1
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-
-
-def _is_cpu(*ts: torch.Tensor) -> bool:
-    devs = {t.device.type for t in ts}
-    if devs == {"cpu"}:
-        return True
-    if devs != {"cuda"} or len({t.device for t in ts}) != 1:
-        raise ValueError(f"tensors must all lie on the CPU or on one CUDA device, got {devs}")
-    return False
 
 
 def _vec_tpr(row: int, *ts: torch.Tensor) -> tuple[int, int]:
@@ -263,7 +254,7 @@ def _sum_on_card(msg, seg, num_segments, index) -> torch.Tensor:
 
 def _check_sum_args(msg, seg, num_segments) -> bool:
     """True for CPU tensors; raises on CUDA tensors the kernel does not take."""
-    if _is_cpu(msg, seg):
+    if on_cpu(msg, seg):
         return True
     if msg.dim() != 2:
         raise ValueError(f"msg must be [E, D], got {tuple(msg.shape)}")
@@ -367,7 +358,7 @@ def gather_spmm_ragged_backward(
     ``grad`` [n, D]: ``dfeats[f] = sum_{idx[e]==f} grad[seg[e]]``, the gather
     kernel over the edges in ``idx_order`` (None: sorted on the card) with
     idx and seg swapped. CPU tensors take the plain twin."""
-    if _is_cpu(grad, idx, seg):
+    if on_cpu(grad, idx, seg):
         return gather_spmm_ragged_backward_ref(grad, idx, seg, num_rows)
     grad = grad.contiguous()
     _check_gather_args(grad, idx, seg, num_rows, idx_order)
@@ -411,7 +402,7 @@ def gather_spmm_ragged(
     sorts on the card at the backward. The kernel reads CSR rows when
     ``seg`` is sorted (padding last) and scans otherwise (see
     ``segment_index``)."""
-    if _is_cpu(feats, idx, seg):
+    if on_cpu(feats, idx, seg):
         return gather_spmm_ref(feats, idx, seg, num_segments)
     _check_gather_args(feats, idx, seg, num_segments, idx_order)
     with torch.cuda.device(feats.device):
@@ -455,7 +446,7 @@ def gather_rows(
     ``idx_order`` (the int32 permutation that stable-sorts ``idx`` with the
     padding last; None sorts on the card), not an atomic scatter-add, so
     the gradient has the same bits on every run."""
-    if _is_cpu(x, idx):
+    if on_cpu(x, idx):
         return _rows(x, idx)
     if x.dtype not in _DTYPE_CODE or not x.is_contiguous():
         raise TypeError(f"x must be contiguous float32 or bfloat16, got {x.dtype}")
@@ -528,7 +519,7 @@ def gat_softmax_aggregate(
             f"expected logits [E] with msg [E, D], or logits [E, H] with msg [E, H, dh]; "
             f"got {tuple(logits.shape)} and {tuple(msg.shape)}"
         )
-    if _is_cpu(logits, msg, seg):
+    if on_cpu(logits, msg, seg):
         if not heads:
             return gat_softmax_aggregate_ref(logits, msg, seg, num_segments)
         return torch.stack(

@@ -1,9 +1,10 @@
-"""The GNN aggregation entry points the models call.
+"""The kernel entry points the models call.
 
-Counterparts of ``gnn_aggregate`` and ``gnn_gat_aggregate`` in
-``repro/kernels/ops.py``, with the same names and argument order. A CUDA
-tensor goes to the Hopper kernel, a CPU tensor to its plain version; there
-is no switch to pick either, and no block sizes to tune.
+Counterparts of ``gnn_aggregate``, ``gnn_gat_aggregate``, ``mha_attention``
+and ``ssd_scan`` in ``repro/kernels/ops.py``, with the same names and
+argument order. A CUDA tensor goes to the Hopper kernel, a CPU tensor to
+its plain version; there is no switch to pick either (no ``use_kernel``),
+and no block sizes to tune.
 ``gnn_aggregate_and_count`` gives gcn/sage the sum and the degree from one
 CSR index, where the JAX models call ``gnn_aggregate`` twice.
 ``gather_rows`` is the gather the training layers use where the JAX
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_gnn import (
     gat_softmax_aggregate,
     gather_rows,
@@ -21,6 +23,7 @@ from repro_torch.kernels.fused_gnn import (
     segment_spmm_ragged,
     segment_sum_and_count,
 )
+from repro_torch.kernels.ssd_scan import ssd_scan_fused
 
 __all__ = [
     "gnn_aggregate",
@@ -28,6 +31,8 @@ __all__ = [
     "gnn_gather_aggregate",
     "gnn_gat_aggregate",
     "gather_rows",
+    "mha_attention",
+    "ssd_scan",
 ]
 
 
@@ -63,3 +68,36 @@ def gnn_gat_aggregate(
     """One-pass edge-softmax + weighted aggregate (GAT/HGT inner loop), for
     one head or for all heads at once (see :func:`gat_softmax_aggregate`)."""
     return gat_softmax_aggregate(logits, msg, seg, num_segments)
+
+
+def mha_attention(
+    q: torch.Tensor,  # [B, Sq, H, D]
+    k: torch.Tensor,  # [B, Skv, Hkv, D]
+    v: torch.Tensor,  # [B, Skv, Hkv, D]
+    *,
+    causal: bool = True,
+    window: int = 0,
+    kv_offset: int = 0,
+) -> torch.Tensor:
+    """Multi-head attention with grouped KV heads (H a multiple of Hkv):
+    one flash-attention launch for all (batch, head) pairs, no repeat of
+    the KV heads."""
+    return flash_attention(q, k, v, causal=causal, window=window, kv_offset=kv_offset)
+
+
+def ssd_scan(
+    x: torch.Tensor,  # [B, S, H, P]
+    dt: torch.Tensor,  # [B, S, H]
+    A: torch.Tensor,  # [H]
+    B_: torch.Tensor,  # [B, S, G, N]
+    C: torch.Tensor,  # [B, S, G, N]
+    *,
+    chunk: int = 128,
+    init_state: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched multi-head SSD scan with B and C in group form. Returns
+    (y [B, S, H, P], final_state [B, H, P, N] float32), where the JAX op
+    returns y alone: the Mamba-2 prefill hands the state to decode.
+    ``init_state`` (default zeros) is the state before the first step."""
+    a = dt * A[None, None, :]
+    return ssd_scan_fused(x, a, dt, B_, C, chunk=chunk, init_state=init_state)

@@ -1,6 +1,8 @@
-"""Plain PyTorch versions of the GNN kernels and of their backwards.
+"""Plain PyTorch versions of the kernels and of the GNN backwards.
 
-Counterparts of ``repro/kernels/ref.py:20-78``. The tests hold the CUDA
+Counterparts of ``repro/kernels/ref.py``; the attention and SSD versions
+are at the bottom, with ``ssd_chunked_ref``, the chunked SSD of
+``repro/models/transformer/ssm.py::ssd_chunked_jnp``. The tests hold the CUDA
 kernels and the JAX package against them, and the kernel wrappers use them
 (with autograd through them) for tensors that lie on the CPU. Their gathers
 are ``index_select``, whose CPU backward (``index_add_``) adds in index
@@ -25,6 +27,10 @@ __all__ = [
     "segment_max_ref",
     "gat_softmax_aggregate_ref",
     "gat_softmax_aggregate_backward_ref",
+    "attention_ref",
+    "flash_attention_ref",
+    "ssd_scan_ref",
+    "ssd_chunked_ref",
 ]
 
 
@@ -133,3 +139,114 @@ def gat_softmax_aggregate_backward_ref(
     dmsg = alpha[:, None] * g_e
     dlogit = torch.where(ok, alpha * ((g_e * msg.float()).sum(1) - g_out), 0.0)
     return dlogit, dmsg
+
+
+def attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    kv_offset: int = 0,
+) -> torch.Tensor:
+    """Dense attention in float32 with the flash kernel's masks. q [B, Sq,
+    H, D]; k, v [B, Skv, Hkv, D] with Hkv dividing H (query head h reads
+    kv head h // (H / Hkv)). Query i sits at absolute position
+    ``kv_offset + i``: causal keeps keys at or before it, ``window > 0``
+    keeps the last ``window`` of those. Scores are scaled by 1/sqrt(D) and
+    masked with -1e30; the result has q's dtype."""
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    q5 = q.reshape(b, sq, hkv, h // hkv, d).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q5, k.float()) / d**0.5
+    q_pos = kv_offset + torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    s = torch.where(mask, s, -1e30)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, dim=-1), v.float())
+    return o.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+
+
+# The kernel's plain version under the JAX package's paired name.
+flash_attention_ref = attention_ref
+
+
+def ssd_scan_ref(
+    x: torch.Tensor,  # [S, H, P]
+    dt: torch.Tensor,  # [S, H]
+    A: torch.Tensor,  # [H]
+    B: torch.Tensor,  # [S, G, N]
+    C: torch.Tensor,  # [S, G, N]
+) -> torch.Tensor:
+    """The sequential SSD (Mamba-2) recurrence, one step at a time:
+
+        state_s = exp(A_h dt_s) * state_{s-1} + dt_s * B_s (x) x_s
+        y_s     = C_s . state_s
+
+    from a zero state, in float32; heads h read group h // (H / G).
+    Returns y [S, H, P] in x's dtype."""
+    S, H, P = x.shape
+    reps = H // B.shape[1]
+    Bh = B.repeat_interleave(reps, dim=1).float()
+    Ch = C.repeat_interleave(reps, dim=1).float()
+    decay = torch.exp(A[None, :] * dt).float()
+    dtf, xf = dt.float(), x.float()
+    state = x.new_zeros((H, P, B.shape[2]), dtype=torch.float32)
+    ys = []
+    for s in range(S):
+        state = state * decay[s][:, None, None] + (
+            dtf[s][:, None, None] * xf[s][:, :, None] * Bh[s][:, None, :]
+        )
+        ys.append(torch.einsum("hpn,hn->hp", state, Ch[s]))
+    return torch.stack(ys).to(x.dtype)
+
+
+def ssd_chunked_ref(x, a, dt, B, C, *, chunk: int = 128, init_state=None):
+    """The chunked SSD of ``ssd_chunked_jnp``: x [Bz, S, H, P]; a = dt * A
+    and dt [Bz, S, H] float32; B, C [Bz, S, G, N] in group form (head h
+    reads group h // (H / G)); init_state [Bz, H, P, N] float32 or None
+    (zeros). Within a chunk of ``chunk`` steps the token-token term is the
+    L x L matrix (C_i . B_j) exp(csum_i - csum_j) dt_j (j <= i) times x;
+    the earlier chunks enter through the carried state. A ragged tail is
+    padded with a = 0 and dt = 0, which leaves the state as it was.
+    Returns (y [Bz, S, H, P] in x's dtype, final_state [Bz, H, P, N]
+    float32)."""
+    bz, S, H, P = x.shape
+    G, N = B.shape[-2], B.shape[-1]
+    reps = H // G
+    pad = (-S) % chunk
+    if pad:
+        x, B, C = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, B, C))
+        a, dt = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (a, dt))
+    nc = (S + pad) // chunk
+    state = (
+        x.new_zeros((bz, H, P, N), dtype=torch.float32) if init_state is None
+        else init_state.float()
+    )
+    ii = torch.arange(chunk, device=x.device)
+    causal = (ii[:, None] >= ii[None, :])[None, :, :, None]
+    ys = []
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        xk = x[:, sl].float()
+        bk = B[:, sl].repeat_interleave(reps, dim=2).float()
+        ck = C[:, sl].repeat_interleave(reps, dim=2).float()
+        ak, dk = a[:, sl].float(), dt[:, sl].float()
+        csum = torch.cumsum(ak, dim=1)  # [Bz, L, H]
+        cb = torch.einsum("blhn,bmhn->bhlm", ck, bk)
+        seg = csum[:, :, None] - csum[:, None, :]  # [Bz, L, L, H]
+        decay = torch.where(causal, torch.exp(torch.where(causal, seg, 0.0)), 0.0)
+        m = cb * decay.permute(0, 3, 1, 2) * dk.permute(0, 2, 1)[:, :, None, :]
+        y = torch.einsum("bhlm,bmhp->blhp", m, xk)
+        y = y + torch.exp(csum)[..., None] * torch.einsum("blhn,bhpn->blhp", ck, state)
+        w = torch.exp(csum[:, -1:, :] - csum) * dk  # [Bz, L, H]
+        state = torch.exp(csum[:, -1])[:, :, None, None] * state + torch.einsum(
+            "blhp,blhn->bhpn", xk * w[..., None], bk
+        )
+        ys.append(y)
+    return torch.cat(ys, dim=1)[:, :S].to(x.dtype), state

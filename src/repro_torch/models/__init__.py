@@ -1,1 +1,1 @@
-"""Model definitions (the GNN family)."""
+"""Model definitions: the GNN family and the transformer backbone."""

@@ -12,7 +12,7 @@ kernels sum in float32 and round once: rtol 1e-2 / atol 1e-2, about one
 rounding of the output. The GAT backward's logit gradient: float32 rtol
 1e-4 / atol 1e-5 (a difference of two dot products, each summed in
 another order). Training runs and served responses are compared bit for
-bit.
+bit. The LM kernels' tolerances are stated beside their tests below.
 """
 import numpy as np
 import pytest
@@ -393,3 +393,169 @@ def test_served_batched_equals_solo_bitwise_on_card(cuda, tmp_path):
         assert batched.stats.mean_batch_requests() > 1.0
         for rid, w in zip(rids, want):
             assert np.array_equal(batched.response(rid).embeddings, w)
+
+
+# ---------------------------------------------------------------------------
+# LM kernels: flash attention and the SSD scan
+# ---------------------------------------------------------------------------
+
+# Flash attention: float32 rtol 1e-4 / atol 1e-5 (dot products of D terms
+# and the softmax sums taken in another order); bfloat16 rtol 1e-2 / atol
+# 1e-2 against the plain version on the bf16 inputs (it computes in
+# float32 and rounds once; the kernel also rounds P to bf16 for P.V).
+_ATTN_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
+# SSD: float32 rtol 1e-4 / atol 1e-4 (the kernel runs the recurrence step
+# by step, the plain version in chunks); bfloat16 as above (both compute in
+# float32 and round y once).
+_SSD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+
+
+def _allclose(got, want, tol):
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.detach().float().cpu().numpy(),
+                               want.detach().float().cpu().numpy(), rtol=tol[0], atol=tol[1])
+
+
+def _attn_inputs(b, sq, skv, h, hkv, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.as_tensor(rng.standard_normal(s).astype(np.float32),  # noqa: E731
+                                   device="cuda").to(dtype)
+    return t(b, sq, h, d), t(b, skv, hkv, d), t(b, skv, hkv, d)
+
+
+# (B, Sq, Skv, H, Hkv, D, causal, window, kv_offset): ragged lengths, GQA
+# and MQA, a window, queries after a cache (kv_offset > 0, Sq < Skv)
+ATTN_SWEEP = [
+    (2, 100, 100, 4, 1, 64, True, 0, 0),
+    (1, 130, 130, 8, 2, 128, True, 37, 0),
+    (2, 64, 64, 2, 2, 256, False, 0, 0),
+    (1, 33, 200, 4, 4, 64, True, 0, 167),
+    (1, 1, 77, 4, 2, 128, True, 16, 76),
+    (2, 257, 257, 8, 1, 256, True, 100, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal,window,off", ATTN_SWEEP)
+def test_flash_attention_matches_plain(cuda, b, sq, skv, h, hkv, d, causal, window, off, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_ref
+
+    q, k, v = _attn_inputs(b, sq, skv, h, hkv, d, dtype, sq + d)
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window, kv_offset=off)
+    want = attention_ref(q, k, v, causal=causal, window=window, kv_offset=off)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _allclose(got, want, _ATTN_TOL[dtype])
+    again = fa.flash_attention(q, k, v, causal=causal, window=window, kv_offset=off)
+    assert torch.equal(got, again)
+
+
+def test_flash_attention_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = _attn_inputs(1, 16, 16, 4, 2, 64, torch.float32, 0)
+    with pytest.raises(ValueError):
+        flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                        v[..., :48].contiguous())
+    with pytest.raises(ValueError):
+        flash_attention(q.transpose(1, 2), k, v)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        flash_attention(q, k.cpu(), v)
+
+
+def _ssd_inputs(b, s, h, p, g, n, dtype, seed, init):
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(a.astype(np.float32), device="cuda")  # noqa: E731
+    x = f(rng.standard_normal((b, s, h, p))).to(dtype)
+    dt = f(rng.random((b, s, h)) * 0.5 + 0.01)
+    A = f(-rng.random(h) - 0.1)
+    B = f(rng.standard_normal((b, s, g, n))).to(dtype)
+    C = f(rng.standard_normal((b, s, g, n))).to(dtype)
+    st = f(rng.standard_normal((b, h, p, n))) if init else None
+    return x, dt, A, B, C, st
+
+
+# (B, S, H, P, G, N, chunk, init): ragged S, G > 1, a nonzero initial state
+SSD_SWEEP = [
+    (2, 128, 4, 64, 1, 128, 128, False),
+    (1, 200, 6, 32, 2, 64, 64, True),
+    (2, 33, 4, 16, 4, 32, 16, False),
+    (1, 300, 24, 64, 1, 128, 128, True),
+    (3, 1, 2, 32, 1, 32, 32, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,init", SSD_SWEEP)
+def test_ssd_scan_matches_plain(cuda, b, s, h, p, g, n, chunk, init, dtype):
+    from repro_torch.kernels import ops, ssd_scan
+    from repro_torch.kernels.ref import ssd_chunked_ref
+
+    x, dt, A, B, C, st = _ssd_inputs(b, s, h, p, g, n, dtype, s + p, init)
+    before = ssd_scan.LAUNCHES["ssd_scan"]
+    y, final = ops.ssd_scan(x, dt, A, B, C, chunk=chunk, init_state=st)
+    assert ssd_scan.LAUNCHES["ssd_scan"] == before + 1
+    want_y, want_state = ssd_chunked_ref(x, dt * A, dt, B, C, chunk=chunk, init_state=st)
+    assert y.dtype == dtype and final.dtype == torch.float32
+    _allclose(y, want_y, _SSD_TOL[dtype])
+    _allclose(final, want_state, _SSD_TOL[torch.float32])
+    y2, final2 = ops.ssd_scan(x, dt, A, B, C, chunk=chunk, init_state=st)
+    assert torch.equal(y, y2) and torch.equal(final, final2)
+
+
+def test_ssd_scan_takes_strided_slices(cuda):
+    """x, B and C as slices of one wider projection, as Mamba-2 passes them."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssd_chunked_ref
+
+    b, s, h, p, g, n = 2, 70, 4, 32, 1, 64
+    x, dt, A, B, C, _ = _ssd_inputs(b, s, h, p, g, n, torch.float32, 5, False)
+    wide = torch.cat([x.reshape(b, s, -1), B.reshape(b, s, -1), C.reshape(b, s, -1)], -1)
+    xs = wide[..., : h * p].reshape(b, s, h, p)
+    bs = wide[..., h * p: h * p + g * n].reshape(b, s, g, n)
+    cs = wide[..., h * p + g * n:].reshape(b, s, g, n)
+    assert not xs.is_contiguous()
+    y, st = ops.ssd_scan(xs, dt, A, bs, cs, chunk=32)
+    want_y, want_st = ssd_chunked_ref(x, dt * A, dt, B, C, chunk=32)
+    _allclose(y, want_y, _SSD_TOL[torch.float32])
+    _allclose(st, want_st, _SSD_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("arch,kernel", [("gemma-2b", "flash_attention"),
+                                         ("mamba2-130m", "ssd_scan")])
+def test_lm_serving_on_card_matches_cpu_and_repeats_bitwise(cuda, arch, kernel):
+    """The reduced configs (float32) served on the card go through one
+    kernel launch per layer's prefill, give the same bits twice, and agree
+    with the same weights served on the CPU through the plain versions
+    (rtol 1e-4 / atol 1e-4: logits through two layers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, ssd_scan
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer.model import init_params
+
+    counts = {"flash_attention": flash_attention.LAUNCHES, "ssd_scan": ssd_scan.LAUNCHES}[kernel]
+    cfg = get_config(arch, reduced=True)
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(1), device="cuda")
+    before = counts[kernel]
+    kw = dict(batch=3, prompt_len=70, gen=5, seed=2)
+    out = serve(cfg, device="cuda", params=params, **kw)
+    assert counts[kernel] == before + cfg.num_layers
+    again = serve(cfg, device="cuda", params=params, **kw)
+    assert np.array_equal(out["tokens"], again["tokens"])
+    assert torch.equal(out["logits"], again["logits"])
+    cpu = serve(cfg, device="cpu", params=_to_cpu(params), **kw)
+    np.testing.assert_allclose(out["logits"].cpu().numpy(), cpu["logits"].numpy(),
+                               rtol=1e-4, atol=1e-4)
+    assert np.array_equal(out["tokens"], cpu["tokens"])
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()

@@ -1,4 +1,5 @@
-"""The port stands alone: ``repro_torch`` never imports JAX or the JAX package."""
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` never import
+JAX or the JAX package."""
 import ast
 import os
 import subprocess
@@ -15,18 +16,26 @@ PORT = REPO / "src" / "repro_torch"
 MODULES = [
     "repro_torch",
     "repro_torch.api",
+    "repro_torch.configs",
     "repro_torch.core.inference",
     "repro_torch.core.partition",
     "repro_torch.core.sampling",
     "repro_torch.core.storage",
     "repro_torch.graph",
     "repro_torch.kernels.build",
+    "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.fused_gnn",
     "repro_torch.kernels.ops",
     "repro_torch.kernels.ref",
+    "repro_torch.kernels.ssd_scan",
+    "repro_torch.launch.serve",
+    "repro_torch.launch.specs",
     "repro_torch.models.gnn",
+    "repro_torch.models.transformer.layers",
+    "repro_torch.models.transformer.model",
+    "repro_torch.models.transformer.ssm",
     "repro_torch.serve",
-]
+] + [f"repro_torch.configs.{p.stem}" for p in sorted((PORT / "configs").glob("[!_]*.py"))]
 
 
 def test_import_loads_neither_jax_nor_repro():
@@ -56,7 +65,8 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")), ids=lambda p: str(p.relative_to(PORT))
+    "path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO / "src" if PORT in p.parents else REPO)),
 )
 def test_no_module_of_the_port_imports_jax_or_repro(path):
     roots = {name.split(".")[0] for name in _imports(path)}
