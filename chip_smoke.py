@@ -8,7 +8,8 @@ against its plain PyTorch version on the card, then runs the port's paths
 at the paper's model width on the ``ogbn-paper`` stand-in graph (150,000
 vertices, 1.05 M edges, 4 parts, fanouts 15/10/5), for SAGE (3 layers,
 128 -> 256 -> 256 -> 256, head 256 -> 16) and GAT (4 heads, same widths),
-and serves two language models at full width:
+runs the segment max on its ids, and serves three language models at
+full width:
 
 * inference and serving: ``GLISPSystem.build -> infer_layerwise ->
   server().submit/step/response``; 32 Zipf requests served batched and
@@ -18,17 +19,28 @@ and serves two language models at full width:
   weight decay 1e-4), then the first batch's loss and every gradient
   with kernels vs plain versions, and determinism: two 6-step runs, and a
   run checkpointed at step 3 and resumed to 6, must end with the same bits;
+* segment max: ``repro_torch.kernels.gnn_segment_max`` on the stand-in
+  graph's destination ids shuffled (10% padding, 1% ids >= n), float32 and
+  bf16, one launch each; bitwise equal to its plain version there and on
+  mostly empty segments, NaN/+-inf/signed zeros, all padding and no edges;
 * transformer serving: ``repro_torch.launch.serve.serve`` for gemma-2b
   (18 layers, d_model 2048, 8 query heads over 1 KV head of 256, GeGLU
   16384, vocab 256,000) and mamba2-130m (24 layers, d_model 768, 24 SSD
   heads of 64, state 128), both at their full configs in bf16: batch 4,
-  prompt 2048, 32 greedy tokens. Every prefill layer must launch the
-  flash-attention or the SSD-scan kernel once (18 and 24 per prefill;
-  decode is plain tensor code); a second run must give the same bits, and
-  the prefill's logits must agree with runs through the plain versions,
-  in float32 and in bf16 (``LM_F32_TOL``, ``LM_BF16_RATIO``). Before it,
-  both kernels are held against their plain versions at the path's shapes
-  and at ragged ones, float32 and bf16.
+  prompt 2048, 32 greedy tokens; and deepseek-v2-lite-16b (27 layers,
+  d_model 2048, MLA with 16 heads of 128 + a 64-wide RoPE tail and a
+  512-wide latent, 64 routed experts top-6 + 2 shared of width 1408,
+  vocab 102,400; 16.0 B parameters, 32 GB in bf16) the same way. Every
+  prefill layer must launch the flash-attention or the SSD-scan kernel
+  once (18, 24 and 27 per prefill; decode is plain tensor code); a second
+  run must give the same bits, and the prefill's logits must agree with
+  runs through the plain versions, in float32 and in bf16
+  (``LM_F32_TOL``, ``LM_BF16_RATIO``), at full depth for the first two and
+  at 4 layers for deepseek (its float32 upcast would not fit), counting
+  the MoE routing flips between the two float32 runs. Before it, both
+  kernels are held against their plain versions at the paths' shapes
+  (flash at D 256 and at MLA's 192 over 128) and at ragged ones, float32
+  and bf16.
 
 Weights are random, drawn with numpy from seed 0 (the LM weights on the
 card from a ``torch.Generator`` seeded with 0). Launch counters are
@@ -54,8 +66,9 @@ wrapper called back to back from Python (bound by host issue time);
 Bounds: bytes at 3.35 TB/s against operations at 67 TFLOP/s (float32, the
 GNN kernels) or 989 TFLOP/s (bf16 tensor cores, the LM kernels; causal
 attention counts the unmasked half of the square). The flash kernel's
-library yardstick is ``scaled_dot_product_attention``, timed here and
-never called by the port.
+library yardstick is ``scaled_dot_product_attention``, the segment max's
+``scatter_reduce(..., "amax")``, both timed here and never called by the
+port.
 
 Tolerances: kernel vs plain float32 rtol 1e-5 / atol 1e-5 (sums in
 another order); the GAT backward's logit gradient rtol 1e-4 / atol 1e-5
@@ -410,6 +423,147 @@ def dense_forms() -> list:
         })
     log("dense_forms: " + json.dumps(rows))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the segment-max path: its entry point at the stand-in graph's edge count
+# ---------------------------------------------------------------------------
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def check_bitwise(name, got, want) -> float:
+    """A max has no rounding: the kernel must give its plain version's bits
+    (the sign of a zero included). Returns the max abs error, 0.0."""
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(bits(got),
+                                                                              bits(want)):
+        differ = int((bits(got) != bits(want)).sum()) if got.shape == want.shape else -1
+        fail(f"{name}: not bitwise equal to the plain version ({differ} elements differ, "
+             f"max abs err {max_err(got, want)})")
+    log(f"  ok {name}: bitwise equal")
+    return max_err(got, want)
+
+
+def max_inputs(ids, n, seed, dtype, *, pad=0.1, over=0.01, special=False):
+    """x [E] and the ids shuffled, on the card: a ``pad`` share of -1, an
+    ``over`` share of ids >= n; ``special`` salts x with NaN, +-inf, -0.0
+    and +0.0 and gives every 7th segment only zeros of either sign."""
+    rng = np.random.default_rng(seed)
+    seg = rng.permutation(np.asarray(ids)).astype(np.int32)
+    e = seg.shape[0]
+    pick = rng.random(e)
+    seg[pick < pad] = -1
+    high = (pick >= pad) & (pick < pad + over)
+    seg[high] = n + rng.integers(0, 1000, int(high.sum()))
+    x = rng.standard_normal(e).astype(np.float32)
+    if special and e:
+        vals = np.array([np.nan, -np.nan, np.inf, -np.inf, -0.0, 0.0], np.float32)
+        salt = rng.random(e) < 0.01
+        x[salt] = rng.choice(vals, int(salt.sum()))
+        zeros = (seg >= 0) & (seg % 7 == 0)
+        x[zeros] = np.where(rng.random(int(zeros.sum())) < 0.7, -0.0, 0.0)
+    return torch.as_tensor(x, device="cuda").to(dtype), torch.as_tensor(seg, device="cuda")
+
+
+def segment_max_path(g) -> tuple[dict, tuple]:
+    """``repro_torch.kernels.gnn_segment_max``, the op's entry point, on the
+    stand-in graph's destination ids (1.05 M edges over 150,000 vertices,
+    power-law in-degrees) shuffled, with 10% padding and 1% ids >= n, in
+    float32 and bf16: counts zeroed just before, read just after (one
+    launch each). Each result must be its plain version's bits; so must
+    the cases around it (mostly empty segments; NaN, +-inf and signed
+    zeros; all padding; no edges). Returns the path's numbers and the
+    float32 call's arguments."""
+    from repro_torch.kernels import fused_gnn, ops
+    from repro_torch.kernels.ref import segment_max_ref
+
+    log("phase: segment max through gnn_segment_max on the stand-in graph's ids")
+    n = g.num_vertices
+    calls = {dtype: max_inputs(g.dst, n, 1, dtype) for dtype in (torch.float32, torch.bfloat16)}
+    fused_gnn.reset_launches()
+    t0 = time.perf_counter()
+    outs = {dtype: ops.gnn_segment_max(x, seg, n) for dtype, (x, seg) in calls.items()}
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    got = {k: v for k, v in fused_gnn.LAUNCHES.items() if v}
+    if got != {"segment_max": 2}:
+        fail(f"the segment-max path launched {got}, it implies 2 segment_max launches")
+    for dtype, (x, seg) in calls.items():
+        out = outs[dtype]
+        check_bitwise(f"gnn_segment_max E={x.shape[0]} n={n} shuffled graph ids {dtype}", out,
+                      segment_max_ref(x, seg, n))
+        if not torch.isfinite(out).all():
+            fail("gnn_segment_max gave a non-finite value")
+    rng = np.random.default_rng(2)
+    e = int(g.num_edges)
+    for label, m, n2, pad, over, special in (
+        ("mostly empty segments", 50000, 1_000_000, 0.1, 0.0, False),
+        ("NaN, +-inf, -0.0 and +0.0", e, n, 0.1, 0.01, True),
+        ("all padding", 65536, 4096, 1.0, 0.0, False),
+        ("zero edges", 0, 4096, 0.0, 0.0, False),
+    ):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, seg = max_inputs(rng.integers(0, n2, m), n2, m + n2, dtype, pad=pad, over=over,
+                                special=special)
+            check_bitwise(f"segment_max {label} E={m} n={n2} {dtype}",
+                          fused_gnn.segment_max(x, seg, n2), segment_max_ref(x, seg, n2))
+    x, seg = calls[torch.float32]
+    info = {
+        "edges": e,
+        "segments": n,
+        "valid_edges": int(((seg >= 0) & (seg < n)).sum()),
+        "empty_segments": int(torch.bincount(seg[(seg >= 0) & (seg < n)].long(),
+                                             minlength=n).eq(0).sum()),
+        "launches": got["segment_max"],
+        "wall_ms_two_calls": wall_ms,
+    }
+    log("  segment max path: " + json.dumps(info))
+    return info, (x, seg, n)
+
+
+def time_segment_max(args, launches: int) -> dict:
+    """Kernel 5 at the path's float32 call. Bound: x and the ids read
+    once, the output written once (the comparisons are free beside them).
+    Library yardstick: ``scatter_reduce(..., "amax")`` of the valid edges
+    into a -inf row (which gives +-inf and NaN where the op gives 0.0;
+    this data has neither)."""
+    from repro_torch.kernels import fused_gnn
+    from repro_torch.kernels.ref import segment_max_ref
+
+    x, seg, n = args
+    e = x.shape[0]
+    got = fused_gnn.segment_max(x, seg, n)
+    err = check_bitwise(f"segment_max on the path's call E={e} n={n}", got,
+                        segment_max_ref(x, seg, n))
+    ok = (seg >= 0) & (seg < n)
+    xs, sl = x[ok].contiguous(), seg[ok].long()
+    base = torch.full((n,), float("-inf"), dtype=x.dtype, device=x.device)
+    lib = base.scatter_reduce(0, sl, xs, "amax")
+    check_bitwise("scatter_reduce amax on the same call (empty rows to 0.0)",
+                  torch.where(torch.isfinite(lib), lib, 0.0), got)
+    keys = torch.empty(n, dtype=torch.int32, device=x.device)
+    esize = x.element_size()
+    bound, by = bound_ms(e * (4 + esize) + n * esize, e)
+    return {
+        "name": "segment_max",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/segment_max.cu",
+        "replaces": "src/repro/kernels/fused_gnn.py:348",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": graph_ms(rotating(fused_gnn.segment_max, x, seg, n)),
+        "kernel_ms": graph_ms(rotating(fused_gnn.launch_segment_max, x, seg, keys,
+                                       torch.empty_like(got))),
+        "eager_ms": time_ms(rotating(fused_gnn.segment_max, x, seg, n)),
+        "plain_ms": time_ms(rotating(segment_max_ref, x, seg, n)),
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": time_ms(rotating(lambda v, i: base.scatter_reduce(0, i, v, "amax"),
+                                       xs, sl)),
+        "shape": {"E": e, "valid_edges": int(ok.sum()), "n": n, "dtype": str(x.dtype)},
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -1128,7 +1282,13 @@ def time_gat_backward(args, launches: int) -> dict:
 # phases 10-11: LM kernels and transformer serving at full width
 # ---------------------------------------------------------------------------
 
-LM_ARCHS = {"gemma-2b": "flash_attention", "mamba2-130m": "ssd_scan"}
+# arch -> (the kernel its prefill launches, layers held in float32: None =
+# all; deepseek-v2-lite upcast whole would need 64 GB beside its 32 GB)
+LM_ARCHS = {
+    "gemma-2b": ("flash_attention", None),
+    "mamba2-130m": ("ssd_scan", None),
+    "deepseek-v2-lite-16b": ("flash_attention", 4),
+}
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
 # The prefill's last logits, kernels vs plain versions. In float32 the two
 # differ by sums in another order through every layer (18 or 24): rtol
@@ -1156,10 +1316,10 @@ def reset_lm_launches() -> None:
     ssd_scan.reset_launches()
 
 
-def attn_inputs(b, sq, skv, h, hkv, d, dtype, seed):
+def attn_inputs(b, sq, skv, h, hkv, d, dtype, seed, dv=None):
     g = torch.Generator("cuda").manual_seed(seed)
     return tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
-                 for shape in ((b, sq, h, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+                 for shape in ((b, sq, h, d), (b, skv, hkv, d), (b, skv, hkv, dv or d)))
 
 
 def ssd_inputs(b, s, h, p, g, n, dtype, seed, init):
@@ -1179,15 +1339,17 @@ def compare_lm_kernels() -> None:
 
     log("phase: LM kernels vs plain versions on the card")
     for dtype in (torch.float32, torch.bfloat16):
-        for b, sq, skv, h, hkv, d, causal, window, off in (
-            (4, 2048, 2048, 8, 1, 256, True, 0, 0),  # the gemma-2b prefill
-            (2, 1000, 1000, 16, 8, 128, True, 512, 0),
-            (2, 333, 1357, 16, 8, 128, True, 0, 1024),
-            (1, 77, 77, 4, 2, 64, False, 0, 0),
+        for b, sq, skv, h, hkv, d, dv, causal, window, off in (
+            (4, 2048, 2048, 8, 1, 256, 256, True, 0, 0),  # the gemma-2b prefill
+            (4, 2048, 2048, 16, 16, 192, 128, True, 0, 0),  # the deepseek-v2-lite prefill
+            (2, 1000, 1000, 16, 8, 128, 128, True, 512, 0),
+            (2, 333, 1357, 16, 8, 128, 128, True, 0, 1024),
+            (1, 300, 500, 16, 16, 192, 128, True, 100, 200),
+            (1, 77, 77, 4, 2, 64, 64, False, 0, 0),
         ):
-            q, k, v = attn_inputs(b, sq, skv, h, hkv, d, dtype, sq + d)
+            q, k, v = attn_inputs(b, sq, skv, h, hkv, d, dtype, sq + d, dv)
             kw = dict(causal=causal, window=window, kv_offset=off)
-            check_close(f"flash_attention B={b} Sq={sq} Skv={skv} H={h}/{hkv} D={d} "
+            check_close(f"flash_attention B={b} Sq={sq} Skv={skv} H={h}/{hkv} D={d} Dv={dv} "
                         f"causal={causal} window={window} kv_offset={off} {dtype}",
                         ops.mha_attention(q, k, v, **kw), attention_ref(q, k, v, **kw),
                         tol=ATTN_TOL[dtype])
@@ -1250,9 +1412,10 @@ PROFILE_DECODE_STEPS = 8
 def device_ms_by_kind(prof) -> tuple[dict, list] | None:
     """Device time (ms) of a ``torch.profiler`` trace's kernels, by kind:
     the two LM kernels, matrix products (cuBLAS's ``nvjet``/``gemm`` and
-    CUTLASS names), PyTorch's elementwise and reduction kernels, and the
-    rest; with the five largest kernels by name. None when the trace holds
-    no device events."""
+    CUTLASS names), gathers and scatters (MoE dispatch and combine,
+    embedding lookups), sorts and scans (MoE routing), PyTorch's
+    elementwise and reduction kernels, and the rest; with the five largest
+    kernels by name. None when the trace holds no device events."""
     from torch.autograd import DeviceType
 
     kinds: dict = {}
@@ -1267,6 +1430,10 @@ def device_ms_by_kind(prof) -> tuple[dict, list] | None:
             kind = "ssd_scan"
         elif any(t in name for t in ("nvjet", "gemm", "cutlass", "xmma", "matmul")):
             kind = "matmul"
+        elif any(t in name for t in ("index", "scatter", "gather")):
+            kind = "gather_scatter"  # MoE dispatch and combine, embedding lookups
+        elif any(t in name for t in ("sort", "scan")):
+            kind = "sort_scan"  # MoE routing: top-k by sort, slot positions by cumsum
         elif "elementwise" in name:
             kind = "elementwise"
         elif "reduce" in name:
@@ -1323,33 +1490,65 @@ def profile_lm(cfg, params, prefill_wall_ms: float, decode_wall_ms: float) -> di
     return out
 
 
-def serve_lm(arch: str, kernel: str, captured: dict) -> dict:
+class RoutingRecorder:
+    """Wraps ``moe.route``: keeps each call's chosen experts and kept slots,
+    in call order (one call per MoE layer of a forward)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.calls = []
+
+    def __call__(self, *args, **kwargs):
+        r = self.fn(*args, **kwargs)
+        self.calls.append((r.gate_idx.clone(), r.keep.clone()))
+        return r
+
+
+def routing_flips(a: RoutingRecorder, b: RoutingRecorder, seq_len: int) -> tuple[list, list]:
+    """Slots whose expert or whose keep/drop differs between two runs, per
+    MoE layer, and the batch rows that hold any of them (tokens are
+    row-major, ``seq_len`` to a row)."""
+    per_layer, rows = [], set()
+    for (ia, ka), (ib, kb) in zip(a.calls, b.calls):
+        diff = (ia != ib).reshape(-1) | (ka != kb).reshape(-1)
+        per_layer.append(int(diff.sum()))
+        tokens = torch.nonzero(diff).flatten() // ia.shape[-1]
+        rows.update((tokens // seq_len).tolist())
+    return per_layer, sorted(rows)
+
+
+def serve_lm(arch: str, kernel: str, f32_layers, captured: dict) -> dict:
     """``repro_torch.launch.serve.serve`` at the full config: batch 4,
     prompt 2048, 32 greedy tokens, weights drawn on the card from seed 0
     (as ``serve`` draws them itself). Counts are zeroed just before the run
     and read just after: one kernel launch per layer's prefill, none in
     decode. A second run must give the same bits, and one more prefill
     and decode are profiled (:func:`profile_lm`). The prefill's logits are
-    then held against the plain versions: in float32 (the same weights
-    upcast) within ``LM_F32_TOL``, and in bf16 against the float32 plain
-    run, where the kernels' error may be at most ``LM_BF16_RATIO`` times
-    the plain versions' own."""
+    then held against the plain versions at ``f32_layers`` layers (None:
+    all; the first layers of the same model where an upcast of all would
+    not fit the card): in float32 (the same weights upcast) within
+    ``LM_F32_TOL``, and in bf16 against the float32 plain run, where the
+    kernels' error may be at most ``LM_BF16_RATIO`` times the plain
+    versions' own. With experts, the float32 runs record their routing: a
+    slot whose expert or keep flips between kernels and plain versions
+    (attention differing by 1e-6 can move a token across the top-k
+    boundary) is counted per layer, and the logits are held on the batch
+    rows that no flip touched."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
-    from repro_torch.models.transformer import layers, ssm
+    from repro_torch.models.transformer import layers, moe, ssm
     from repro_torch.models.transformer.model import init_params
 
     cfg = get_config(arch, reduced=False)
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
     owner, entry = (layers, "mha_attention") if kernel == "flash_attention" else (ssm, "ssd_scan")
     first = FirstCall(getattr(ops, entry))
     params = init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
     kw = dict(batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN, seed=0, device="cuda",
               params=params)
-    want = {kernel: cfg.num_layers}
 
-    def launched(what):
+    def launched(what, layers_run=cfg.num_layers):
+        want = {kernel: layers_run}
         got = {k: v for k, v in lm_launches().items() if v}
         if got != want:
             fail(f"{arch} {what} launched {got}, the path implies {want}")
@@ -1363,7 +1562,7 @@ def serve_lm(arch: str, kernel: str, captured: dict) -> dict:
     wall_s = time.perf_counter() - t0
     got = launched("serving")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    captured[kernel] = first.args
+    captured[arch] = first.args
     toks, logits = out["tokens"], out["logits"]
     real = slice(0, cfg.vocab_size)
     if toks.shape != (LM_BATCH, LM_GEN + 1) or not torch.isfinite(logits[:, real]).all():
@@ -1379,21 +1578,44 @@ def serve_lm(arch: str, kernel: str, captured: dict) -> dict:
         plain = serve(cfg, **kw)
     if any(lm_launches().values()):
         fail(f"{arch} plain run launched {lm_launches()}")
+    profile = profile_lm(cfg, params, again["prefill_ms"], again["decode_ms_per_token"])
 
-    up = tree_map(lambda t: t.float(), params)
-    kw32 = {**kw, "params": up, "gen": 0}
+    depth = cfg.num_layers if f32_layers is None else f32_layers
+    head = {**params, "layers": params["layers"][:depth]}
+    cfg_d = dataclasses.replace(cfg, num_layers=depth)
+    cfg32 = dataclasses.replace(cfg_d, dtype="float32")
+    kw32 = {**kw, "params": tree_map(lambda t: t.float(), head), "gen": 0}
+    rec_k, rec_p = RoutingRecorder(moe.route), RoutingRecorder(moe.route)
     reset_lm_launches()
-    k32 = serve(cfg32, **kw32)
-    launched("float32 run")
-    with plain_lm():
+    with mock.patch.object(moe, "route", rec_k):
+        k32 = serve(cfg32, **kw32)
+    launched("float32 run", depth)
+    with plain_lm(), mock.patch.object(moe, "route", rec_p):
         p32 = serve(cfg32, **kw32)
+    del kw32
+    flips, flipped_rows = routing_flips(rec_k, rec_p, LM_PROMPT)
+    held = [r for r in range(LM_BATCH) if r not in flipped_rows]
+    log(f"  {arch} float32 at {depth} layers: routing flips per MoE layer {flips}, "
+        f"batch rows touched {flipped_rows}, rows held {held}")
+    if not held:
+        fail(f"{arch}: routing flips touched every batch row; no float32 logits to hold")
     ref = p32["logits"][:, real]
-    err32 = check_close(f"{arch} float32 prefill last logits, kernels vs plain versions",
-                        k32["logits"][:, real], ref, tol=LM_F32_TOL)
-    err_k = max_err(logits[:, real], ref)
-    err_p = max_err(plain["logits"][:, real], ref)
-    log(f"  {arch} bf16 prefill last logits vs the float32 plain run: kernels {err_k:.3e}, "
-        f"plain versions {err_p:.3e} (at most {LM_BF16_RATIO}x)")
+    err32 = check_close(f"{arch} float32 prefill last logits at {depth} layers, kernels vs "
+                        f"plain versions, rows {held}",
+                        k32["logits"][held][:, real], ref[held], tol=LM_F32_TOL)
+    if depth == cfg.num_layers:
+        bf_k, bf_p = logits, plain["logits"]
+    else:  # bf16 at the float32 run's depth
+        kw_d = {**kw, "params": head, "gen": 0}
+        reset_lm_launches()
+        bf_k = serve(cfg_d, **kw_d)["logits"]
+        launched("bf16 run at the float32 run's depth", depth)
+        with plain_lm():
+            bf_p = serve(cfg_d, **kw_d)["logits"]
+    err_k = max_err(bf_k[:, real], ref)
+    err_p = max_err(bf_p[:, real], ref)
+    log(f"  {arch} bf16 prefill last logits at {depth} layers vs the float32 plain run: "
+        f"kernels {err_k:.3e}, plain versions {err_p:.3e} (at most {LM_BF16_RATIO}x)")
     info = {
         "config": cfg.name,
         "batch": LM_BATCH,
@@ -1406,6 +1628,7 @@ def serve_lm(arch: str, kernel: str, captured: dict) -> dict:
         "again_decode_ms_per_token": again["decode_ms_per_token"],
         "plain_prefill_ms": plain["prefill_ms"],
         "plain_decode_ms_per_token": plain["decode_ms_per_token"],
+        "f32_depth": depth,
         "f32_prefill_ms": k32["prefill_ms"],
         "f32_plain_prefill_ms": p32["prefill_ms"],
         "peak_memory_gb": peak_gb,
@@ -1415,12 +1638,13 @@ def serve_lm(arch: str, kernel: str, captured: dict) -> dict:
         "bf16_kernels_err_vs_f32": err_k,
         "bf16_plain_err_vs_f32": err_p,
         "f32_logits_max_abs_err_vs_plain": err32,
+        "f32_routing_flips_per_layer": flips,
+        "f32_rows_held": held,
         "logit_scale": float(ref.abs().max()),
         "greedy_tokens_equal_to_plain": float(np.mean(plain["tokens"] == toks)),
         "first_tokens": toks[0, :8].tolist(),
+        "profile": profile,
     }
-    info["profile"] = profile_lm(cfg, params, again["prefill_ms"],
-                                 again["decode_ms_per_token"])
     log(f"  serve {arch}: " + json.dumps(info))
     if not bitwise:
         fail(f"{arch}: two serving runs differ")
@@ -1430,10 +1654,12 @@ def serve_lm(arch: str, kernel: str, captured: dict) -> dict:
     return info
 
 
-def time_flash(call, launches: int) -> dict:
-    """The flash kernel at the gemma-2b prefill's call. Bound: q, k, v read
-    once and the output written once at 3.35 TB/s, against the causal
-    products (4 D flops per unmasked (query, key) pair) at 989 TFLOP/s."""
+def time_flash(call, launches: int, name: str = "flash_attention") -> dict:
+    """The flash kernel at a serving prefill's call (gemma-2b: D 256 over
+    one KV head; deepseek-v2-lite: q and k 192 wide, v 128). Bound: q, k,
+    v read once and the output written once at 3.35 TB/s, against the
+    causal products (2 (D + Dv) flops per unmasked (query, key) pair) at
+    989 TFLOP/s."""
     import functools
 
     import torch.nn.functional as F
@@ -1443,10 +1669,10 @@ def time_flash(call, launches: int) -> dict:
 
     (q, k, v), kw = call
     b, s, h, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
-    err = check_close(f"flash_attention on the path's call B={b} S={s} H={h}/{hkv} D={d}",
-                      fa.flash_attention(q, k, v, **kw), attention_ref(q, k, v, **kw),
-                      tol=ATTN_TOL[q.dtype])
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    err = check_close(f"flash_attention on the path's call B={b} S={s} H={h}/{hkv} D={d} "
+                      f"Dv={dv}", fa.flash_attention(q, k, v, **kw),
+                      attention_ref(q, k, v, **kw), tol=ATTN_TOL[q.dtype])
     if kw["window"] or kw["kv_offset"] or not kw["causal"] or s != skv:
         fail(f"unexpected flash call on the path: {kw}")
 
@@ -1458,11 +1684,11 @@ def time_flash(call, launches: int) -> dict:
                 fa.flash_attention(q, k, v, **kw), tol=ATTN_TOL[q.dtype])
     pairs = b * h * s * (s + 1) // 2
     esize = q.element_size()
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * esize
-    bound, by = bound_ms(nbytes, 4 * d * pairs, BF16_FLOPS)
-    out = torch.empty_like(q)
+    nbytes = (q.numel() + k.numel() + v.numel() + b * s * h * dv) * esize
+    bound, by = bound_ms(nbytes, 2 * (d + dv) * pairs, BF16_FLOPS)
+    out = q.new_empty((b, s, h, dv))
     return {
-        "name": "flash_attention",
+        "name": name,
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:91",
@@ -1478,7 +1704,7 @@ def time_flash(call, launches: int) -> dict:
         "bound_ms": bound,
         "bound_by": by,
         "library_ms": time_ms(rotating(sdpa, q, k, v), iters=20),
-        "shape": {"B": b, "S": s, "H": h, "Hkv": hkv, "D": d, "causal_pairs": pairs,
+        "shape": {"B": b, "S": s, "H": h, "Hkv": hkv, "D": d, "Dv": dv, "causal_pairs": pairs,
                   "dtype": str(q.dtype)},
     }
 
@@ -1569,6 +1795,7 @@ def main() -> int:
         "segment_spmm_ragged", "gat_softmax_aggregate", "gather_spmm_ragged",
         "gather_spmm_ragged_backward", "gat_softmax_aggregate_backward")}
     captured: dict = {}
+    seg_max, seg_max_call = segment_max_path(g)
     log("phase: SAGE 128->256x3, infer_layerwise + serving")
     sage = run_model(system, "sage", "segment_spmm_ragged", launches, captured)
     log("phase: GAT 4 heads 128->256x3, infer_layerwise + serving")
@@ -1585,7 +1812,10 @@ def main() -> int:
     log(f"phase: transformer serving at full width (batch {LM_BATCH}, prompt {LM_PROMPT}, "
         f"{LM_GEN} greedy tokens)")
     lm_captured: dict = {}
-    lm = {arch: serve_lm(arch, kernel, lm_captured) for arch, kernel in LM_ARCHS.items()}
+    lm = {}
+    for arch, (kernel, f32_layers) in LM_ARCHS.items():
+        torch.cuda.empty_cache()  # the earlier model's weights and caches
+        lm[arch] = serve_lm(arch, kernel, f32_layers, lm_captured)
 
     log("phase: kernel times at the path's largest shapes (CUDA events, 100 calls, "
         f"{COPIES} rotating input copies)")
@@ -1597,9 +1827,12 @@ def main() -> int:
                              launches["gather_spmm_ragged_backward"]),
         time_gat_backward(captured["gat_softmax_aggregate_backward"],
                           launches["gat_softmax_aggregate_backward"]),
-        time_flash(lm_captured["flash_attention"],
-                   lm["gemma-2b"]["launches"]["flash_attention"]),
-        time_ssd(lm_captured["ssd_scan"], lm["mamba2-130m"]["launches"]["ssd_scan"]),
+        time_segment_max(seg_max_call, seg_max["launches"]),
+        time_flash(lm_captured["gemma-2b"], lm["gemma-2b"]["launches"]["flash_attention"]),
+        time_flash(lm_captured["deepseek-v2-lite-16b"],
+                   lm["deepseek-v2-lite-16b"]["launches"]["flash_attention"],
+                   name="flash_attention_mla"),
+        time_ssd(lm_captured["mamba2-130m"], lm["mamba2-130m"]["launches"]["ssd_scan"]),
     ]
     for r in rows:
         if r["launches"] <= 0:
@@ -1621,10 +1854,12 @@ def main() -> int:
                       "first_loss": v["losses"][0], "last_loss": v["losses"][-1]}
                   for k, v in trained.items()},
         "determinism": det,
+        "segment_max_path": seg_max,
         "lm_serve": {k: {key: v[key] for key in (
             "prefill_ms", "again_prefill_ms", "decode_ms_per_token", "peak_memory_gb",
-            "two_runs_bitwise_equal", "f32_logits_max_abs_err_vs_plain",
-            "bf16_kernels_err_vs_f32", "bf16_plain_err_vs_f32")} for k, v in lm.items()},
+            "two_runs_bitwise_equal", "f32_depth", "f32_logits_max_abs_err_vs_plain",
+            "f32_routing_flips_per_layer", "bf16_kernels_err_vs_f32",
+            "bf16_plain_err_vs_f32")} for k, v in lm.items()},
         "total_s": time.perf_counter() - t_start,
     }))
     shutil.rmtree(WORKDIR, ignore_errors=True)

@@ -41,6 +41,9 @@ SIGNATURES = {
         "segment_sum": (_p, _p, _c, _p, _c, _c, _c, _c, _c, _p, _p),
         "gather_segment_sum": (_p, _p, _p, _c, _p, _c, _c, _c, _c, _c, _p, _p),
     },
+    "segment_max": {
+        "segment_max": (_p, _p, _c, _c, _c, _p, _p, _p),
+    },
     "gat_softmax_aggregate": {
         "gat_softmax_aggregate": (_p, _p, _p, _c, _p, _c, _c, _c, _c, _c, _c, _p, _p, _p),
     },
@@ -50,7 +53,7 @@ SIGNATURES = {
         ),
     },
     "flash_attention": {
-        "flash_attention": (_p, _p, _p, _p, _c, _c, _c, _c, _c, _c, _c, _c, _c, _c, _p),
+        "flash_attention": (_p, _p, _p, _p, _c, _c, _c, _c, _c, _c, _c, _c, _c, _c, _c, _p),
     },
     "ssd_scan": {
         "ssd_scan": (

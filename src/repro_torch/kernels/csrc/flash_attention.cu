@@ -9,6 +9,15 @@
 // S 2048, H 8 over one KV head, D 256) the causal products are 68.7 GFLOP
 // against 75.5 MB of q, k, v and out, about 900 flops per byte, three
 // times the H100's 295: the tensor cores, not the memory, are the limit.
+// The same holds at deepseek-v2-lite's MLA prefill (B 4, S 2048, H 16,
+// q and k of width 192, v of width 128): 85.9 GFLOP against 168 MB, about
+// 510 flops per byte.
+//
+// Head widths: q and k share DQK, v and the output have DV. The
+// instantiations are (DQK, DV) = (64, 64), (128, 128), (256, 256), MLA's
+// (192, 128) (a 128-wide head plus a 64-wide RoPE tail for q and k), and
+// for the reduced configs (96, 64) (deepseek's 64 + 32) and (32, 32)
+// (mixtral's). The scores are scaled by 1/sqrt(DQK).
 //
 // Design. One block of 4 warps per (tile of 64 queries, head, batch); each
 // warp owns 16 query rows. Query head h reads KV head h / (H / Hkv) in
@@ -173,18 +182,19 @@ struct Products<float, D> {
   }
 };
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv, int H,
                            int Hkv, int causal, int window, int kv_offset, float scale) {
-  constexpr int kLd = D + Tile<T>::kPad;
+  constexpr int kLd = DQK + Tile<T>::kPad;   // Q and K rows
+  constexpr int kLdv = DV + Tile<T>::kPad;   // V rows
   constexpr int kLdp = kBK + Tile<T>::kPad;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);
   T* ks = qs + kBQ * kLd;
   T* vs = ks + kBK * kLd;
-  T* ps = vs + kBK * kLd;
+  T* ps = vs + kBK * kLdv;
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
   const int h = blockIdx.y;
@@ -194,14 +204,16 @@ __global__ void __launch_bounds__(kThreads)
   const int g = lane / 4, t = lane % 4;
   const int wr = warp * 16;
 
-  const long q_stride = static_cast<long>(H) * D;
-  const long kv_stride = static_cast<long>(Hkv) * D;
-  const T* qb = q + (static_cast<long>(b) * Sq + q0) * q_stride + static_cast<long>(h) * D;
-  const T* kb = k + static_cast<long>(b) * Skv * kv_stride + static_cast<long>(hk) * D;
-  const T* vb = v + static_cast<long>(b) * Skv * kv_stride + static_cast<long>(hk) * D;
+  const long q_stride = static_cast<long>(H) * DQK;
+  const long k_stride = static_cast<long>(Hkv) * DQK;
+  const long v_stride = static_cast<long>(Hkv) * DV;
+  const long o_stride = static_cast<long>(H) * DV;
+  const T* qb = q + (static_cast<long>(b) * Sq + q0) * q_stride + static_cast<long>(h) * DQK;
+  const T* kb = k + static_cast<long>(b) * Skv * k_stride + static_cast<long>(hk) * DQK;
+  const T* vb = v + static_cast<long>(b) * Skv * v_stride + static_cast<long>(hk) * DV;
 
   const int q_valid = min(kBQ, Sq - q0);
-  load_tile<T, D>(qs, kLd, qb, q_stride, q_valid);
+  load_tile<T, DQK>(qs, kLd, qb, q_stride, q_valid);
 
   // keys any query of this tile may see
   const int qp_first = kv_offset + q0;
@@ -209,9 +221,9 @@ __global__ void __launch_bounds__(kThreads)
   const int k_lo = window > 0 ? max(0, qp_first - window + 1) : 0;
   const int k_hi = causal ? min(Skv, qp_last + 1) : Skv;
 
-  float o[D / 8][4];
+  float o[DV / 8][4];
 #pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
+  for (int nd = 0; nd < DV / 8; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
   const int qpos[2] = {kv_offset + q0 + wr + g, kv_offset + q0 + wr + g + 8};
@@ -219,14 +231,14 @@ __global__ void __launch_bounds__(kThreads)
   for (int k0 = (k_lo / kBK) * kBK; k0 < k_hi; k0 += kBK) {
     __syncthreads();  // the previous tile's K, V and P are no longer read
     const int k_valid = min(kBK, Skv - k0);
-    load_tile<T, D>(ks, kLd, kb + k0 * kv_stride, kv_stride, k_valid);
-    load_tile<T, D>(vs, kLd, vb + k0 * kv_stride, kv_stride, k_valid);
+    load_tile<T, DQK>(ks, kLd, kb + k0 * k_stride, k_stride, k_valid);
+    load_tile<T, DV>(vs, kLdv, vb + k0 * v_stride, v_stride, k_valid);
     __syncthreads();
 
     float s[kBK / 8][4];
 #pragma unroll
     for (int nt = 0; nt < kBK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    Products<T, D>::qk(s, qs + wr * kLd, kLd, ks, kLd, g, t);
+    Products<T, DQK>::qk(s, qs + wr * kLd, kLd, ks, kLd, g, t);
 
     float row_max[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -269,88 +281,93 @@ __global__ void __launch_bounds__(kThreads)
       l[r] = l[r] * alpha[r] + row_sum[r];
     }
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
+    for (int nd = 0; nd < DV / 8; ++nd) {
       o[nd][0] *= alpha[0];
       o[nd][1] *= alpha[0];
       o[nd][2] *= alpha[1];
       o[nd][3] *= alpha[1];
     }
     __syncwarp();  // the warp's P rows are written
-    Products<T, D>::pv(o, pw, kLdp, vs, kLd, g, t);
+    Products<T, DV>::pv(o, pw, kLdp, vs, kLdv, g, t);
   }
 
-  T* ob = out + (static_cast<long>(b) * Sq + q0) * q_stride + static_cast<long>(h) * D;
+  T* ob = out + (static_cast<long>(b) * Sq + q0) * o_stride + static_cast<long>(h) * DV;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = wr + g + 8 * r;
     if (row >= q_valid) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
-    T* orow = ob + row * q_stride + 2 * t;
+    T* orow = ob + row * o_stride + 2 * t;
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
+    for (int nd = 0; nd < DV / 8; ++nd) {
       orow[nd * 8] = from_f<T>(o[nd][2 * r] * inv);
       orow[nd * 8 + 1] = from_f<T>(o[nd][2 * r + 1] * inv);
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv, int H,
            int Hkv, int causal, int window, int kv_offset, cudaStream_t stream) {
-  constexpr int kLd = D + Tile<T>::kPad;
+  constexpr int kLd = DQK + Tile<T>::kPad;
+  constexpr int kLdv = DV + Tile<T>::kPad;
   constexpr int kLdp = kBK + Tile<T>::kPad;
-  const size_t smem = sizeof(T) * (static_cast<size_t>(kBQ + 2 * kBK) * kLd + kBQ * kLdp);
+  const size_t smem = sizeof(T) * (static_cast<size_t>(kBQ + kBK) * kLd +
+                                   static_cast<size_t>(kBK) * kLdv + kBQ * kLdp);
   // once per device: a launch inside a CUDA-graph capture then only enqueues
   static unsigned attr_set = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= 32 || !(attr_set & (1u << dev))) {
-    err = cudaFuncSetAttribute(flash_attention_kernel<T, D>,
+    err = cudaFuncSetAttribute(flash_attention_kernel<T, DQK, DV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < 32) attr_set |= 1u << dev;
   }
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_attention_kernel<T, DQK, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), Sq, Skv, H, Hkv, causal, window, kv_offset,
-      1.0f / sqrtf(static_cast<float>(D)));
+      1.0f / sqrtf(static_cast<float>(DQK)));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v, void* out, int B, int Sq,
-               int Skv, int H, int Hkv, int causal, int window, int kv_offset,
+int dispatch_d(int D, int Dv, const void* q, const void* k, const void* v, void* out, int B,
+               int Sq, int Skv, int H, int Hkv, int causal, int window, int kv_offset,
                cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return launch<T, 64>(q, k, v, out, B, Sq, Skv, H, Hkv, causal, window, kv_offset, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, out, B, Sq, Skv, H, Hkv, causal, window, kv_offset, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, out, B, Sq, Skv, H, Hkv, causal, window, kv_offset, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define REPRO_FLASH(DQK, DV) \
+  launch<T, DQK, DV>(q, k, v, out, B, Sq, Skv, H, Hkv, causal, window, kv_offset, stream)
+  if (D == 64 && Dv == 64) return REPRO_FLASH(64, 64);
+  if (D == 128 && Dv == 128) return REPRO_FLASH(128, 128);
+  if (D == 256 && Dv == 256) return REPRO_FLASH(256, 256);
+  if (D == 192 && Dv == 128) return REPRO_FLASH(192, 128);
+  if (D == 96 && Dv == 64) return REPRO_FLASH(96, 64);
+  if (D == 32 && Dv == 32) return REPRO_FLASH(32, 32);
+#undef REPRO_FLASH
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q [B, Sq, H, D], k and v [B, Skv, Hkv, D], out [B, Sq, H, D], all
-// contiguous, 16-byte aligned, of one dtype (0 float32, 1 bfloat16);
-// D in {64, 128, 256}; Hkv divides H. Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for a D or dtype it does not take).
+// q [B, Sq, H, D], k [B, Skv, Hkv, D], v [B, Skv, Hkv, Dv], out [B, Sq, H,
+// Dv], all contiguous, 16-byte aligned, of one dtype (0 float32, 1
+// bfloat16); (D, Dv) in {(64, 64), (128, 128), (256, 256), (192, 128),
+// (96, 64), (32, 32)};
+// Hkv divides H. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for widths or a dtype it does not take).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out, int B,
-                               int Sq, int Skv, int H, int Hkv, int D, int dtype, int causal,
-                               int window, int kv_offset, void* stream) {
+                               int Sq, int Skv, int H, int Hkv, int D, int Dv, int dtype,
+                               int causal, int window, int kv_offset, void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, out, B, Sq, Skv, H, Hkv, causal, window, kv_offset, s);
+    return dispatch_d<float>(D, Dv, q, k, v, out, B, Sq, Skv, H, Hkv, causal, window,
+                             kv_offset, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, out, B, Sq, Skv, H, Hkv, causal, window,
+    return dispatch_d<__nv_bfloat16>(D, Dv, q, k, v, out, B, Sq, Skv, H, Hkv, causal, window,
                                      kv_offset, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

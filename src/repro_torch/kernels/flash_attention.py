@@ -4,7 +4,8 @@
 flash_attention_pallas`` (``:91``) together with the ``vmap`` over (batch,
 head) and the repeat of the KV heads around it in ``repro/kernels/ops.py::
 mha_attention``: one launch covers every (batch, head) pair, and query
-head h reads KV head h // (H / Hkv) in place.
+head h reads KV head h // (H / Hkv) in place. v's head width may differ
+from q's and k's, as MLA's does (q and k 192 wide, v 128).
 
 Dispatch follows the tensors' device: CPU tensors go to the plain version
 (``ref.attention_ref``); CUDA tensors launch the kernel or raise. Each
@@ -20,7 +21,8 @@ from repro_torch.kernels.ref import attention_ref
 __all__ = ["LAUNCHES", "reset_launches", "HEAD_DIMS", "launch_flash_attention", "flash_attention"]
 
 LAUNCHES = {"flash_attention": 0}
-HEAD_DIMS = (64, 128, 256)  # the head widths the kernel is compiled for
+# the (q/k, v) head widths the kernel is compiled for
+HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128), (96, 64), (32, 32))
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2**31 - 1
@@ -31,10 +33,10 @@ def reset_launches() -> None:
 
 
 def _check_cuda_args(q, k, v) -> None:
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
         raise ValueError(
-            f"need q [B, Sq, H, D] and k, v [B, Skv, Hkv, D], got {tuple(q.shape)}, "
-            f"{tuple(k.shape)}, {tuple(v.shape)}"
+            f"need q [B, Sq, H, D], k [B, Skv, Hkv, D] and v [B, Skv, Hkv, Dv], got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
     b, sq, h, d = q.shape
     hkv = k.shape[2]
@@ -42,14 +44,14 @@ def _check_cuda_args(q, k, v) -> None:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not pair (Hkv | H)")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share float32 or bfloat16, got {q.dtype} {k.dtype} {v.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if (d, v.shape[3]) not in HEAD_DIMS:
+        raise ValueError(f"head widths (q/k {d}, v {v.shape[3]}) not in {HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if max(q.numel(), k.numel()) >= _INT_MAX or b > 65535 or h > 65535:
+    if max(q.numel(), k.numel(), v.numel()) >= _INT_MAX or b > 65535 or h > 65535:
         raise ValueError(f"sizes out of the kernel's range: q {tuple(q.shape)} k {tuple(k.shape)}")
 
 
@@ -67,6 +69,7 @@ def launch_flash_attention(q, k, v, out, *, causal: bool, window: int, kv_offset
         h,
         k.shape[2],
         d,
+        v.shape[3],
         _DTYPE_CODE[q.dtype],
         int(bool(causal)),
         int(window),
@@ -85,15 +88,16 @@ def flash_attention(
     window: int = 0,
     kv_offset: int = 0,
 ) -> torch.Tensor:
-    """Attention of q [B, Sq, H, D] over k, v [B, Skv, Hkv, D] (Hkv divides
-    H), in q's dtype, with the masks of ``attention_ref``: query i at
+    """Attention of q [B, Sq, H, D] over k [B, Skv, Hkv, D] and v [B, Skv,
+    Hkv, Dv] (Hkv divides H): out [B, Sq, H, Dv] in q's dtype, with the
+    masks and the 1/sqrt(D) scale of ``attention_ref``: query i at
     absolute position ``kv_offset + i``, causal, and a sliding window when
-    ``window > 0``. On the card: float32 or bfloat16, D in ``HEAD_DIMS``,
-    contiguous tensors."""
+    ``window > 0``. On the card: float32 or bfloat16, (D, Dv) in
+    ``HEAD_DIMS``, contiguous tensors."""
     if on_cpu(q, k, v):
         return attention_ref(q, k, v, causal=causal, window=window, kv_offset=kv_offset)
     _check_cuda_args(q, k, v)
-    out = torch.empty_like(q)
+    out = q.new_empty(q.shape[:3] + (v.shape[3],))
     with torch.cuda.device(q.device):
         launch_flash_attention(q, k, v, out, causal=causal, window=window, kv_offset=kv_offset)
     LAUNCHES["flash_attention"] += 1

@@ -22,6 +22,11 @@
   [E, H], msg [E, H, dh]) in one launch. When autograd needs it, the
   forward keeps each (row, head)'s max and denominator, and the backward
   is one kernel (``csrc/gat_softmax_backward.cu``).
+* :func:`segment_max` replaces
+  ``repro/kernels/fused_gnn.py::segment_max_pallas`` (``:348``); kernel in
+  ``csrc/segment_max.cu``. The ids come in any order: each edge does an
+  integer ``atomicMax`` of its value's order-preserving key, which gives
+  the same bits in any order (no float atomics), and a second pass decodes.
 
 All are bound by bytes: a sum adds one float per element read, and the
 softmax adds one exp per edge and head. The TPU kernels multiply one-hot
@@ -31,7 +36,7 @@ small thread group with 16-byte loads, float accumulation and no atomics.
 That keeps every row's sum order fixed by its own edges, so a batched row
 equals the same row computed alone, and a training run repeats bit for bit.
 
-Sorted input. The engine and the server pass ``seg`` non-decreasing with
+Sorted input (the sums and the softmax aggregate). The engine and the server pass ``seg`` non-decreasing with
 the padding (-1) at the tail. A first kernel derives the CSR row offsets
 from ``seg`` on the card and flags a decrease in device memory; with the
 flag up, the reduction visits each row's edges by scanning all of them
@@ -57,6 +62,7 @@ from repro_torch.kernels.ref import (
     gat_softmax_aggregate_ref,
     gather_spmm_ragged_backward_ref,
     gather_spmm_ref,
+    segment_max_ref,
     segment_spmm_ref,
 )
 
@@ -69,6 +75,7 @@ __all__ = [
     "launch_gather_sum",
     "launch_gat_softmax_aggregate",
     "launch_gat_softmax_aggregate_backward",
+    "launch_segment_max",
     "segment_spmm_ragged",
     "segment_sum_and_count",
     "gather_spmm_ragged",
@@ -76,6 +83,7 @@ __all__ = [
     "gather_rows",
     "gat_softmax_aggregate",
     "gat_softmax_aggregate_backward",
+    "segment_max",
 ]
 
 LAUNCHES = {
@@ -84,6 +92,7 @@ LAUNCHES = {
     "gather_spmm_ragged": 0,
     "gather_spmm_ragged_backward": 0,
     "gat_softmax_aggregate_backward": 0,
+    "segment_max": 0,
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -543,3 +552,45 @@ def gat_softmax_aggregate(
         else:
             out, _ = _gat_on_card(lf, mv, seg, num_segments, None)
     return out.view(out_shape)
+
+
+def launch_segment_max(x, seg, keys, out) -> None:
+    """Launch ``csrc/segment_max.cu`` on checked CUDA tensors (x [E], seg
+    [E], 32-bit scratch ``keys`` [n], out [n] in x's dtype; n > 0).
+    Counts nothing."""
+    code = library("segment_max").segment_max(
+        x.data_ptr(),
+        seg.data_ptr(),
+        seg.shape[0],
+        out.shape[0],
+        _DTYPE_CODE[x.dtype],
+        keys.data_ptr(),
+        out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream,
+    )
+    check(code, "segment_max")
+
+
+def segment_max(x: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """out[s] = max over edges e with seg[e] == s of x[e], in x's dtype;
+    0.0 for an empty segment or a max that is not finite. x [E] float32 or
+    bfloat16; seg [E] int32 in any order, edges with seg < 0 or
+    seg >= num_segments ignored. The semantics of ``ref.segment_max_ref``
+    (NaN above +inf, -0.0 below +0.0), bit for bit."""
+    if on_cpu(x, seg):
+        return segment_max_ref(x, seg, num_segments)
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"x dtype must be float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 1 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous 1-D tensor, got {tuple(x.shape)}")
+    _check_index(seg, x.shape[0], "seg")
+    if not 0 <= num_segments < _INT_MAX or x.shape[0] >= _INT_MAX:
+        raise ValueError(f"sizes out of int32 range: E={x.shape[0]} n={num_segments}")
+    out = torch.empty(num_segments, dtype=x.dtype, device=x.device)
+    if num_segments == 0:
+        return out
+    keys = torch.empty(num_segments, dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        launch_segment_max(x, seg, keys, out)
+    LAUNCHES["segment_max"] += 1
+    return out

@@ -1,7 +1,8 @@
 """The kernel entry points the models call.
 
-Counterparts of ``gnn_aggregate``, ``gnn_gat_aggregate``, ``mha_attention``
-and ``ssd_scan`` in ``repro/kernels/ops.py``, with the same names and
+Counterparts of ``gnn_aggregate``, ``gnn_gather_aggregate``,
+``gnn_gat_aggregate``, ``gnn_segment_max``, ``mha_attention`` and
+``ssd_scan`` in ``repro/kernels/ops.py``, with the same names and
 argument order. A CUDA tensor goes to the Hopper kernel, a CPU tensor to
 its plain version; there is no switch to pick either (no ``use_kernel``),
 and no block sizes to tune.
@@ -20,6 +21,7 @@ from repro_torch.kernels.fused_gnn import (
     gat_softmax_aggregate,
     gather_rows,
     gather_spmm_ragged,
+    segment_max,
     segment_spmm_ragged,
     segment_sum_and_count,
 )
@@ -30,6 +32,7 @@ __all__ = [
     "gnn_aggregate_and_count",
     "gnn_gather_aggregate",
     "gnn_gat_aggregate",
+    "gnn_segment_max",
     "gather_rows",
     "mha_attention",
     "ssd_scan",
@@ -70,10 +73,17 @@ def gnn_gat_aggregate(
     return gat_softmax_aggregate(logits, msg, seg, num_segments)
 
 
+def gnn_segment_max(x: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Per-segment max of x [E] over seg [E] (int32, any order; seg < 0 or
+    >= num_segments is padding); empty segments, and segments whose max is
+    not finite, give 0.0."""
+    return segment_max(x, seg, num_segments)
+
+
 def mha_attention(
     q: torch.Tensor,  # [B, Sq, H, D]
     k: torch.Tensor,  # [B, Skv, Hkv, D]
-    v: torch.Tensor,  # [B, Skv, Hkv, D]
+    v: torch.Tensor,  # [B, Skv, Hkv, Dv]
     *,
     causal: bool = True,
     window: int = 0,
@@ -81,7 +91,8 @@ def mha_attention(
 ) -> torch.Tensor:
     """Multi-head attention with grouped KV heads (H a multiple of Hkv):
     one flash-attention launch for all (batch, head) pairs, no repeat of
-    the KV heads."""
+    the KV heads. v may be narrower than q and k (MLA: Dv 128 under D
+    192); the result is [B, Sq, H, Dv]."""
     return flash_attention(q, k, v, causal=causal, window=window, kv_offset=kv_offset)
 
 

@@ -87,10 +87,20 @@ def gather_spmm_ragged_backward_ref(
 def segment_max_ref(
     x: torch.Tensor, seg: torch.Tensor, num_segments: int
 ) -> torch.Tensor:
-    """Per-segment max (padding excluded); empty segments yield 0.0."""
+    """Per-segment max (padding excluded) in x's dtype, from -inf; a segment
+    that is empty, or whose max is not finite, yields 0.0 (the JAX
+    reference's ``isfinite`` fix). The order is total, as the kernel's: a
+    NaN counts as above +inf (so its segment yields 0.0, as a NaN that
+    propagates would) and -0.0 as below +0.0, so the result does not depend
+    on the order of the edges on any device."""
     ok = _valid(seg, num_segments)
-    mx = x.new_full((num_segments,), float("-inf"))
-    mx = mx.scatter_reduce(0, seg[ok].long(), x[ok], "amax")
+    xs, s = x[ok], seg[ok].long()
+    xs = torch.where(torch.isnan(xs), float("inf"), xs)
+    mx = x.new_full((num_segments,), float("-inf")).scatter_reduce(0, s, xs, "amax")
+    pos_zero = ((xs == 0) & ~torch.signbit(xs)).to(torch.int32)
+    any_pos_zero = torch.zeros_like(mx, dtype=torch.int32).scatter_reduce(0, s, pos_zero, "amax")
+    zero = torch.where(any_pos_zero > 0, mx.abs(), -mx.abs())  # +0.0 or -0.0
+    mx = torch.where(mx == 0, zero, mx)
     return torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
 
 
@@ -151,11 +161,12 @@ def attention_ref(
     kv_offset: int = 0,
 ) -> torch.Tensor:
     """Dense attention in float32 with the flash kernel's masks. q [B, Sq,
-    H, D]; k, v [B, Skv, Hkv, D] with Hkv dividing H (query head h reads
-    kv head h // (H / Hkv)). Query i sits at absolute position
-    ``kv_offset + i``: causal keeps keys at or before it, ``window > 0``
-    keeps the last ``window`` of those. Scores are scaled by 1/sqrt(D) and
-    masked with -1e30; the result has q's dtype."""
+    H, D]; k [B, Skv, Hkv, D] and v [B, Skv, Hkv, Dv] with Hkv dividing H
+    (query head h reads kv head h // (H / Hkv)); v's width may differ
+    (MLA). Query i sits at absolute position ``kv_offset + i``: causal
+    keeps keys at or before it, ``window > 0`` keeps the last ``window`` of
+    those. Scores are scaled by 1/sqrt(D) and masked with -1e30; the result
+    [B, Sq, H, Dv] has q's dtype."""
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     q5 = q.reshape(b, sq, hkv, h // hkv, d).float()

@@ -4,9 +4,17 @@ Port of ``repro/launch/serve.py``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --no-reduced \
         --batch 4 --prompt-len 2048 --gen 32
 
-Runs on the card by default (``--device cpu`` for the CPU). Every
-attention prefill goes through the flash-attention kernel and every
-Mamba-2 prefill through the SSD-scan kernel; decode is plain tensor code.
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \
+        --no-reduced --batch 4 --prompt-len 2048 --gen 32
+
+Serves the dense, SSM and MoE families (deepseek-v2-lite with MLA,
+mixtral-8x7b; mixtral's full config, 93 GB in bf16, does not fit one
+80 GB card). Runs on the card by default (``--device cpu`` for the CPU).
+Every attention prefill, MLA's included, goes through the flash-attention
+kernel and every Mamba-2 prefill through the SSD-scan kernel; decode, the
+MoE routing and the expert products are plain tensor code, as the JAX
+package leaves them to XLA.
+
 Reports prefill and per-token decode latency. The flags are the JAX CLI's,
 except that ``--reduced`` is a ``BooleanOptionalAction`` (default still
 reduced), so ``--no-reduced`` reaches the full config; the JAX flag is

@@ -40,7 +40,7 @@ def make_prefill_step(cfg: ArchConfig):
     """``prefill(params, cache, batch) -> (last logits [B, Vp], cache)``
     with ``batch = {"inputs": [B, S] tokens}``, from position 0."""
     def prefill(params, cache, batch):
-        logits, cache = forward(params, cfg, batch["inputs"], cache, 0, last_only=True)
+        logits, _, cache = forward(params, cfg, batch["inputs"], cache, 0, last_only=True)
         return logits[:, -1], cache
 
     return prefill
@@ -50,7 +50,7 @@ def make_decode_step(cfg: ArchConfig):
     """``decode(params, cache, batch, pos) -> (logits [B, Vp], cache)`` for
     one new token per row at absolute position ``pos``."""
     def decode(params, cache, batch, pos):
-        logits, cache = forward(params, cfg, batch["inputs"], cache, pos)
+        logits, _, cache = forward(params, cfg, batch["inputs"], cache, pos)
         return logits[:, -1], cache
 
     return decode

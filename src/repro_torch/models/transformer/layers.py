@@ -1,10 +1,11 @@
-"""Transformer building blocks: norms, RoPE, attention (GQA/MQA,
+"""Transformer building blocks: norms, RoPE, attention (GQA/MQA, MLA,
 sliding-window, KV cache), gated MLPs. Port of
 ``repro/models/transformer/layers.py``.
 
 Attention dispatch follows the tensors' device:
   * CUDA — every full-sequence attention (prefill) goes through the
-    hand-written flash-attention kernel (``kernels.ops.mha_attention``);
+    hand-written flash-attention kernel (``kernels.ops.mha_attention``),
+    MLA's too (q and k 192 wide, v 128);
   * CPU — the plain paths of the JAX package: dense masked attention, or
     blockwise online-softmax attention past ``BLOCKWISE_THRESHOLD`` keys.
 Decode (one query against the cache) is plain tensor code on both, as the
@@ -39,6 +40,7 @@ __all__ = [
     "init_mla",
     "mla_forward",
     "init_mlp",
+    "gelu",
     "mlp_forward",
 ]
 
@@ -290,18 +292,78 @@ def attention_forward(
 
 
 # ---------------------------------------------------------------------------
-# MLA (DeepSeek-V2 multi-head latent attention): a later slice
+# MLA (DeepSeek-V2 multi-head latent attention)
 # ---------------------------------------------------------------------------
-
-_MLA_TODO = "MLA (latent attention) is not ported yet: ROADMAP queue 1, 'MLA'"
 
 
 def init_mla(generator: torch.Generator, cfg: ArchConfig, device=None) -> Params:
-    raise NotImplementedError(_MLA_TODO)
+    """``wq`` [d, H (dh + rd)] (each head: a dh-wide part and a RoPE'd
+    rd-wide tail), ``w_dkv`` [d, r] to the latent, ``w_krope`` [d, rd] the
+    shared RoPE key, ``w_uk``/``w_uv`` [r, H dh] the latent's expansion,
+    ``wo`` [H dh, d]."""
+    d, dh = cfg.d_model, cfg.resolved_head_dim
+    h, r, rd = cfg.num_heads, cfg.kv_lora_rank, cfg.rope_head_dim
+    return {
+        "wq": dense_init(generator, (d, h * (dh + rd)), device=device),
+        "w_dkv": dense_init(generator, (d, r), device=device),
+        "w_krope": dense_init(generator, (d, rd), device=device),
+        "w_uk": dense_init(generator, (r, h * dh), device=device),
+        "w_uv": dense_init(generator, (r, h * dh), device=device),
+        "wo": dense_init(generator, (h * dh, d), device=device),
+    }
 
 
-def mla_forward(p: Params, cfg: ArchConfig, x, *, positions, cache=None, window=0):
-    raise NotImplementedError(_MLA_TODO)
+def mla_forward(
+    p: Params,
+    cfg: ArchConfig,
+    x: torch.Tensor,  # [B, S, d]
+    *,
+    positions: torch.Tensor,
+    cache: Params | None = None,  # {"ckv": [B,L,r], "krope": [B,L,rd], "kpos": [L], "pos": int}
+    window: int = 0,
+):
+    """Returns (y [B, S, d], new cache or None). Only the latent ``ckv``
+    and the RoPE'd shared key ``krope`` are cached; keys and values are
+    expanded from them through ``w_uk``/``w_uv`` (the whole cache at each
+    decode step, as the reference does). Prefill attends over the fresh
+    expansion (the flash kernel on the card, q and k of width dh + rd, v of
+    width dh); decode uses :func:`_decode_attention`."""
+    b, s, _ = x.shape
+    h, dh = cfg.num_heads, cfg.resolved_head_dim
+    rd = cfg.rope_head_dim
+    q = mm(x, p["wq"]).reshape(b, s, h, dh + rd)
+    q_rope = apply_rope(q[..., dh:], positions, cfg.rope_theta)
+    qh = torch.cat([q[..., :dh], q_rope], dim=-1)
+    ckv = mm(x, p["w_dkv"])  # [B, S, r]
+    krope = apply_rope(mm(x, p["w_krope"])[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+
+    def expand_kv(ckv_all, krope_all):
+        skv = ckv_all.shape[1]
+        k_nope = mm(ckv_all, p["w_uk"]).reshape(b, skv, h, dh)
+        v = mm(ckv_all, p["w_uv"]).reshape(b, skv, h, dh)
+        k_rope = krope_all[:, :, None, :].expand(b, skv, h, rd).to(k_nope.dtype)
+        return torch.cat([k_nope, k_rope], dim=-1), v
+
+    def project_out(o):
+        return mm(o.reshape(b, s, h * dh), p["wo"]).to(x.dtype)
+
+    if cache is None:
+        k, v = expand_kv(ckv, krope)
+        return project_out(attention_core(qh, k, v, causal=True, window=window)), None
+
+    L = cache["ckv"].shape[1]
+    pos = cache["pos"]
+    c_ckv = _cache_write(cache["ckv"], ckv, pos, L)
+    c_kr = _cache_write(cache["krope"], krope, pos, L)
+    kpos = _kpos_write(cache["kpos"], pos, s, L)
+    new_cache = {"ckv": c_ckv, "krope": c_kr, "kpos": kpos, "pos": pos + s}
+    if s > 1:  # prefill: attend over the fresh expansion
+        k, v = expand_kv(ckv, krope)
+        o = attention_core(qh, k, v, causal=True, window=window)
+    else:
+        k, v = expand_kv(c_ckv, c_kr)
+        o = _decode_attention(qh, k, v, kpos, pos, window)
+    return project_out(o), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -324,13 +386,13 @@ def init_mlp(
     }
 
 
-def _gelu(x: torch.Tensor) -> torch.Tensor:
+def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default form
 
 
 def mlp_forward(p: Params, x: torch.Tensor, activation: str = "swiglu") -> torch.Tensor:
     if activation == "gelu":
-        return mm(_gelu(mm(x, p["w_up"])), p["w_down"]).to(x.dtype)
+        return mm(gelu(mm(x, p["w_up"])), p["w_down"]).to(x.dtype)
     gate = mm(x, p["w_gate"])
-    act = F.silu(gate) if activation == "swiglu" else _gelu(gate)
+    act = F.silu(gate) if activation == "swiglu" else gelu(gate)
     return mm(act * mm(x, p["w_up"]), p["w_down"]).to(x.dtype)

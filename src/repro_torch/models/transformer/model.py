@@ -1,5 +1,6 @@
 """Decoder backbone: embedding -> layers -> norm -> tied head. Port of
-``repro/models/transformer/model.py`` for the dense and SSM families.
+``repro/models/transformer/model.py`` for the dense, MoE and SSM families
+(attention or MLA mixers, gated or MoE MLPs, Mamba-2 blocks).
 
 Parameters are a plain dictionary: ``embed`` [Vp, d], ``final_norm`` [d],
 (``head`` [d, Vp] when untied) and ``layers``, one dictionary per layer in
@@ -15,8 +16,9 @@ bits. Mamba-2's ``conv``, ``A_log``, ``D`` and ``dt_bias``, which the JAX
 package applies in float32, stay float32.
 
 Three entry points share one :func:`forward`: training (no cache),
-prefill (S > 1, cache) and decode (S == 1, cache). MoE configs, MLA and
-RG-LRU raise ``NotImplementedError`` (later slices, ROADMAP queue 1).
+prefill (S > 1, cache) and decode (S == 1, cache). It returns the MoE
+auxiliary loss beside the logits, as the JAX forward does. RG-LRU raises
+``NotImplementedError`` (a later slice, ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from repro_torch.models.transformer.layers import (
     mlp_forward,
     rms_norm,
 )
+from repro_torch.models.transformer.moe import init_moe, moe_forward
 from repro_torch.models.transformer.ssm import (
     init_mamba2,
     init_rglru,
@@ -53,7 +56,7 @@ __all__ = [
 
 # leaves the JAX package applies in float32; every other leaf is stored in cfg.dtype
 _FLOAT32_LEAVES = frozenset({"conv", "A_log", "D", "dt_bias"})
-_MOE_TODO = "MoE configs are not ported yet: ROADMAP queue 1, 'MoE'"
+_RGLRU_TODO = "RG-LRU (RecurrentGemma) is not ported yet: ROADMAP queue 1, 'RG-LRU'"
 
 
 def stage_plan(cfg: ArchConfig) -> list[tuple[tuple[str, ...], int]]:
@@ -83,8 +86,8 @@ def _store(tree, dtype: torch.dtype, name: str = ""):
 
 
 def _supported(cfg: ArchConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(_MOE_TODO)
+    if "rglru" in cfg.pattern:
+        raise NotImplementedError(_RGLRU_TODO)
 
 
 def _init_layer(generator, cfg: ArchConfig, kind: str, device) -> Params:
@@ -99,7 +102,10 @@ def _init_layer(generator, cfg: ArchConfig, kind: str, device) -> Params:
         raise ValueError(kind)
     if _has_mlp(kind):
         p["norm2"] = torch.ones((cfg.d_model,), dtype=torch.float32, device=device)
-        p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.activation, device)
+        p["mlp"] = (
+            init_moe(generator, cfg, device) if cfg.moe is not None
+            else init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.activation, device)
+        )
     return p
 
 
@@ -182,8 +188,14 @@ def param_count(params: Params) -> int:
 def _init_layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int, device) -> Params:
     dtype = getattr(torch, cfg.dtype)
     if kind in ("attn", "local_attn"):
-        if cfg.kv_lora_rank:
-            raise NotImplementedError("MLA caches are not ported yet: ROADMAP queue 1, 'MLA'")
+        if cfg.kv_lora_rank:  # MLA caches the latent and the shared RoPE key only
+            return {
+                "ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype, device=device),
+                "krope": torch.zeros((batch, max_len, cfg.rope_head_dim), dtype=dtype,
+                                     device=device),
+                "kpos": torch.full((max_len,), -1, dtype=torch.int32, device=device),
+                "pos": 0,
+            }
         shape = (batch, max_len, cfg.padded_kv_heads, cfg.resolved_head_dim)
         return {
             "k": torch.zeros(shape, dtype=dtype, device=device),
@@ -236,6 +248,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda") -> list
 
 
 def _layer_forward(lp: Params, cfg: ArchConfig, kind: str, x, positions, cache):
+    """Returns (x, new cache, the layer's MoE aux loss: a float32 scalar,
+    None without experts)."""
+    aux = None
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
     if kind in ("attn", "local_attn"):
         window = cfg.local_window if kind == "local_attn" else cfg.window
@@ -251,8 +266,12 @@ def _layer_forward(lp: Params, cfg: ArchConfig, kind: str, x, positions, cache):
     x = (x + y).to(x.dtype)
     if _has_mlp(kind):
         h = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = (x + mlp_forward(lp["mlp"], h, cfg.activation)).to(x.dtype)
-    return x, new_cache
+        if cfg.moe is not None:
+            y, aux = moe_forward(lp["mlp"], cfg, h, cfg.activation)
+        else:
+            y = mlp_forward(lp["mlp"], h, cfg.activation)
+        x = (x + y).to(x.dtype)
+    return x, new_cache, aux
 
 
 def forward(
@@ -265,11 +284,11 @@ def forward(
     last_only: bool = False,
 ):
     """Returns (logits [B, S, Vp] float32, or [B, 1, Vp] with
-    ``last_only``; the new cache, or None without one). ``inputs`` is
-    int tokens [B, S], or embeddings [B, S, d] for ``input_mode ==
-    "embeddings"``. Logits of the padded vocabulary rows are -1e30. The
-    JAX package's MoE auxiliary loss is not returned: no ported config has
-    experts."""
+    ``last_only``; aux, the float32 sum of the MoE layers' load-balance
+    losses (0.0 without experts); the new cache, or None without one), as
+    the JAX forward does. ``inputs`` is int tokens [B, S], or embeddings
+    [B, S, d] for ``input_mode == "embeddings"``. Logits of the padded
+    vocabulary rows are -1e30."""
     _supported(cfg)
     dtype = getattr(torch, cfg.dtype)
     if cfg.input_mode == "tokens":
@@ -279,9 +298,12 @@ def forward(
     b, s = x.shape[0], x.shape[1]
     positions = (pos + torch.arange(s, dtype=torch.int32, device=x.device))[None, :].expand(b, s)
     new_caches = [] if cache is not None else None
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for li, kind in enumerate(cfg.layer_kinds()):
-        x, nc = _layer_forward(params["layers"][li], cfg, kind, x, positions,
-                               None if cache is None else cache[li])
+        x, nc, aux = _layer_forward(params["layers"][li], cfg, kind, x, positions,
+                                    None if cache is None else cache[li])
+        if aux is not None:
+            aux_total = aux_total + aux
         if new_caches is not None:
             new_caches.append(nc)
     if last_only:
@@ -292,4 +314,4 @@ def forward(
     if cfg.padded_vocab_size != cfg.vocab_size:  # mask padded vocab rows
         valid = torch.arange(cfg.padded_vocab_size, device=logits.device) < cfg.vocab_size
         logits = torch.where(valid, logits, -1e30)
-    return logits, new_caches
+    return logits, aux_total, new_caches

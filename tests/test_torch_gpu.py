@@ -526,7 +526,9 @@ def test_ssd_scan_takes_strided_slices(cuda):
 
 
 @pytest.mark.parametrize("arch,kernel", [("gemma-2b", "flash_attention"),
-                                         ("mamba2-130m", "ssd_scan")])
+                                         ("mamba2-130m", "ssd_scan"),
+                                         ("deepseek-v2-lite-16b", "flash_attention"),
+                                         ("mixtral-8x7b", "flash_attention")])
 def test_lm_serving_on_card_matches_cpu_and_repeats_bitwise(cuda, arch, kernel):
     """The reduced configs (float32) served on the card go through one
     kernel launch per layer's prefill, give the same bits twice, and agree
@@ -559,3 +561,144 @@ def _to_cpu(tree):
     if isinstance(tree, list):
         return [_to_cpu(v) for v in tree]
     return tree.cpu()
+
+
+# ---------------------------------------------------------------------------
+# segment max: bit for bit (a max has no rounding; the plain version and the
+# kernel share one total order: NaN above +inf, -0.0 below +0.0)
+# ---------------------------------------------------------------------------
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def _max_inputs(m, n, pad, over, seed, dtype, special):
+    """x [m] and seg [m] int32 in no order, a ``pad`` share of -1 and an
+    ``over`` share of ids >= n; ``special`` salts x with NaN, +-inf, -0.0
+    and +0.0, and gives some segments only zeros of either sign."""
+    rng = np.random.default_rng(seed)
+    seg = rng.integers(0, max(n, 1), m).astype(np.int32)
+    pick = rng.random(m)
+    seg[pick < pad] = -1
+    high = (pick >= pad) & (pick < pad + over)
+    seg[high] = n + rng.integers(0, 3, int(high.sum()))
+    x = rng.standard_normal(m).astype(np.float32)
+    if special and m:
+        vals = np.array([np.nan, -np.nan, np.inf, -np.inf, -0.0, 0.0], np.float32)
+        salt = rng.random(m) < 0.05
+        x[salt] = rng.choice(vals, int(salt.sum()))
+        zeros = np.isin(seg, np.arange(0, n, 7))  # every 7th segment: zeros only
+        x[zeros] = np.where(rng.random(int(zeros.sum())) < 0.7, -0.0, 0.0)
+    return torch.as_tensor(x, device="cuda").to(dtype), torch.as_tensor(seg, device="cuda")
+
+
+# (edges, segments, padding share, ids >= n share, seed)
+MAX_SWEEP = [
+    (0, 5, 0.0, 0.0, 0),  # zero edges
+    (1, 1, 0.0, 0.0, 1),
+    (1000, 37, 0.1, 0.05, 2),
+    (5000, 20000, 0.1, 0.0, 3),  # mostly empty segments
+    (100000, 4096, 0.1, 0.02, 4),
+    (64, 8, 1.0, 0.0, 5),  # all padding
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("special", [False, True])
+@pytest.mark.parametrize("m,n,pad,over,seed", MAX_SWEEP)
+def test_segment_max_is_bitwise_its_plain_version(cuda, m, n, pad, over, seed, special, dtype):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import segment_max_ref
+
+    x, seg = _max_inputs(m, n, pad, over, seed, dtype, special)
+    before = fused_gnn.LAUNCHES["segment_max"]
+    got = ops.gnn_segment_max(x, seg, n)
+    assert fused_gnn.LAUNCHES["segment_max"] == before + 1
+    assert got.dtype == dtype and got.shape == (n,)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(segment_max_ref(x, seg, n)))
+    assert torch.equal(_bits(got).cpu(), _bits(segment_max_ref(x.cpu(), seg.cpu(), n)))
+    assert torch.equal(_bits(ops.gnn_segment_max(x, seg, n)), _bits(got))
+
+
+def test_segment_max_rejects_what_the_kernel_does_not_take(cuda):
+    x, seg = _max_inputs(64, 8, 0.0, 0.0, 0, torch.float32, False)
+    with pytest.raises(TypeError):
+        fused_gnn.segment_max(x.double(), seg, 8)
+    with pytest.raises(TypeError):
+        fused_gnn.segment_max(x, seg.long(), 8)
+    with pytest.raises(ValueError):
+        fused_gnn.segment_max(x[:, None], seg, 8)
+    with pytest.raises(TypeError):
+        fused_gnn.segment_max(x, seg[:10], 8)
+    with pytest.raises(ValueError):
+        fused_gnn.segment_max(x, seg.cpu(), 8)
+
+
+# (B, Sq, Skv, H, D, Dv, window, kv_offset): MLA's widths (192 over 128) and
+# the reduced deepseek config's (96 over 64), ragged, windowed, after a cache
+MLA_ATTN_SWEEP = [
+    (2, 300, 300, 16, 192, 128, 0, 0),
+    (1, 130, 130, 4, 192, 128, 37, 0),
+    (1, 33, 200, 4, 192, 128, 0, 167),
+    (2, 100, 100, 4, 96, 64, 0, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,d,dv,window,off", MLA_ATTN_SWEEP)
+def test_flash_attention_with_a_narrower_v_matches_plain(cuda, b, sq, skv, h, d, dv, window,
+                                                         off, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_ref
+
+    q, k, _ = _attn_inputs(b, sq, skv, h, h, d, dtype, sq + d)
+    v = _attn_inputs(b, sq, skv, h, h, dv, dtype, sq + dv)[2]
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=True, window=window, kv_offset=off)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == (b, sq, h, dv)
+    _allclose(got, attention_ref(q, k, v, causal=True, window=window, kv_offset=off),
+              _ATTN_TOL[dtype])
+    assert torch.equal(got, fa.flash_attention(q, k, v, causal=True, window=window,
+                                               kv_offset=off))
+    with pytest.raises(ValueError):  # widths the kernel is not built for
+        fa.flash_attention(q, k, v[..., : dv // 2].contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mixtral-8x7b"])
+def test_moe_layer_on_card_repeats_bitwise_and_matches_cpu(cuda, arch, dtype):
+    """An MoE layer (reduced config, capacity lowered so slots drop) gives
+    the same bits twice on the card: dispatch is a plain scatter and the
+    combine sums in slot order, no float atomics. In float32 it agrees with
+    the CPU (rtol 1e-5, atol 1e-5 times the output's largest magnitude,
+    which reaches a few hundred: the experts' weights are drawn with scale
+    1/sqrt(E), as the reference draws them) and picks the same experts,
+    ties included (router columns repeated)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import moe
+
+    cfg = get_config(arch, reduced=True)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=0.5))
+    p = moe.init_moe(torch.Generator("cuda").manual_seed(3), cfg, "cuda")
+    p["router"][:, 1] = p["router"][:, 0]  # ties between experts 0 and 1
+    p = {k: ({kk: vv.to(dtype) for kk, vv in v.items()} if isinstance(v, dict) else v.to(dtype))
+         for k, v in p.items()}
+    x = torch.randn(3, 40, cfg.d_model, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(4)).to(dtype)
+    y, aux = moe.moe_forward(p, cfg, x)
+    y2, aux2 = moe.moe_forward(p, cfg, x)
+    assert torch.equal(y, y2) and torch.equal(aux, aux2)
+    r = moe.route(p, cfg, x.reshape(1, -1, cfg.d_model))
+    assert not bool(r.keep.all())  # the lowered capacity drops slots
+    if dtype == torch.float32:
+        cpu = _to_cpu(p)
+        y_cpu, aux_cpu = moe.moe_forward(cpu, cfg, x.cpu())
+        r_cpu = moe.route(cpu, cfg, x.cpu().reshape(1, -1, cfg.d_model))
+        assert torch.equal(r.gate_idx.cpu(), r_cpu.gate_idx)
+        _allclose(y, y_cpu, (1e-5, 1e-5 * max(1.0, float(y_cpu.abs().max()))))
+        _allclose(aux, aux_cpu, (1e-5, 1e-5))

@@ -19,13 +19,16 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels.fused_gnn import (  # noqa: E402
     gat_softmax_aggregate_pallas,
+    segment_max_pallas,
     segment_spmm_ragged_pallas,
 )
 from repro.kernels.ref import gat_softmax_aggregate_ref as jax_gat_ref  # noqa: E402
+from repro.kernels.ref import segment_max_ref as jax_max_ref  # noqa: E402
 from repro.kernels.ref import segment_spmm_ref as jax_seg_ref  # noqa: E402
 from repro_torch.kernels import fused_gnn, ops  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     gat_softmax_aggregate_ref,
+    segment_max_ref,
     segment_spmm_ragged_ref,
 )
 
@@ -139,7 +142,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     heads = ops.gnn_gat_aggregate(
         torch.stack([tlog, 2 * tlog], 1), torch.stack([tmsg, -tmsg], 1), tseg, 9
     )
+    mx = ops.gnn_segment_max(tlog, tseg, 9)
     assert set(fused_gnn.LAUNCHES.values()) == {0}
+    assert torch.equal(mx, segment_max_ref(tlog, tseg, 9))
     assert torch.equal(a, segment_spmm_ragged_ref(tmsg, tseg, 9)) and torch.equal(agg, a)
     assert torch.equal(cnt[:, 0], torch.bincount(tseg[tseg >= 0], minlength=9).float())
     assert torch.equal(b, gat_softmax_aggregate_ref(tlog, tmsg, tseg, 9))
@@ -156,3 +161,80 @@ def test_mixed_devices_and_bad_shapes_raise():
     meta = torch.zeros((4, 3), device="meta")
     with pytest.raises(ValueError):
         ops.gnn_aggregate(meta, seg, 2)
+
+
+# ---------------------------------------------------------------------------
+# segment max: ids in any order, padding (-1) and ids >= n ignored
+# ---------------------------------------------------------------------------
+
+
+def _max_inputs(m, n, seed, pad=0.1, over=0.05, sort=False):
+    """x [m] float32 and seg [m] int32 from one numpy draw: ids uniform in
+    [0, n) (sorted or not), a ``pad`` share set to -1 and an ``over`` share
+    to ids >= n."""
+    rng = np.random.default_rng(seed)
+    seg = rng.integers(0, max(n, 1), m).astype(np.int32)
+    if sort:
+        seg = np.sort(seg)
+    pick = rng.random(m)
+    seg[pick < pad] = -1
+    seg[(pick >= pad) & (pick < pad + over)] = n + rng.integers(0, 3, m)[
+        (pick >= pad) & (pick < pad + over)]
+    return rng.standard_normal(m).astype(np.float32) * 3, seg
+
+
+# (edges, segments, padding share, ids >= n share, sorted, seed)
+MAX_SWEEP = [
+    (0, 4, 0.0, 0.0, False, 0),  # zero edges
+    (1, 1, 0.0, 0.0, False, 1),
+    (37, 11, 0.0, 0.0, True, 2),
+    (64, 40, 1.0, 0.0, False, 3),  # all padding
+    (300, 17, 0.1, 0.05, False, 4),  # shuffled ids, padding and ids >= n inside
+    (200, 500, 0.1, 0.0, False, 5),  # mostly empty segments
+    (1000, 64, 0.3, 0.1, True, 6),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,n,pad,over,sort,seed", MAX_SWEEP)
+def test_segment_max_plain_matches_jax(m, n, pad, over, sort, seed, dtype):
+    """A max has no rounding: the port equals the JAX reference and the
+    Pallas kernel exactly (bf16 values are exact in float32)."""
+    x, seg = _max_inputs(m, n, seed, pad, over, sort)
+    jx = jnp.asarray(x, _JNP[dtype])
+    tx = torch.as_tensor(x).to(_TORCH[dtype])
+    got = ops.gnn_segment_max(tx, torch.as_tensor(seg), n)
+    assert got.dtype == _TORCH[dtype] and got.shape == (n,)
+    want = np.asarray(jax_max_ref(jx, jnp.asarray(seg), n), np.float32)
+    np.testing.assert_array_equal(_np(got), want)
+    pallas = segment_max_pallas(jx, jnp.asarray(seg), n, block_edges=32)
+    np.testing.assert_array_equal(_np(got), np.asarray(pallas, np.float32))
+    assert torch.equal(got, segment_max_ref(tx, torch.as_tensor(seg), n))
+
+
+def test_segment_max_keeps_the_references_semantics_below_minus_5e29():
+    """The Pallas kernel starts from -1e30 and zeroes any max <= -5e29; the
+    jnp reference starts from -inf and zeroes only non-finite maxima. The
+    port keeps the reference's: a segment of -1e30 and -7e29 gives -7e29
+    (the Pallas kernel gives 0.0); -inf alone gives 0.0 in all three."""
+    x = np.array([-1e30, -7e29, 2.0, -np.inf, 1.5], np.float32)
+    seg = np.array([0, 0, 1, 2, 1], np.int32)
+    got = _np(ops.gnn_segment_max(torch.as_tensor(x), torch.as_tensor(seg), 4))
+    want = np.asarray(jax_max_ref(jnp.asarray(x), jnp.asarray(seg), 4))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, np.array([-7e29, 2.0, 0.0, 0.0], np.float32))
+    pallas = np.asarray(segment_max_pallas(jnp.asarray(x), jnp.asarray(seg), 4, block_edges=8))
+    np.testing.assert_array_equal(pallas, np.array([0.0, 2.0, 0.0, 0.0], np.float32))
+
+
+def test_segment_max_orders_nan_above_inf_and_minus_zero_below_zero():
+    """NaN or +-inf in a segment give 0.0, as the JAX reference's NaN that
+    propagates and its ``isfinite`` fix give; -0.0 survives only where no
+    +0.0 shares its segment, in any edge order."""
+    x = np.array([1.0, np.nan, -0.0, 0.0, -0.0, np.inf, -np.nan, 3.0, -0.0, 0.0], np.float32)
+    seg = np.array([0, 0, 1, 1, 2, 3, 4, 4, 5, 5], np.int32)
+    want = np.asarray(jax_max_ref(jnp.asarray(x), jnp.asarray(seg), 7))
+    for perm in (np.arange(10), np.random.default_rng(0).permutation(10)):
+        got = ops.gnn_segment_max(torch.as_tensor(x[perm]), torch.as_tensor(seg[perm]), 7)
+        np.testing.assert_array_equal(_np(got), want)
+        assert torch.signbit(got).tolist() == [False, False, True, False, False, False, False]

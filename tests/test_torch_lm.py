@@ -1,6 +1,7 @@
 """The port's transformer serving path against the JAX package, on the CPU.
 
-Configs are the reduced ones (float32). Parameters come from
+Configs are the reduced ones (float32): dense, SSM, and the MoE family
+(deepseek-v2-lite with MLA, mixtral-8x7b with a sliding window). Parameters come from
 ``repro.models.transformer.model.init_params(cfg, PRNGKey(0))`` and are
 carried across with ``load_jax_params``; both sides get the same numpy
 inputs. The JAX Pallas kernels run in interpret mode, as
@@ -240,28 +241,34 @@ def test_mlp_matches_jax(activation):
 
 
 @pytest.mark.parametrize("use_kernel", [False, True])
-@pytest.mark.parametrize("arch", ["gemma-2b", "internlm2-1.8b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "internlm2-1.8b", "mamba2-130m",
+                                  "deepseek-v2-lite-16b", "mixtral-8x7b"])
 def test_forward_logits_match_jax(arch, use_kernel):
+    """Logits and the MoE auxiliary loss (0.0 without experts)."""
     cfg, jcfg, jparams, params = _pair(arch)
     tok = _tokens(cfg, 2, 24, 1)
-    want, _, _ = jax_model.forward(jparams, jcfg, jnp.asarray(tok), use_kernel=use_kernel)
-    got, cache = model.forward(params, cfg, _t(tok).long())
-    assert cache is None and got.dtype == torch.float32
+    want, want_aux, _ = jax_model.forward(jparams, jcfg, jnp.asarray(tok),
+                                          use_kernel=use_kernel)
+    got, aux, cache = model.forward(params, cfg, _t(tok).long())
+    assert cache is None and got.dtype == torch.float32 and aux.dtype == torch.float32
     np.testing.assert_allclose(_np(got), np.asarray(want), **LOGIT_TOL)
+    np.testing.assert_allclose(float(aux), float(want_aux), **LOGIT_TOL)
+    assert (float(aux) > 0) == (cfg.moe is not None)
 
 
 def test_padded_vocab_is_masked_and_the_head_is_tied():
     cfg, jcfg, jparams, params = _pair("gemma-2b", vocab_size=500)
     assert cfg.padded_vocab_size == 512 and "head" not in params
     tok = _tokens(cfg, 1, 6, 2)
-    got, _ = model.forward(params, cfg, _t(tok).long(), last_only=True)
+    got, _, _ = model.forward(params, cfg, _t(tok).long(), last_only=True)
     want, _, _ = jax_model.forward(jparams, jcfg, jnp.asarray(tok), last_only=True)
     assert got.shape == (1, 1, 512)
     assert torch.all(got[..., 500:] == -1e30)
     np.testing.assert_allclose(_np(got), np.asarray(want), **LOGIT_TOL)
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "mamba2-130m", "deepseek-v2-lite-16b",
+                                  "mixtral-8x7b"])
 def test_load_jax_params_layout(arch):
     cfg, jcfg, jparams, params = _pair(arch)
     assert model.param_count(params) == jax_model.param_count(jparams)
@@ -277,6 +284,10 @@ def test_load_jax_params_layout(arch):
     for key, leaf in layer["mixer"].items():
         f32 = key in ("conv", "A_log", "D", "dt_bias")
         assert leaf.dtype == (torch.float32 if f32 else torch.bfloat16), key
+    if cfg.moe is not None:  # router, [E, d, f] experts and shared experts, unstacked
+        assert all(t.dtype == torch.bfloat16 for t in jax.tree.leaves(layer["mlp"]))
+        assert params["layers"][1]["mlp"]["w_down"].shape == (
+            cfg.moe.num_experts, cfg.moe.expert_d_ff, cfg.d_model)
 
 
 def test_unstack_layers_orders_a_pattern_with_a_remainder():
@@ -313,6 +324,9 @@ def _check_caches(got, want_jax, jcfg, cfg):
         ("gemma-2b", 16, 20),  # prefill past the window: rolled; decode wraps
         ("gemma-2b", 16, 32),  # prefill a multiple of the window: no roll
         ("gemma-2b", 16, 12),  # prefill inside the window, decode past it
+        ("deepseek-v2-lite-16b", 0, 12),  # MLA caches, MoE at decode capacity
+        ("mixtral-8x7b", 64, 12),  # its own window
+        ("mixtral-8x7b", 16, 20),  # MoE with a rolled window cache
     ],
 )
 def test_prefill_and_decode_match_jax(arch, window, prompt):
@@ -340,7 +354,8 @@ def test_prefill_and_decode_match_jax(arch, window, prompt):
     _check_caches(cache, jcache, jcfg, cfg)
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "mamba2-130m", "deepseek-v2-lite-16b",
+                                  "mixtral-8x7b"])
 def test_serve_matches_the_jax_greedy_loop(arch):
     cfg, jcfg, jparams, params = _pair(arch)
     b, prompt_len, gen, seed = 2, 16, 6, 3
@@ -379,6 +394,10 @@ def test_specs_and_what_is_not_ported():
     with pytest.raises(NotImplementedError):
         specs.resolve_config(gemma, "prefill_32k", model_axis=4)
     gen = torch.Generator().manual_seed(0)
-    for arch in ("mixtral-8x7b", "deepseek-v2-lite-16b", "recurrentgemma-2b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model.init_params(get_config(arch, reduced=True), gen, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model.init_params(get_config("recurrentgemma-2b", reduced=True), gen, device="cpu")
+    for arch in ("mixtral-8x7b", "deepseek-v2-lite-16b"):  # the MoE family builds
+        cfg = get_config(arch, reduced=True)
+        params = model.init_params(cfg, gen, device="cpu")
+        assert model.param_count(params) == cfg.num_params()
+        assert len(model.init_cache(cfg, 1, 8, device="cpu")) == cfg.num_layers
