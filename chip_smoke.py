@@ -62,7 +62,9 @@ inputs rotated over four copies so that every call reads device memory:
 ``ms`` is the wrapper's device time (index work, offsets kernel, kernel)
 from CUDA-graph replay, ``kernel_ms`` the kernel alone, ``eager_ms`` the
 wrapper called back to back from Python (bound by host issue time);
-``plain_ms`` and ``library_ms`` are eager calls timed with CUDA events.
+``plain_ms`` and ``library_ms`` are eager calls timed with CUDA events; the
+flash rows also time SDPA by CUDA-graph replay (``library_graph_ms``) and
+print the kernel's ratio to it and its share of the bound.
 Bounds: bytes at 3.35 TB/s against operations at 67 TFLOP/s (float32, the
 GNN kernels) or 989 TFLOP/s (bf16 tensor cores, the LM kernels; causal
 attention counts the unmasked half of the square). The flash kernel's
@@ -205,7 +207,7 @@ def build_kernels():
     for stem, text in build.ptxas_log().items():
         log(f"--- nvcc -Xptxas -v: {stem}.cu")
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling entry", "Performance Loss")):
                 log("  " + line.strip())
 
 
@@ -1659,7 +1661,10 @@ def time_flash(call, launches: int, name: str = "flash_attention") -> dict:
     one KV head; deepseek-v2-lite: q and k 192 wide, v 128). Bound: q, k,
     v read once and the output written once at 3.35 TB/s, against the
     causal products (2 (D + Dv) flops per unmasked (query, key) pair) at
-    989 TFLOP/s."""
+    989 TFLOP/s. The yardstick, SDPA, is timed both ways: ``library_ms``
+    eager (CUDA events around back-to-back calls) and ``library_graph_ms``
+    by CUDA-graph replay, as ``ms`` is; ``ms_over_library_graph`` and
+    ``bound_share`` (bound / ms) compare like with like."""
     import functools
 
     import torch.nn.functional as F
@@ -1687,6 +1692,12 @@ def time_flash(call, launches: int, name: str = "flash_attention") -> dict:
     nbytes = (q.numel() + k.numel() + v.numel() + b * s * h * dv) * esize
     bound, by = bound_ms(nbytes, 2 * (d + dv) * pairs, BF16_FLOPS)
     out = q.new_empty((b, s, h, dv))
+    ms = graph_ms(rotating(functools.partial(fa.flash_attention, **kw), q, k, v), iters=5)
+    try:
+        library_graph = graph_ms(rotating(sdpa, q, k, v), iters=5)
+        graph_note = None
+    except RuntimeError as e:  # the yardstick only: the port never calls SDPA
+        library_graph, graph_note = None, f"SDPA could not be captured: {e}"[:200]
     return {
         "name": name,
         "route": "cuda",
@@ -1694,7 +1705,7 @@ def time_flash(call, launches: int, name: str = "flash_attention") -> dict:
         "replaces": "src/repro/kernels/flash_attention.py:91",
         "launches": launches,
         "max_abs_err": err,
-        "ms": graph_ms(rotating(functools.partial(fa.flash_attention, **kw), q, k, v), iters=5),
+        "ms": ms,
         "kernel_ms": graph_ms(rotating(
             functools.partial(fa.launch_flash_attention, **kw), q, k, v, out), iters=5),
         "eager_ms": time_ms(rotating(functools.partial(fa.flash_attention, **kw), q, k, v),
@@ -1704,6 +1715,10 @@ def time_flash(call, launches: int, name: str = "flash_attention") -> dict:
         "bound_ms": bound,
         "bound_by": by,
         "library_ms": time_ms(rotating(sdpa, q, k, v), iters=20),
+        "library_graph_ms": library_graph,
+        "library_graph_note": graph_note,
+        "ms_over_library_graph": ms / library_graph if library_graph else None,
+        "bound_share": bound / ms,
         "shape": {"B": b, "S": s, "H": h, "Hkv": hkv, "D": d, "Dv": dv, "causal_pairs": pairs,
                   "dtype": str(q.dtype)},
     }
@@ -1841,6 +1856,12 @@ def main() -> int:
             f"eager_ms {r['eager_ms']:.4f} "
             f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) "
             f"library_ms {r['library_ms']}")
+        if "library_graph_ms" in r:
+            ratio = r["ms_over_library_graph"]
+            log(f"    {r['name']}: SDPA by graph replay {r['library_graph_ms']} ms; kernel / "
+                f"SDPA {'n/a' if ratio is None else f'{ratio:.3f}'}; share of the bound "
+                f"{r['bound_share']:.3f}" + (f" ({r['library_graph_note']})"
+                                              if r["library_graph_note"] else ""))
     log("summary: " + json.dumps({
         "sage_infer_wall_s": sage["wall_s"],
         "gat_infer_wall_s": gat["wall_s"],

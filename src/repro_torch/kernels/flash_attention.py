@@ -10,6 +10,15 @@ from q's and k's, as MLA's does (q and k 192 wide, v 128).
 Dispatch follows the tensors' device: CPU tensors go to the plain version
 (``ref.attention_ref``); CUDA tensors launch the kernel or raise. Each
 launch adds one to ``LAUNCHES["flash_attention"]``.
+
+On the card the route is a static choice by dtype (the source's header
+note has the details): bfloat16 runs the warp-specialised Hopper kernel
+(TMA loads into a ring of mbarrier-guarded K and V stages, ``wgmma`` for
+Q.K^T and for P.V with P in registers, a producer warpgroup and two or
+three consumer warpgroups, a persistent grid); float32 runs the scalar
+kernel in the ``mma.sync`` accumulator layout, so it stays float32. The
+bfloat16 kernel encodes its TMA tensor maps on the host at every launch
+(host work only, so a launch can be captured in a CUDA graph).
 """
 from __future__ import annotations
 

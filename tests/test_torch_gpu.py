@@ -20,6 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import fused_gnn  # noqa: E402
+from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     gat_softmax_aggregate_backward_ref,
     gat_softmax_aggregate_ref,
@@ -702,3 +703,71 @@ def test_moe_layer_on_card_repeats_bitwise_and_matches_cpu(cuda, arch, dtype):
         assert torch.equal(r.gate_idx.cpu(), r_cpu.gate_idx)
         _allclose(y, y_cpu, (1e-5, 1e-5 * max(1.0, float(y_cpu.abs().max()))))
         _allclose(aux, aux_cpu, (1e-5, 1e-5))
+
+
+# The bf16 route of the flash kernel (TMA + wgmma; 128 queries a block, KV
+# tiles of 64 keys): every width it is built for, at lengths around those
+# tile edges, against the plain version at _ATTN_TOL and bitwise run to run.
+FLASH_EDGES = (1, 63, 64, 65, 127, 128, 129, 300)
+
+
+def _flash_bf16(q, k, v, **kw):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_ref
+
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape[:3] + (v.shape[3],)
+    _allclose(got, attention_ref(q, k, v, **kw), _ATTN_TOL[torch.bfloat16])
+    assert torch.equal(got, fa.flash_attention(q, k, v, **kw))
+    return got
+
+
+@pytest.mark.parametrize("sq", FLASH_EDGES)
+@pytest.mark.parametrize("d,dv", HEAD_DIMS)
+def test_flash_attention_bf16_every_width_at_tile_edges(cuda, d, dv, sq):
+    q, k, _ = _attn_inputs(2, sq, sq, 4, 2, d, torch.bfloat16, sq + d)
+    v = _attn_inputs(2, sq, sq, 4, 2, dv, torch.bfloat16, sq + dv + 1)[2]
+    _flash_bf16(q, k, v, causal=True, window=0, kv_offset=0)
+    _flash_bf16(q, k, v, causal=False, window=0, kv_offset=0)
+
+
+# (Sq, Skv, kv_offset, window, causal): queries after a cache, a window
+# that cuts tiles, no mask at all
+FLASH_CACHED = [
+    (65, 300, 235, 0, True),
+    (129, 200, 71, 50, True),
+    (1, 129, 128, 0, True),
+    (100, 257, 0, 0, False),
+]
+
+
+@pytest.mark.parametrize("sq,skv,off,window,causal", FLASH_CACHED)
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("d,dv", HEAD_DIMS)
+def test_flash_attention_bf16_after_a_cache_with_gqa(cuda, d, dv, group, sq, skv, off, window,
+                                                     causal):
+    hkv = 2
+    q = _attn_inputs(1, sq, skv, hkv * group, hkv, d, torch.bfloat16, sq + skv)[0]
+    k = _attn_inputs(1, sq, skv, hkv * group, hkv, d, torch.bfloat16, d + 7)[1]
+    v = _attn_inputs(1, sq, skv, hkv * group, hkv, dv, torch.bfloat16, dv + 11)[2]
+    _flash_bf16(q, k, v, causal=causal, window=window, kv_offset=off)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,dv", HEAD_DIMS)
+def test_flash_attention_bf16_reads_no_row_of_the_next_batch(cuda, d, dv, causal):
+    """Skv 100 is not a multiple of the 64-key tile: the last tile's box
+    runs past batch 0's keys. Batch 1's v is +inf, so a box that read its
+    rows would turn batch 0's output into NaN."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_ref
+
+    q, k, _ = _attn_inputs(2, 100, 100, 4, 4, d, torch.bfloat16, d)
+    v = _attn_inputs(2, 100, 100, 4, 4, dv, torch.bfloat16, dv + 1)[2]
+    v[1] = float("inf")
+    got = fa.flash_attention(q, k, v, causal=causal)
+    assert bool(torch.isfinite(got[0]).all())
+    _allclose(got[:1], attention_ref(q[:1], k[:1], v[:1], causal=causal),
+              _ATTN_TOL[torch.bfloat16])

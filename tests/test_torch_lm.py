@@ -107,6 +107,32 @@ def test_attention_ref_matches_flash_pallas(sq, skv, d, causal, window):
     np.testing.assert_allclose(_np(got[0, :, 0]), np.asarray(want), **OP_TOL)
 
 
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 100)])
+@pytest.mark.parametrize("s", [129, 257])
+@pytest.mark.parametrize("d,dv", [(256, 256), (192, 128)])
+def test_attention_ref_matches_jax_at_the_path_widths(d, dv, s, causal, window):
+    """The plain version that the card's flash kernel is held against, at
+    the prefill paths' widths and across the kernel's 64-key and 128-query
+    tile edges: gemma-2b's D 256 (8 query heads over 1 KV head, here 2
+    over 1) against the Pallas kernel in interpret mode through the JAX
+    package's ``mha_attention``; MLA's 192 over 128 against the JAX
+    package's attention for unequal widths (``layers._dense_attention``;
+    the Pallas kernel takes one width)."""
+    rng = np.random.default_rng(s + d)
+    hkv = 1 if d == dv else 2
+    q = rng.standard_normal((1, s, 2, d)).astype(np.float32)
+    k = rng.standard_normal((1, s, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((1, s, hkv, dv)).astype(np.float32)
+    if d == dv:
+        want = jax_ops.mha_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                     causal=causal, window=window, kv_offset=0)
+    else:
+        want = jax_layers._dense_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                           causal=causal, window=window, q_offset=0)
+    got = attention_ref(_t(q), _t(k), _t(v), causal=causal, window=window, kv_offset=0)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **OP_TOL)
+
+
 @pytest.mark.parametrize("use_kernel", [True, False])
 @pytest.mark.parametrize(
     "b,sq,skv,h,hkv,d,window,off",
