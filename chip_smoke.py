@@ -23,6 +23,15 @@ full width:
   graph's destination ids shuffled (10% padding, 1% ids >= n), float32 and
   bf16, one launch each; bitwise equal to its plain version there and on
   mostly empty segments, NaN/+-inf/signed zeros, all padding and no edges;
+* the dense call forms: ``ops.gnn_aggregate`` and
+  ``ops.gnn_gather_aggregate`` with ``ragged=False`` on the stand-in
+  graph's 1.05 M edges shuffled (seg = dst, idx = src, D 128), float32,
+  bf16, and float32 with 10% padding and 1% ids >= n: each call one
+  ``segment_spmm`` or ``gather_spmm`` launch and the sort's three passes
+  (nine kernels); held against the plain versions, bitwise against the sorted-input kernel
+  over the same edges in ``torch.sort(stable=True)`` order, the sort's
+  permutation bitwise against that order, two runs bitwise equal; at two
+  small shapes also bitwise against the old route, the O(n E) scan;
 * transformer serving: ``repro_torch.launch.serve.serve`` for gemma-2b
   (18 layers, d_model 2048, 8 query heads over 1 KV head of 256, GeGLU
   16384, vocab 256,000) and mamba2-130m (24 layers, d_model 768, 24 SSD
@@ -50,8 +59,8 @@ gather backwards; GAT 3 softmax aggregates + 3 backwards + 6 row-gather
 backwards).
 
 Prints the ``-Xptxas -v`` build report, every comparison with its maximum
-error, wall times, the dense call forms of the gather and segment sums, a
-``{"kernels": [...]}`` line with each kernel's time, bound, plain-version
+error, wall times, the dense forms at the small shapes beside the old scan
+route, a ``{"kernels": [...]}`` line with each kernel's time, bound, plain-version
 and library times, the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises and exits
 non-zero before that line. Exits non-zero without CUDA, and where the
@@ -64,25 +73,32 @@ from CUDA-graph replay, ``kernel_ms`` the kernel alone, ``eager_ms`` the
 wrapper called back to back from Python (bound by host issue time);
 ``plain_ms`` and ``library_ms`` are eager calls timed with CUDA events; the
 flash rows also time SDPA by CUDA-graph replay (``library_graph_ms``) and
-print the kernel's ratio to it and its share of the bound.
+print the kernel's ratio to it and its share of the bound; the dense
+forms' rows add the sort alone (``sort_ms``, its share of ``ms``) and
+``ms`` in bf16.
 Bounds: bytes at 3.35 TB/s against operations at 67 TFLOP/s (float32, the
 GNN kernels) or 989 TFLOP/s (bf16 tensor cores, the LM kernels; causal
 attention counts the unmasked half of the square). The flash kernel's
 library yardstick is ``scaled_dot_product_attention``, the segment max's
-``scatter_reduce(..., "amax")``, both timed here and never called by the
-port.
+``scatter_reduce(..., "amax")``, the dense sums' ``index_add_`` and
+``torch.sparse.mm``, the sort's ``torch.sort(stable=True)``, all timed
+here and never called by the port.
 
 Tolerances: kernel vs plain float32 rtol 1e-5 / atol 1e-5 (sums in
 another order); the GAT backward's logit gradient rtol 1e-4 / atol 1e-5
 (a difference of two dot products); bfloat16 rtol 1e-2 / atol 1e-2, about
 one rounding of the output, against the plain version run on the inputs
 upcast to float32 and rounded to bfloat16 (the kernels sum in float32 and
-round once); whole layer slices float32 rtol 1e-4 / atol 1e-5 (a matmul
+round once); on the stand-in graph's rows (up to 6,447 edges) the dense
+forms in float32 against their sums in float64, within twice the rounding
+bound of a float32 sum in the kernel's order (``check_sum_f32``); whole
+layer slices float32 rtol 1e-4 / atol 1e-5 (a matmul
 follows the aggregation); a training batch's loss and gradients rtol
 1e-4 / atol 1e-6. Flash attention float32 rtol 1e-4 / atol 1e-5, the SSD
 scan float32 rtol 1e-4 / atol 1e-4 (a step-by-step recurrence against the
 chunked plain version), both bf16 rtol 1e-2 / atol 1e-2 against the plain
-version on the bf16 inputs; the LM prefill logits ``LM_F32_TOL`` in
+version on the bf16 inputs; a sort's permutation and sums over the same
+edges in the same order bitwise; the LM prefill logits ``LM_F32_TOL`` in
 float32 and ``LM_BF16_RATIO`` in bf16 (see there).
 """
 from __future__ import annotations
@@ -133,6 +149,55 @@ def check_close(name, got, want, dtype=torch.float32, tol=None) -> float:
     if not torch.allclose(got, want, rtol=rtol, atol=atol):
         fail(f"{name}: max abs err {err} beyond rtol {rtol} atol {atol}")
     log(f"  ok {name}: max_abs_err {err:.3e}")
+    return err
+
+
+U32 = 2.0**-24  # unit roundoff of float32 (round to nearest)
+U64 = 2.0**-53
+
+
+def check_sum_f32(name, got, terms, rows, n, in_order=True) -> float:
+    """A float32 sum of rows held against the same sum in float64:
+    ``terms`` [k, D] float32 summed into the output rows ``rows`` [k]
+    (non-decreasing; with ``in_order``, each row's terms in the order the
+    kernel adds them, one after another). The limit of an element is twice
+    the first-order rounding bound of its float32 sum: u * sum |s_i| over
+    the partial sums s_i of its row (u = 2^-24); or, where the order is not
+    known (a library's atomics), u * (k - 1) * sum |x| for a row of k terms;
+    plus k * 2^-53 * sum |x| for the float64 sum's own rounding. The
+    in-order limit grows as k^1.5 for k independent N(0, 1) terms and as k^2
+    where terms repeat (a hub's row gathered again and again): on the
+    stand-in's rows it stays far below the |x| ~ 1 by which a dropped or
+    doubled edge moves some of the 128 columns, where a per-edge atol does
+    not. Logs the error, its largest share of the limit, and the largest
+    limit."""
+    t = terms.double()
+    rows = rows.long()
+    zeros = torch.zeros((n, t.shape[1]), dtype=torch.float64, device=t.device)
+    want = zeros.clone().index_add_(0, rows, t)
+    mag = zeros.clone().index_add_(0, rows, t.abs())
+    k = torch.bincount(rows, minlength=n).double()[:, None]
+    if in_order:
+        c = t.cumsum(0)
+        first = torch.searchsorted(rows, rows)  # each term's row starts here
+        s = c - torch.where((first > 0)[:, None], c[(first - 1).clamp_min(0)], 0.0)
+        del c
+        spread = zeros.index_add_(0, rows, s.abs())
+        del s
+    else:
+        spread = (k - 1).clamp_min(0) * mag
+    limit = 2 * U32 * spread + k * U64 * mag
+    if got.shape != want.shape:
+        fail(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    diff = (got.double() - want).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    share = float(torch.where(diff > 0, diff / limit, 0.0).max()) if diff.numel() else 0.0
+    if not bool((diff <= limit).all()):
+        fail(f"{name}: max abs err {err} beyond the float32 rounding bound "
+             f"(largest share of the limit {share})")
+    log(f"  ok {name}: max_abs_err {err:.3e} vs the float64 sum, at most "
+        f"{share:.3f} of the limit ({'in order' if in_order else 'any order'}; "
+        f"largest limit {float(limit.max()):.3e})")
     return err
 
 
@@ -376,55 +441,158 @@ def compare_training_kernels() -> None:
                     torch.stack([w[0] for w in want], 1), tol=(1e-4, 1e-5))
 
 
-def dense_forms() -> list:
-    """Kernels 3 and 1 at the call form of the dense TPU kernels
-    (``gather_spmm_pallas``, ``segment_spmm_pallas``): unpadded ids in no
-    order, which the kernels serve through their scan path. Held against
-    the plain versions and timed (CUDA-graph replay), beside their bounds
-    and the library calls (``torch.sparse.mm`` of the adjacency;
-    ``index_add_`` into zeros)."""
+def dense_small() -> list:
+    """The dense call forms (``segment_spmm``, ``gather_spmm``: unpadded ids
+    in no order) at the two small shapes earlier runs timed them at, before
+    the sort existed, through the sorted-input kernels' O(n E) scan: held
+    against the plain versions and bitwise against that scan route
+    (``ragged=True`` on the unsorted ids), and timed beside it (CUDA-graph
+    replay), so that before and after stay comparable."""
     from repro_torch.kernels import fused_gnn
     from repro_torch.kernels.ref import gather_spmm_ref, segment_spmm_ref
 
-    log("phase: dense call forms (unpadded, unsorted ids)")
+    log("phase: dense call forms at small shapes, against the old scan route")
     rows = []
     for e, f, n, d in ((2048, 1024, 256, 128), (8192, 4096, 1024, 128)):
         feats, idx, seg, _ = gather_inputs(e, f, n, d, e, 7, shuffle=True, pad=False)
         msg = feats[idx.long()].contiguous()
         label = f"E={e} F={f} n={n} D={d}"
-        # bounds as for kernels 3 and 1: the distinct rows gathered (or the
-        # messages) read once, the ids, the output written once
-        rows_read = int(torch.unique(idx).numel())
-        b4, by4 = bound_ms(rows_read * d * 4 + 2 * e * 4 + n * d * 4, e * d)
-        b6, by6 = bound_ms(e * d * 4 + e * 4 + n * d * 4, e * d)
-        adj = adjacency(seg, idx, (n, f))
-        zeros = torch.zeros((n, d), device="cuda")
-        err3 = check_close(f"gather_spmm_ragged dense form {label}",
-                           fused_gnn.gather_spmm_ragged(feats, idx, seg, n),
-                           gather_spmm_ref(feats, idx, seg, n))
-        err1 = check_close(f"segment_spmm_ragged dense form {label}",
-                           fused_gnn.segment_spmm_ragged(msg, seg, n),
-                           segment_spmm_ref(msg, seg, n))
-        rows.append({
-            "shape": {"E": e, "F": f, "n": n, "D": d},
-            "gather_spmm_pallas_form": {
-                "kernel": "gather_spmm_ragged", "max_abs_err": err3,
-                "ms": graph_ms(rotating(fused_gnn.gather_spmm_ragged, feats, idx, seg, n)),
-                "plain_ms": time_ms(rotating(gather_spmm_ref, feats, idx, seg, n)),
-                "bound_ms": b4, "bound_by": by4,
-                "library_ms": time_ms(rotating(lambda x: torch.sparse.mm(adj, x), feats)),
-            },
-            "segment_spmm_pallas_form": {
-                "kernel": "segment_spmm_ragged", "max_abs_err": err1,
-                "ms": graph_ms(rotating(fused_gnn.segment_spmm_ragged, msg, seg, n)),
-                "plain_ms": time_ms(rotating(segment_spmm_ref, msg, seg, n)),
-                "bound_ms": b6, "bound_by": by6,
-                "library_ms": time_ms(rotating(
-                    lambda m, s_: zeros.clone().index_add_(0, s_.long(), m), msg, seg)),
-            },
-        })
-    log("dense_forms: " + json.dumps(rows))
+        if not int(fused_gnn.segment_index(seg, n)[n + 1]):
+            fail("the shuffled ids did not raise the unsorted flag: no scan route to compare")
+        gathered = fused_gnn.gather_spmm(feats, idx, seg, n)
+        dense = fused_gnn.segment_spmm(msg, seg, n)
+        err4 = check_close(f"gather_spmm {label}", gathered, gather_spmm_ref(feats, idx, seg, n))
+        err6 = check_close(f"segment_spmm {label}", dense, segment_spmm_ref(msg, seg, n))
+        with torch.no_grad():
+            check_bitwise(f"gather_spmm {label} vs the scan route",
+                          gathered, fused_gnn.gather_spmm_ragged(feats, idx, seg, n))
+        check_bitwise(f"segment_spmm {label} vs the scan route",
+                      dense, fused_gnn.segment_spmm_ragged(msg, seg, n))
+        with torch.no_grad():
+            rows.append({
+                "shape": {"E": e, "F": f, "n": n, "D": d},
+                "gather_spmm": {
+                    "max_abs_err": err4,
+                    "ms": graph_ms(rotating(fused_gnn.gather_spmm, feats, idx, seg, n)),
+                    "scan_route_ms": graph_ms(
+                        rotating(fused_gnn.gather_spmm_ragged, feats, idx, seg, n)),
+                },
+                "segment_spmm": {
+                    "max_abs_err": err6,
+                    "ms": graph_ms(rotating(fused_gnn.segment_spmm, msg, seg, n)),
+                    "scan_route_ms": graph_ms(
+                        rotating(fused_gnn.segment_spmm_ragged, msg, seg, n)),
+                },
+            })
+    log("dense_small: " + json.dumps(rows))
     return rows
+
+
+DENSE_WIDTH = 128  # the stand-in graph's feature width
+
+
+def dense_edges(g, seed, *, pad=0.0, over=0.0):
+    """The stand-in graph's edges in a random order, on the card: idx = src,
+    seg = dst; a ``pad`` share of seg set to -1 and an ``over`` share to ids
+    >= n (as ``max_inputs`` draws them), and half as many idx set to -1."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(g.num_edges)
+    idx = g.src[perm].astype(np.int32)
+    seg = g.dst[perm].astype(np.int32)
+    if pad or over:
+        pick = rng.random(seg.shape[0])
+        seg[pick < pad] = -1
+        high = (pick >= pad) & (pick < pad + over)
+        seg[high] = g.num_vertices + rng.integers(0, 1000, int(high.sum()))
+        idx[rng.random(idx.shape[0]) < pad / 2] = -1
+    return torch.as_tensor(idx, device="cuda"), torch.as_tensor(seg, device="cuda")
+
+
+def dense_form_path(g) -> tuple[dict, dict]:
+    """``ops.gnn_aggregate`` and ``ops.gnn_gather_aggregate`` with
+    ``ragged=False``, the entry points of the dense TPU kernels, on the
+    stand-in graph's 1.05 M edges shuffled (seg = dst, idx = src; n = F =
+    150,000, D 128): float32, bf16, and float32 with 10% padding and 1% ids
+    >= n. Counts zeroed just before each pair of calls and read just
+    after: one ``segment_spmm``, one ``gather_spmm`` and the sort's three
+    kernels a pass, twice. Each result is held against its plain version
+    (float32: the sum in float64, within the rounding bound of
+    ``check_sum_f32``; bf16: the plain version on the inputs upcast,
+    rounded, flat rtol and atol 1e-2), bitwise against
+    the sorted-input kernel over the same edges in ``torch.sort(stable=True)``
+    order (an oracle only), and bitwise against a second run; the sort's
+    permutation bitwise against that order. Returns the path's numbers,
+    its launches and the clean float32 call's arguments."""
+    from repro_torch.kernels import fused_gnn, ops
+    from repro_torch.kernels.ref import gather_spmm_ref, segment_spmm_ref
+
+    log("phase: dense call forms through gnn_aggregate / gnn_gather_aggregate(ragged=False) "
+        "on the stand-in graph's shuffled edges")
+    n = g.num_vertices
+    rng = np.random.default_rng(3)
+    feats32 = torch.as_tensor(rng.standard_normal((n, DENSE_WIDTH)).astype(np.float32),
+                              device="cuda")
+    clean, padded = dense_edges(g, 4), dense_edges(g, 5, pad=0.1, over=0.01)
+    passes = fused_gnn.sort_passes(n)
+    launches = dict.fromkeys(("segment_spmm", "gather_spmm", "segment_sort"), 0)
+    info, calls = {"edges": int(g.num_edges), "segments": n, "sort_passes": passes}, {}
+    for label, dtype, (idx, seg) in (("float32", torch.float32, clean),
+                                     ("bf16", torch.bfloat16, clean),
+                                     ("float32 padded", torch.float32, padded)):
+        feats = feats32.to(dtype)
+        msg = feats[idx.clamp_min(0).long()].contiguous()
+        fused_gnn.reset_launches()
+        t0 = time.perf_counter()
+        dense = ops.gnn_aggregate(msg, seg, n, ragged=False)
+        gathered = ops.gnn_gather_aggregate(feats, idx, seg, n, ragged=False)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        got = {k: v for k, v in fused_gnn.LAUNCHES.items() if v}
+        want = {"segment_spmm": 1, "gather_spmm": 1, "segment_sort": 2 * 3 * passes}
+        if got != want:
+            fail(f"the dense forms ({label}) launched {got}, they imply {want}")
+        for k, v in got.items():
+            launches[k] += v
+        tag = f"E={idx.shape[0]} n={n} D={DENSE_WIDTH} {label}"
+        key = seg.long().masked_fill((seg < 0) | (seg >= n), n)
+        order = torch.sort(key, stable=True).indices
+        if dtype == torch.float32:
+            rows, s_idx = key[order], idx[order]
+            ok = rows < n
+            err6 = check_sum_f32(f"gnn_aggregate(ragged=False) {tag}", dense,
+                                 msg[order[ok]], rows[ok], n)
+            ok &= s_idx >= 0
+            err4 = check_sum_f32(f"gnn_gather_aggregate(ragged=False) {tag}", gathered,
+                                 feats[s_idx[ok].long()], rows[ok], n)
+        else:
+            err6 = check_close(f"gnn_aggregate(ragged=False) {tag}", dense,
+                               plain_up(segment_spmm_ref, msg, seg, n), dtype)
+            err4 = check_close(f"gnn_gather_aggregate(ragged=False) {tag}", gathered,
+                               plain_up(gather_spmm_ref, feats, idx, seg, n), dtype)
+        check_bitwise(f"segment_sort permutation {tag} vs torch.sort(stable=True)",
+                      fused_gnn.segment_sort(seg, n), order.to(torch.int32))
+        s_seg = seg[order].contiguous()
+        if int(fused_gnn.segment_index(s_seg, n)[n + 1]):
+            fail("the stable-sorted ids raised the unsorted flag")
+        check_bitwise(f"gnn_aggregate(ragged=False) {tag} vs the sorted-input kernel",
+                      dense, fused_gnn.segment_spmm_ragged(msg[order].contiguous(), s_seg, n))
+        with torch.no_grad():
+            check_bitwise(f"gnn_gather_aggregate(ragged=False) {tag} vs the sorted-input kernel",
+                          gathered,
+                          fused_gnn.gather_spmm_ragged(feats, idx[order].contiguous(), s_seg, n))
+        check_bitwise(f"gnn_aggregate(ragged=False) {tag}, two runs", dense,
+                      ops.gnn_aggregate(msg, seg, n, ragged=False))
+        check_bitwise(f"gnn_gather_aggregate(ragged=False) {tag}, two runs", gathered,
+                      ops.gnn_gather_aggregate(feats, idx, seg, n, ragged=False))
+        if not (torch.isfinite(dense).all() and torch.isfinite(gathered).all()):
+            fail(f"the dense forms ({label}) gave a non-finite value")
+        info[label] = {"valid_edges": int(((seg >= 0) & (seg < n)).sum()), "launches": got,
+                       "wall_ms_two_calls": wall_ms, "segment_spmm_max_abs_err": err6,
+                       "gather_spmm_max_abs_err": err4}
+        calls[label] = (feats, msg, idx, seg, n)
+    info["launches"] = launches
+    log("  dense-form path: " + json.dumps(info))
+    return info, calls
 
 
 # ---------------------------------------------------------------------------
@@ -433,16 +601,20 @@ def dense_forms() -> list:
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
-    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+    """The float's bits as integers (the sign of a zero and NaN payloads
+    included); an integer tensor as it is."""
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}.get(t.dtype)
+    return t if view is None else t.view(view)
 
 
 def check_bitwise(name, got, want) -> float:
-    """A max has no rounding: the kernel must give its plain version's bits
-    (the sign of a zero included). Returns the max abs error, 0.0."""
+    """``got`` must have ``want``'s bits (the sign of a zero included): a
+    max has no rounding, and a sum over the same edges in the same order
+    has one result. Returns the max abs error, 0.0."""
     if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(bits(got),
                                                                               bits(want)):
         differ = int((bits(got) != bits(want)).sum()) if got.shape == want.shape else -1
-        fail(f"{name}: not bitwise equal to the plain version ({differ} elements differ, "
+        fail(f"{name}: not bitwise equal ({differ} elements differ, "
              f"max abs err {max_err(got, want)})")
     log(f"  ok {name}: bitwise equal")
     return max_err(got, want)
@@ -1214,7 +1386,7 @@ def time_gather_backward(args, launches: int) -> dict:
     check_close("torch.sparse.mm of the transposed adjacency on the same call",
                 torch.sparse.mm(a, grad), got)
     esize = grad.element_size()
-    return gather_row_dict(
+    row = gather_row_dict(
         "gather_spmm_ragged_backward", "src/repro/kernels/fused_gnn.py:159", launches, err,
         fused_gnn.gather_spmm_ragged_backward, (grad, idx, seg, f, order),
         (grad, g_idx, g_seg, index, torch.empty_like(got)),
@@ -1223,6 +1395,128 @@ def time_gather_backward(args, launches: int) -> dict:
         {"E": idx.shape[0], "valid_edges": valid, "distinct_rows_read": rows, "rows_out": f,
          "grad_rows": n, "D": d, "dtype": str(grad.dtype)},
     )
+    # the path's batches carry the order; without it the backward sorts idx
+    # on the card first (``sort_order``)
+    check_bitwise("gather_spmm_ragged_backward with the order sorted on the card",
+                  fused_gnn.gather_spmm_ragged_backward(grad, idx, seg, f), got)
+    row["ms_idx_order_none"] = graph_ms(
+        rotating(fused_gnn.gather_spmm_ragged_backward, grad, idx, seg, f))
+    return row
+
+
+def kernel_ms_by_name(fn, *args, calls: int = 5) -> dict | str:
+    """Device ms per kernel name (memsets included) of one call of
+    ``fn(*args)``: a ``torch.profiler`` trace of ``calls`` calls, read by
+    ``device_ms_by_kind``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    found = device_ms_by_kind(prof)
+    if found is None:
+        return "not measured (the trace held no device events)"
+    return {name: ms / calls for name, ms in found[1]}
+
+
+def time_dense_forms(args, launches: dict) -> list:
+    """Rows 6 and 4 (``segment_spmm``, ``gather_spmm``) and the sort, at the
+    dense-form path's clean float32 call, and ``ms`` in bf16. ``kernel_ms``
+    is the CSR kernel alone over the sorted edges, ``sort_ms`` the sort
+    alone. Bounds as for kernels 1 and 3: the messages (or the distinct
+    rows gathered) and the ids read once, the output written once; the
+    sort: the ids read once and the permutation written once. Library
+    yardsticks: ``index_add_`` into zeros, ``torch.sparse.mm`` of the
+    adjacency, ``torch.sort(stable=True)`` of the key."""
+    from repro_torch.kernels import fused_gnn
+    from repro_torch.kernels.ref import gather_spmm_ref, segment_sort_ref, segment_spmm_ref
+
+    feats, msg, idx, seg, n = args["float32"]
+    feats16, msg16 = args["bf16"][:2]
+    e, d = msg.shape
+    i32 = dict(dtype=torch.int32, device="cuda")
+    keys, perm, gidx = (torch.empty(e, **i32) for _ in range(3))
+    fused_gnn.launch_segment_sort(seg, n, keys, perm, idx, gidx)
+    index = fused_gnn.segment_index(keys, n)
+    out = torch.empty((n, d), device="cuda")
+    key = seg.masked_fill((seg < 0) | (seg >= n), n)
+    rows_read = int(torch.unique(idx[idx >= 0]).numel())
+    adj = adjacency(seg, idx, (n, feats.shape[0]))
+    # each form's terms and rows in the kernel's order (torch.sort as an oracle)
+    order = torch.sort(key, stable=True).indices
+    s_key, s_idx = key[order], idx[order]
+    ok = s_key < n
+    ok4 = ok & (s_idx >= 0)
+    sums = {"segment_spmm": (msg[order[ok]], s_key[ok]),
+            "gather_spmm": (feats[s_idx[ok4].long()], s_key[ok4])}
+    check_sum_f32("torch.sparse.mm of the adjacency on the dense gather's call",
+                  torch.sparse.mm(adj, feats), *sums["gather_spmm"], n, in_order=False)
+    check_sum_f32("index_add_ into zeros on the dense sum's call",
+                  msg.new_zeros((n, d)).index_add_(0, seg, msg), *sums["segment_spmm"], n,
+                  in_order=False)
+    b_sort, by_sort = bound_ms(8 * e, 0)
+    rows = []
+    for name, replaces, fn, a, a16, kernel_args, sort_args, plain, lib, nbytes in (
+        ("segment_spmm", "src/repro/kernels/segment_spmm.py:57", fused_gnn.segment_spmm,
+         (msg, seg, n), (msg16, seg, n), (msg, perm, keys, index, out), (seg, n, keys, perm),
+         segment_spmm_ref, (lambda m, s_: m.new_zeros((n, d)).index_add_(0, s_, m), msg, seg),
+         lambda es: e * d * es + e * 4 + n * d * es),
+        ("gather_spmm", "src/repro/kernels/fused_gnn.py:122", fused_gnn.gather_spmm,
+         (feats, idx, seg, n), (feats16, idx, seg, n), (feats, gidx, keys, index, out),
+         (seg, n, keys, perm, idx, gidx), gather_spmm_ref,
+         (lambda x: torch.sparse.mm(adj, x), feats),
+         lambda es: rows_read * d * es + 2 * e * 4 + n * d * es),
+    ):
+        got = fn(*a)
+        err = check_sum_f32(f"{name} on the path's call E={e} n={n} D={d}", got, *sums[name], n)
+        ms = graph_ms(rotating(fn, *a))
+        sort_ms = graph_ms(rotating(fused_gnn.launch_segment_sort, *sort_args))
+        bound, by = bound_ms(nbytes(4), e * d)
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/segment_sort.cu + segment_sum.cu",
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": err,
+            "ms": ms,
+            "kernel_ms": graph_ms(rotating(fused_gnn.launch_gather_sum, *kernel_args)),
+            "sort_ms": sort_ms,
+            "sort_share": sort_ms / ms,
+            "eager_ms": time_ms(rotating(fn, *a)),
+            "plain_ms": time_ms(rotating(plain, *a)),
+            "bound_ms": bound,
+            "bound_by": by,
+            "library_ms": time_ms(rotating(*lib)),
+            "bf16": {"ms": graph_ms(rotating(fn, *a16)),
+                     "bound_ms": bound_ms(nbytes(2), e * d)[0]},
+            "device_ms_by_kernel": kernel_ms_by_name(fn, *a),
+            "shape": {"E": e, "n": n, "F": feats.shape[0], "D": d, "dtype": str(msg.dtype),
+                      "sort_passes": fused_gnn.sort_passes(n)},
+        })
+    check_bitwise("segment_sort on the path's call vs its plain version",
+                  fused_gnn.segment_sort(seg, n), segment_sort_ref(seg, n))
+    rows.append({
+        "name": "segment_sort",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/segment_sort.cu",
+        "replaces": "src/repro/kernels/segment_spmm.py:57",
+        "part_of": ["segment_spmm", "gather_spmm"],
+        "launches": launches["segment_sort"],
+        "max_abs_err": 0.0,
+        "ms": graph_ms(rotating(fused_gnn.segment_sort, seg, n)),
+        "kernel_ms": graph_ms(rotating(fused_gnn.launch_segment_sort, seg, n, keys, perm)),
+        "eager_ms": time_ms(rotating(fused_gnn.segment_sort, seg, n)),
+        "plain_ms": time_ms(rotating(segment_sort_ref, seg, n)),
+        "bound_ms": b_sort,
+        "bound_by": by_sort,
+        "library_ms": time_ms(rotating(lambda k: torch.sort(k, stable=True), key)),
+        "shape": {"E": e, "n": n, "passes": fused_gnn.sort_passes(n), "kernels_a_pass": 3},
+    })
+    return rows
 
 
 def plain_gat_backward(grad, logits, msg, seg, index, out, stats):
@@ -1416,8 +1710,9 @@ def device_ms_by_kind(prof) -> tuple[dict, list] | None:
     the two LM kernels, matrix products (cuBLAS's ``nvjet``/``gemm`` and
     CUTLASS names), gathers and scatters (MoE dispatch and combine,
     embedding lookups), sorts and scans (MoE routing), PyTorch's
-    elementwise and reduction kernels, and the rest; with the five largest
-    kernels by name. None when the trace holds no device events."""
+    elementwise and reduction kernels, and the rest; with every kernel's
+    time by name, largest first. None when the trace holds no device
+    events."""
     from torch.autograd import DeviceType
 
     kinds: dict = {}
@@ -1447,7 +1742,7 @@ def device_ms_by_kind(prof) -> tuple[dict, list] | None:
         names[evt.name[:80]] = names.get(evt.name[:80], 0.0) + ms
     if not kinds:
         return None
-    return kinds, sorted(names.items(), key=lambda kv: -kv[1])[:5]
+    return kinds, sorted(names.items(), key=lambda kv: -kv[1])
 
 
 def profile_lm(cfg, params, prefill_wall_ms: float, decode_wall_ms: float) -> dict:
@@ -1488,7 +1783,7 @@ def profile_lm(cfg, params, prefill_wall_ms: float, decode_wall_ms: float) -> di
         out[label] = {"device_ms_by_kind": {k: v / scale for k, v in kinds.items()},
                       "device_busy_ms": busy / scale,
                       "busy_share_of_unprofiled_wall": busy / wall,
-                      "top_kernels_ms": [[n, ms / scale] for n, ms in top]}
+                      "top_kernels_ms": [[n, ms / scale] for n, ms in top[:5]]}
     return out
 
 
@@ -1796,7 +2091,7 @@ def main() -> int:
     build_kernels()
     compare_kernels()
     compare_training_kernels()
-    dense_forms()
+    dense_small()
     compare_lm_kernels()
 
     log("phase: build the system (ogbn-paper stand-in, 4 parts, fanouts 15/10/5)")
@@ -1811,6 +2106,7 @@ def main() -> int:
         "gather_spmm_ragged_backward", "gat_softmax_aggregate_backward")}
     captured: dict = {}
     seg_max, seg_max_call = segment_max_path(g)
+    dense, dense_calls = dense_form_path(g)
     log("phase: SAGE 128->256x3, infer_layerwise + serving")
     sage = run_model(system, "sage", "segment_spmm_ragged", launches, captured)
     log("phase: GAT 4 heads 128->256x3, infer_layerwise + serving")
@@ -1843,6 +2139,7 @@ def main() -> int:
         time_gat_backward(captured["gat_softmax_aggregate_backward"],
                           launches["gat_softmax_aggregate_backward"]),
         time_segment_max(seg_max_call, seg_max["launches"]),
+        *time_dense_forms(dense_calls, dense["launches"]),
         time_flash(lm_captured["gemma-2b"], lm["gemma-2b"]["launches"]["flash_attention"]),
         time_flash(lm_captured["deepseek-v2-lite-16b"],
                    lm["deepseek-v2-lite-16b"]["launches"]["flash_attention"],
@@ -1876,6 +2173,7 @@ def main() -> int:
                   for k, v in trained.items()},
         "determinism": det,
         "segment_max_path": seg_max,
+        "dense_form_path": {k: v for k, v in dense.items() if k != "launches"},
         "lm_serve": {k: {key: v[key] for key in (
             "prefill_ms", "again_prefill_ms", "decode_ms_per_token", "peak_memory_gb",
             "two_runs_bitwise_equal", "f32_depth", "f32_logits_max_abs_err_vs_plain",

@@ -9,6 +9,7 @@
     trainer = system.train(model, train_ids, epochs=2)  # on the model's device
     result = system.infer_layerwise(layer_fns, workdir)  # on the card
     server = system.server()                            # online serving
+    system.close()                                      # idempotent; or use `with`
 
 Counterpart of ``repro/api/system.py``: build, sampling, the batch
 pipeline, training, layerwise inference and serving. ``dp_trainer`` (data
@@ -185,6 +186,21 @@ class GLISPSystem:
 
     def reset_stats(self) -> None:
         self.backend.reset_stats()
+
+    # -- lifecycle -----------------------------------------------------
+    def close(self, timeout: float = 2.0) -> None:
+        """Release owned OS resources: the backend's, when it has a
+        ``close`` (remote sampling workers, in a later slice). Idempotent;
+        the in-process system owns none, so this is a no-op there."""
+        close = getattr(self.backend, "close", None)
+        if close is not None:
+            close(timeout=timeout)
+
+    def __enter__(self) -> "GLISPSystem":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close()
 
     # -- batch pipeline ------------------------------------------------
     def loader(

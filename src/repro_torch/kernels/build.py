@@ -8,7 +8,8 @@ keyed by a hash of every source and flag: an edited source rebuilds, an
 unchanged one loads the existing file. Nothing is built at import.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; the wrappers
-raise on a non-zero code through :func:`check`.
+raise on a non-zero code through :func:`check`. :func:`on_cpu` and
+:func:`forbid_grad` are the wrappers' shared dispatch checks.
 """
 from __future__ import annotations
 
@@ -20,8 +21,11 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 __all__ = [
-    "CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "library", "check", "ptxas_log", "on_cpu",
+    "CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "library", "load_variant", "check",
+    "ptxas_log", "on_cpu", "forbid_grad",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -43,6 +47,9 @@ SIGNATURES = {
     },
     "segment_max": {
         "segment_max": (_p, _p, _c, _c, _c, _p, _p, _p),
+    },
+    "segment_sort": {
+        "segment_sort_pass": (_p, _p, _c, _c, _c, _c, _c, _p, _p, _l, _p, _p, _p, _p),
     },
     "gat_softmax_aggregate": {
         "gat_softmax_aggregate": (_p, _p, _p, _c, _p, _c, _c, _c, _c, _c, _c, _p, _p, _p),
@@ -143,6 +150,28 @@ def library(stem: str) -> ctypes.CDLL:
     return _LIBS[stem]
 
 
+def load_variant(stem: str, *flags: str) -> ctypes.CDLL:
+    """Build ``csrc/<stem>.cu`` with the extra nvcc ``flags`` (a debug
+    define) into a file of its own and load it in place of the plain build
+    for the rest of the process; every other library loads as usual."""
+    for name in SIGNATURES:
+        library(name)
+    fd, tmp = tempfile.mkstemp(prefix=f"{stem}-variant-", suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags, f"-I{CSRC}", "-o", tmp, str(CSRC / f"{stem}.cu")]
+    res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {stem}.cu {' '.join(flags)}:\n{res.stdout}")
+    lib = ctypes.CDLL(tmp)
+    for sym, argtypes in SIGNATURES[stem].items():
+        fn = getattr(lib, sym)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    _LIBS[stem] = lib
+    return lib
+
+
 def check(code: int, what: str) -> None:
     """Raise if a C entry reported a CUDA error for its launch."""
     if code != 0:
@@ -159,3 +188,16 @@ def on_cpu(*ts) -> bool:
     if devs != {"cuda"} or len({t.device for t in ts}) != 1:
         raise ValueError(f"tensors must all lie on the CPU or on one CUDA device, got {devs}")
     return False
+
+
+def forbid_grad(name: str, *ts) -> None:
+    """Raise for a kernel without a backward when autograd would need one:
+    grad mode on and some of the tensors ``ts`` (None skipped) requiring
+    grad. Its output would otherwise carry no ``grad_fn`` and the inputs'
+    gradients would be missing without an error."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward kernel yet, and an input requires "
+            "grad; call it under torch.no_grad() or torch.inference_mode(), or on CPU "
+            "tensors (the plain version is differentiable)"
+        )

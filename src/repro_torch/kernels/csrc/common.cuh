@@ -3,10 +3,12 @@
 // Every kernel here reads its edges through CSR row offsets built on the
 // device by `segment_offsets` (segment_sum.cu): row r owns edge slots
 // [row_ptr[r], row_ptr[r+1]) when the segment ids are non-decreasing with
-// the padding at the tail. For any other input `segment_offsets` raises a
-// flag in device memory and `for_each_edge` falls back to scanning every
-// edge for those of row r. Both visit a row's edges in index order (the
-// order a stable sort would give), so the two paths give the same bits.
+// the padding at the tail. The dense call forms (ids in any order) sort
+// the ids first (segment_sort.cu) and so always meet that contract. Only a
+// caller of a sorted-input form that breaks it gets the O(n * E) fallback:
+// `segment_offsets` raises a flag in device memory and `for_each_edge` scans
+// every edge for those of row r. Both visit a row's edges in index order
+// (the order a stable sort gives), so the two paths give the same bits.
 // Rows are reduced by one small thread group each, with no atomics, so a
 // row's result does not depend on the rest of the batch.
 #pragma once

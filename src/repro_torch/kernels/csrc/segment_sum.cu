@@ -3,9 +3,10 @@
 //   gather_segment_sum: out[r] = sum of feats[idx[e]] over the edges e of row r
 //
 // segment_sum replaces src/repro/kernels/fused_gnn.py::segment_spmm_ragged_pallas,
-// gather_segment_sum replaces fused_gnn.py::gather_spmm_ragged_pallas (and,
-// unpadded with unsorted ids, the dense gather_spmm_pallas / segment_spmm_pallas
-// call forms). The TPU kernels turn the scatter into a one-hot matmul per
+// gather_segment_sum replaces fused_gnn.py::gather_spmm_ragged_pallas and,
+// after the stable sort of segment_sort.cu (with idx = the permutation, or
+// idx[perm]), the dense gather_spmm_pallas / segment_spmm_pallas call
+// forms, whose ids come in any order. The TPU kernels turn the scatter into a one-hot matmul per
 // edge tile for the MXU, with the gather done inside the tile so the [E, D]
 // message array never exists. On Hopper the sum does no arithmetic worth a
 // tensor core (one add per element read), so it is bound by the bytes of the

@@ -8,8 +8,9 @@ head h reads KV head h // (H / Hkv) in place. v's head width may differ
 from q's and k's, as MLA's does (q and k 192 wide, v 128).
 
 Dispatch follows the tensors' device: CPU tensors go to the plain version
-(``ref.attention_ref``); CUDA tensors launch the kernel or raise. Each
-launch adds one to ``LAUNCHES["flash_attention"]``.
+(``ref.attention_ref``, differentiable); CUDA tensors launch the kernel or
+raise, and raise under autograd (no backward kernel yet). Each launch adds
+one to ``LAUNCHES["flash_attention"]``.
 
 On the card the route is a static choice by dtype (the source's header
 note has the details): bfloat16 runs the warp-specialised Hopper kernel
@@ -24,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import check, library, on_cpu
+from repro_torch.kernels.build import check, forbid_grad, library, on_cpu
 from repro_torch.kernels.ref import attention_ref
 
 __all__ = ["LAUNCHES", "reset_launches", "HEAD_DIMS", "launch_flash_attention", "flash_attention"]
@@ -106,6 +107,7 @@ def flash_attention(
     if on_cpu(q, k, v):
         return attention_ref(q, k, v, causal=causal, window=window, kv_offset=kv_offset)
     _check_cuda_args(q, k, v)
+    forbid_grad("flash_attention", q, k, v)
     out = q.new_empty(q.shape[:3] + (v.shape[3],))
     with torch.cuda.device(q.device):
         launch_flash_attention(q, k, v, out, causal=causal, window=window, kv_offset=kv_offset)

@@ -22,6 +22,16 @@
   [E, H], msg [E, H, dh]) in one launch. When autograd needs it, the
   forward keeps each (row, head)'s max and denominator, and the backward
   is one kernel (``csrc/gat_softmax_backward.cu``).
+* :func:`segment_spmm` and :func:`gather_spmm` replace the dense call
+  forms ``repro/kernels/segment_spmm.py::segment_spmm_pallas`` (``:57``)
+  and ``repro/kernels/fused_gnn.py::gather_spmm_pallas`` (``:122``), whose
+  ids come in any order (padding anywhere, ids >= n dropped): a stable
+  radix sort of the ids on the card (:func:`segment_sort`,
+  ``csrc/segment_sort.cu``), then the gather kernel above over the sorted
+  edges, gathering the messages through the permutation (or ``feats``
+  through ``idx[perm]``). A row sums its edges in index order, so the
+  result has the bits of the sorted-input kernels over the host's
+  stable-sorted input. The same sort gives :func:`sort_order` on the card.
 * :func:`segment_max` replaces
   ``repro/kernels/fused_gnn.py::segment_max_pallas`` (``:348``); kernel in
   ``csrc/segment_max.cu``. The ids come in any order: each edge does an
@@ -36,20 +46,25 @@ small thread group with 16-byte loads, float accumulation and no atomics.
 That keeps every row's sum order fixed by its own edges, so a batched row
 equals the same row computed alone, and a training run repeats bit for bit.
 
-Sorted input (the sums and the softmax aggregate). The engine and the server pass ``seg`` non-decreasing with
-the padding (-1) at the tail. A first kernel derives the CSR row offsets
-from ``seg`` on the card and flags a decrease in device memory; with the
-flag up, the reduction visits each row's edges by scanning all of them
-(O(n*E), never taken on the main path) in index order, the order a stable
-sort gives. So any ``seg`` gives what the TPU kernel gives, and the
-wrappers never wait for the card.
+Sorted input (the ragged sums and the softmax aggregate). The engine and
+the server pass ``seg`` non-decreasing with the padding (-1) at the tail. A
+first kernel derives the CSR row offsets from ``seg`` on the card and flags
+a decrease in device memory; with the flag up, the reduction visits each
+row's edges by scanning all of them (O(n*E), taken only by a caller that
+breaks the contract; the dense forms sort first) in index order, the order
+a stable sort gives. So any ``seg`` gives what the TPU kernel gives, and
+the wrappers never wait for the card.
 
 Dispatch follows the tensors' device: a CPU tensor goes to the plain
 version in ``ref.py`` (autograd runs through it); a CUDA tensor launches
-the kernel or raises. Each kernel launch adds one to ``LAUNCHES[name]``,
-under the name of the call form: the gather kernel counts under
-``gather_spmm_ragged`` (forward) and ``gather_spmm_ragged_backward`` (the
-backwards of both the gather aggregate and :func:`gather_rows`).
+the kernel or raises. A kernel without a backward raises on CUDA tensors
+that require grad while grad mode is on (``build.forbid_grad``). Each
+kernel launch adds one to ``LAUNCHES[name]``, under the name of the call
+form: the gather kernel counts under ``gather_spmm_ragged`` (forward),
+``gather_spmm_ragged_backward`` (the backwards of both the gather
+aggregate and :func:`gather_rows`), ``segment_spmm`` and ``gather_spmm``
+(the dense forms); ``segment_sort`` counts the sort's kernels (three a
+pass: count, scan, scatter), those of :func:`sort_order` included.
 """
 from __future__ import annotations
 
@@ -57,12 +72,13 @@ import math
 
 import torch
 
-from repro_torch.kernels.build import check, library, on_cpu
+from repro_torch.kernels.build import check, forbid_grad, library, on_cpu
 from repro_torch.kernels.ref import (
     gat_softmax_aggregate_ref,
     gather_spmm_ragged_backward_ref,
     gather_spmm_ref,
     segment_max_ref,
+    segment_sort_ref,
     segment_spmm_ref,
 )
 
@@ -70,6 +86,9 @@ __all__ = [
     "LAUNCHES",
     "reset_launches",
     "segment_index",
+    "sort_passes",
+    "launch_segment_sort",
+    "segment_sort",
     "sort_order",
     "launch_segment_sum",
     "launch_gather_sum",
@@ -81,6 +100,8 @@ __all__ = [
     "gather_spmm_ragged",
     "gather_spmm_ragged_backward",
     "gather_rows",
+    "segment_spmm",
+    "gather_spmm",
     "gat_softmax_aggregate",
     "gat_softmax_aggregate_backward",
     "segment_max",
@@ -93,10 +114,16 @@ LAUNCHES = {
     "gather_spmm_ragged_backward": 0,
     "gat_softmax_aggregate_backward": 0,
     "segment_max": 0,
+    "segment_spmm": 0,
+    "gather_spmm": 0,
+    "segment_sort": 0,
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2**31 - 1
+_SORT_TILE = 4096  # keys per block of csrc/segment_sort.cu (kSortTile)
+_RADIX = 256
+_SORT_KERNELS_PER_PASS = 3  # count, scan, scatter
 
 
 def reset_launches() -> None:
@@ -279,6 +306,7 @@ def segment_spmm_ragged(
     -1 padding."""
     if _check_sum_args(msg, seg, num_segments):
         return segment_spmm_ref(msg, seg, num_segments)
+    forbid_grad("segment_spmm_ragged", msg)
     with torch.cuda.device(msg.device):
         return _sum_on_card(msg, seg, num_segments, None)
 
@@ -295,6 +323,7 @@ def segment_sum_and_count(
             segment_spmm_ref(msg, seg, num_segments),
             segment_spmm_ref(ones, seg, num_segments),
         )
+    forbid_grad("segment_sum_and_count", msg)
     with torch.cuda.device(msg.device):
         index = segment_index(seg, num_segments) if num_segments else None
         return (
@@ -303,12 +332,87 @@ def segment_sum_and_count(
         )
 
 
-def sort_order(idx: torch.Tensor) -> torch.Tensor:
+def sort_passes(num_segments: int) -> int:
+    """Passes of 8-bit digits that cover the sort's keys [0, n]:
+    ceil(bits(n) / 8), at least one (3 at n = 150,000; 4 at 2**31 - 1)."""
+    return max(1, -(-int(num_segments).bit_length() // 8))
+
+
+def launch_segment_sort(seg, num_segments, keys, perm, idx=None, idx_out=None) -> int:
+    """Launch the passes of ``csrc/segment_sort.cu`` on checked CUDA
+    tensors: seg [E] int32 in, the sorted keys and the permutation out
+    (``keys``, ``perm`` int32 [E]); with ``idx`` [E], also ``idx_out =
+    idx[perm]``. The passes alternate between the outputs and a scratch
+    pair so that the last lands on the outputs. Returns the kernels
+    launched, three a pass (none for E = 0); counts nothing."""
+    e = seg.shape[0]
+    if e == 0:
+        return 0
+    passes = sort_passes(num_segments)
+    # the digit-major counts of every tile, then the 256 digit totals
+    table = torch.empty(_RADIX * (-(-e // _SORT_TILE) + 1), dtype=torch.int32, device=seg.device)
+    scratch = torch.empty((2, e), dtype=torch.int32, device=seg.device) if passes > 1 else None
+    lib = library("segment_sort")
+    stream = torch.cuda.current_stream().cuda_stream
+    src = (seg, None)
+    for p in range(passes):
+        last = p == passes - 1
+        dst = (keys, perm) if (passes - 1 - p) % 2 == 0 else (scratch[0], scratch[1])
+        code = lib.segment_sort_pass(
+            src[0].data_ptr(),
+            None if src[1] is None else src[1].data_ptr(),
+            e,
+            num_segments,
+            8 * p,
+            int(p == 0),
+            int(last),
+            idx.data_ptr() if last and idx is not None else None,
+            table.data_ptr(),
+            table.numel(),
+            dst[0].data_ptr(),
+            dst[1].data_ptr(),
+            idx_out.data_ptr() if last and idx is not None else None,
+            stream,
+        )
+        check(code, "segment_sort_pass")
+        src = dst
+    return _SORT_KERNELS_PER_PASS * passes
+
+
+def _sort_on_card(seg, num_segments, idx=None):
+    """(sorted keys, permutation, ``idx[perm]`` or None) of checked CUDA
+    tensors, counting the sort's kernels under ``segment_sort``."""
+    e = seg.shape[0]
+    keys = torch.empty(e, dtype=torch.int32, device=seg.device)
+    perm = torch.empty_like(keys)
+    gathered = None if idx is None else torch.empty_like(keys)
+    LAUNCHES["segment_sort"] += launch_segment_sort(seg, num_segments, keys, perm, idx, gathered)
+    return keys, perm, gathered
+
+
+def segment_sort(seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """The int32 permutation that stable-sorts ``seg`` [E] int32 by its
+    key: the id, or ``num_segments`` for padding (seg < 0) and ids >=
+    num_segments, which so come last in index order. On the card: the
+    radix sort of ``csrc/segment_sort.cu``; the permutation is unique, so it
+    has the bits of ``ref.segment_sort_ref``."""
+    if on_cpu(seg):
+        return segment_sort_ref(seg, num_segments)
+    _check_index(seg, seg.shape[0] if seg.dim() == 1 else -1, "seg")
+    if not 0 <= num_segments <= _INT_MAX:
+        raise ValueError(f"num_segments out of int32 range: {num_segments}")
+    with torch.cuda.device(seg.device):
+        return _sort_on_card(seg, num_segments)[1]
+
+
+def sort_order(idx: torch.Tensor, num_rows: int | None = None) -> torch.Tensor:
     """The int32 permutation that stable-sorts ``idx`` with its padding
     (``idx < 0``) last, on ``idx``'s device: the edge order a gather's
-    backward reads."""
-    key = torch.where(idx < 0, torch.iinfo(torch.int32).max, idx.to(torch.int32))
-    return torch.sort(key, stable=True).indices.to(torch.int32)
+    backward reads. ``num_rows`` bounds the ids: those >= it sort with the
+    padding, and the card's sort takes the passes of that bound (None: all
+    31 bits, four passes); on ids in [-1, num_rows) both give these bits."""
+    bound = _INT_MAX if num_rows is None else num_rows
+    return segment_sort(idx.to(torch.int32).contiguous(), bound)
 
 
 def _check_index(t: torch.Tensor, e: int, what: str) -> None:
@@ -372,7 +476,7 @@ def gather_spmm_ragged_backward(
     grad = grad.contiguous()
     _check_gather_args(grad, idx, seg, num_rows, idx_order)
     with torch.cuda.device(grad.device):
-        order = sort_order(idx) if idx_order is None else idx_order
+        order = sort_order(idx, num_rows) if idx_order is None else idx_order
         g_idx, g_seg = _swapped(idx, seg, order, grad.shape[0])
         return _gather_on_card(grad, g_idx, g_seg, num_rows, "gather_spmm_ragged_backward")
 
@@ -464,6 +568,51 @@ def gather_rows(
         _check_index(idx_order, idx.shape[0], "idx_order")
     with torch.cuda.device(x.device):
         return _GatherRows.apply(x, idx, idx_order)
+
+
+def _dense_on_card(src, idx, seg, num_segments, name) -> torch.Tensor:
+    """Checked CUDA tensors through the sort and the gather kernel: rows of
+    ``src`` through the permutation (``idx`` None) or ``src[idx[perm]]``,
+    summed over the sorted ids; counted under ``name``."""
+    d = src.shape[1]
+    out = torch.empty((num_segments, d), dtype=src.dtype, device=src.device)
+    if num_segments == 0 or d == 0:
+        return out
+    keys, perm, gathered = _sort_on_card(seg, num_segments, idx)
+    launch_gather_sum(src, perm if idx is None else gathered, keys,
+                      segment_index(keys, num_segments), out)
+    LAUNCHES[name] += 1
+    return out
+
+
+def segment_spmm(msg: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """The dense call form of :func:`segment_spmm_ragged`: out[s] = sum of
+    msg[e] over the edges with seg[e] == s, in msg's dtype (float32
+    accumulation), for ``seg`` [E] int32 in any order; edges with seg < 0
+    or seg >= num_segments are dropped. On the card: the stable radix sort
+    of the ids, then the CSR kernel; no backward (see ``forbid_grad``)."""
+    if _check_sum_args(msg, seg, num_segments):
+        return segment_spmm_ref(msg, seg, num_segments)
+    forbid_grad("segment_spmm", msg)
+    with torch.cuda.device(msg.device):
+        return _dense_on_card(msg, None, seg, num_segments, "segment_spmm")
+
+
+def gather_spmm(
+    feats: torch.Tensor, idx: torch.Tensor, seg: torch.Tensor, num_segments: int
+) -> torch.Tensor:
+    """The dense call form of :func:`gather_spmm_ragged`: out[s] = sum of
+    feats[idx[e]] over the edges with seg[e] == s, in feats' dtype (float32
+    accumulation); ``idx`` (rows of feats, < 0 dropped) and ``seg`` (< 0 or
+    >= num_segments dropped) [E] int32 in any order. On the card: the
+    stable radix sort of ``seg``, carrying ``idx[perm]``, then the gather
+    kernel; no backward (see ``forbid_grad``)."""
+    if on_cpu(feats, idx, seg):
+        return gather_spmm_ref(feats, idx, seg, num_segments)
+    _check_gather_args(feats, idx, seg, num_segments, None)
+    forbid_grad("gather_spmm", feats)
+    with torch.cuda.device(feats.device):
+        return _dense_on_card(feats, idx, seg, num_segments, "gather_spmm")
 
 
 def _gat_on_card(logits, msg, seg, num_segments, stats):
@@ -586,6 +735,7 @@ def segment_max(x: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.
     _check_index(seg, x.shape[0], "seg")
     if not 0 <= num_segments < _INT_MAX or x.shape[0] >= _INT_MAX:
         raise ValueError(f"sizes out of int32 range: E={x.shape[0]} n={num_segments}")
+    forbid_grad("segment_max", x)
     out = torch.empty(num_segments, dtype=x.dtype, device=x.device)
     if num_segments == 0:
         return out

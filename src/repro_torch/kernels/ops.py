@@ -4,8 +4,14 @@ Counterparts of ``gnn_aggregate``, ``gnn_gather_aggregate``,
 ``gnn_gat_aggregate``, ``gnn_segment_max``, ``mha_attention`` and
 ``ssd_scan`` in ``repro/kernels/ops.py``, with the same names and
 argument order. A CUDA tensor goes to the Hopper kernel, a CPU tensor to
-its plain version; there is no switch to pick either (no ``use_kernel``),
-and no block sizes to tune.
+its plain version. So there is no ``use_kernel`` (the tensors' device is
+the switch), and no block sizes: the reference tiles edges for the MXU
+and tunes the tiles (``repro/kernels/autotune.py``), where each kernel here
+gives a destination row one thread group and sizes it from the row width.
+``ragged=`` picks the call form, as in the reference: ids sorted with the
+padding at the tail (the default), or in any order (``ragged=False``, the
+dense forms: a stable radix sort of the ids on the card, then the same
+CSR kernel).
 ``gnn_aggregate_and_count`` gives gcn/sage the sum and the degree from one
 CSR index, where the JAX models call ``gnn_aggregate`` twice.
 ``gather_rows`` is the gather the training layers use where the JAX
@@ -20,8 +26,10 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_gnn import (
     gat_softmax_aggregate,
     gather_rows,
+    gather_spmm,
     gather_spmm_ragged,
     segment_max,
+    segment_spmm,
     segment_spmm_ragged,
     segment_sum_and_count,
 )
@@ -39,9 +47,18 @@ __all__ = [
 ]
 
 
-def gnn_aggregate(msg: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """Segment-sum of gathered neighbor messages (GNN aggregation hotspot)."""
-    return segment_spmm_ragged(msg, seg, num_segments)
+def gnn_aggregate(
+    msg: torch.Tensor, seg: torch.Tensor, num_segments: int, *, ragged: bool = True
+) -> torch.Tensor:
+    """Segment-sum of gathered neighbor messages (GNN aggregation hotspot).
+
+    ``ragged=True``: ``seg`` non-decreasing with its padding (-1) at the
+    tail, as the engine and the batches give it (:func:`segment_spmm_ragged`).
+    ``ragged=False``: ids in any order (:func:`segment_spmm`). Either way
+    ids < 0 or >= num_segments are dropped."""
+    if ragged:
+        return segment_spmm_ragged(msg, seg, num_segments)
+    return segment_spmm(msg, seg, num_segments)
 
 
 def gnn_aggregate_and_count(
@@ -58,11 +75,22 @@ def gnn_gather_aggregate(
     seg: torch.Tensor,
     num_segments: int,
     idx_order: torch.Tensor | None = None,
+    *,
+    ragged: bool = True,
 ) -> torch.Tensor:
     """Fused gather+aggregate: out[s] = sum_{seg[e]==s} feats[idx[e]],
-    without materializing the [E, D] message array; differentiable in
-    ``feats`` (see :func:`gather_spmm_ragged` for ``idx_order``)."""
-    return gather_spmm_ragged(feats, idx, seg, num_segments, idx_order)
+    without materializing the [E, D] message array.
+
+    ``ragged=True``: ``seg`` sorted with the padding at the tail;
+    differentiable in ``feats`` (see :func:`gather_spmm_ragged` for
+    ``idx_order``). ``ragged=False``: ids in any order
+    (:func:`gather_spmm`); takes no ``idx_order`` and, on the card, no
+    gradient."""
+    if ragged:
+        return gather_spmm_ragged(feats, idx, seg, num_segments, idx_order)
+    if idx_order is not None:
+        raise ValueError("idx_order orders the ragged form's backward; ragged=False takes none")
+    return gather_spmm(feats, idx, seg, num_segments)
 
 
 def gnn_gat_aggregate(

@@ -25,6 +25,7 @@ __all__ = [
     "gather_spmm_ragged_ref",
     "gather_spmm_ragged_backward_ref",
     "segment_max_ref",
+    "segment_sort_ref",
     "gat_softmax_aggregate_ref",
     "gat_softmax_aggregate_backward_ref",
     "attention_ref",
@@ -102,6 +103,15 @@ def segment_max_ref(
     zero = torch.where(any_pos_zero > 0, mx.abs(), -mx.abs())  # +0.0 or -0.0
     mx = torch.where(mx == 0, zero, mx)
     return torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
+
+
+def segment_sort_ref(seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """The int32 permutation that stable-sorts ``seg`` by its key: the id,
+    or ``num_segments`` for padding (seg < 0) and ids >= num_segments, which
+    so come last in index order. The plain version of ``csrc/segment_sort.cu``
+    (``torch.sort``; never on the card's path)."""
+    key = seg.long().masked_fill(~_valid(seg, num_segments), num_segments)
+    return torch.sort(key, stable=True).indices.to(torch.int32)
 
 
 def gat_softmax_aggregate_ref(

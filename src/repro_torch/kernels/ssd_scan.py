@@ -7,14 +7,15 @@ ssd_chunked_jnp`` (``:33``), which computes the same function: B and C in
 group form, an optional initial state, and the final state returned.
 
 Dispatch follows the tensors' device: CPU tensors go to the plain version
-(``ref.ssd_chunked_ref``); CUDA tensors launch the kernel or raise. Each
-launch adds one to ``LAUNCHES["ssd_scan"]``.
+(``ref.ssd_chunked_ref``, differentiable); CUDA tensors launch the kernel
+or raise, and raise under autograd (no backward kernel yet). Each launch
+adds one to ``LAUNCHES["ssd_scan"]``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import check, library, on_cpu
+from repro_torch.kernels.build import check, forbid_grad, library, on_cpu
 from repro_torch.kernels.ref import ssd_chunked_ref
 
 __all__ = ["LAUNCHES", "reset_launches", "HEAD_DIMS", "STATE_DIMS", "launch_ssd_scan",
@@ -107,6 +108,7 @@ def ssd_scan_fused(
     if on_cpu(x, a, dt, B, C):
         return ssd_chunked_ref(x, a, dt, B, C, chunk=chunk, init_state=init_state)
     _check_cuda_args(x, a, dt, B, C, init_state)
+    forbid_grad("ssd_scan_fused", x, a, dt, B, C, init_state)
     bz, s, h, p = x.shape
     y = torch.empty((bz, s, h, p), dtype=x.dtype, device=x.device)
     final_state = torch.empty((bz, h, p, B.shape[3]), dtype=torch.float32, device=x.device)

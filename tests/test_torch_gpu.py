@@ -771,3 +771,209 @@ def test_flash_attention_bf16_reads_no_row_of_the_next_batch(cuda, d, dv, causal
     assert bool(torch.isfinite(got[0]).all())
     _allclose(got[:1], attention_ref(q[:1], k[:1], v[:1], causal=causal),
               _ATTN_TOL[torch.bfloat16])
+
+
+# The dense call forms (ids in any order) through the stable radix sort of
+# csrc/segment_sort.cu and the CSR gather kernel. The sort's permutation is
+# unique, so it must equal torch.sort(stable=True)'s bit for bit; the sums
+# must have the bits of the sorted-input kernels over host-sorted edges.
+SORT_SEGMENTS = (1, 255, 256, 65535, 65536, 150000, 2**24 + 1)  # 1, 1, 2, 2, 3, 3, 4 passes
+SORT_CASES = [(0, "uniform"), (1, "uniform"), (4095, "uniform"), (4096, "uniform"),
+              (4097, "uniform"), (50000, "all padding"), (50000, "one hot key"),
+              (50000, "power law")]
+
+
+def _sort_ids(e, n, kind, seed):
+    """int32 ids on the card: uniform over [-1, n + 2) (padding and ids >= n
+    included), all -1, one id on 90% of the edges (hot in every tile), or
+    power-law (Zipf) ids."""
+    rng = np.random.default_rng(seed)
+    if kind == "uniform":
+        ids = rng.integers(-1, n + 2, e)
+    elif kind == "all padding":
+        ids = np.full(e, -1)
+    elif kind == "one hot key":
+        ids = np.where(rng.random(e) < 0.9, n // 2, rng.integers(-1, n + 2, e))
+    else:
+        ids = np.minimum(rng.zipf(1.3, e) - 1, n + 1)
+    return torch.as_tensor(ids.astype(np.int32), device="cuda")
+
+
+def _sort_key(seg, n):
+    return seg.long().masked_fill((seg < 0) | (seg >= n), n)
+
+
+@pytest.mark.parametrize("e,kind", SORT_CASES)
+@pytest.mark.parametrize("n", SORT_SEGMENTS)
+def test_segment_sort_is_torch_sorts_permutation_bitwise(cuda, n, e, kind):
+    seg = _sort_ids(e, n, kind, n + e)
+    before = fused_gnn.LAUNCHES["segment_sort"]
+    got = fused_gnn.segment_sort(seg, n)
+    # three kernels a pass: count, scan, scatter
+    assert fused_gnn.LAUNCHES["segment_sort"] == before + (3 * fused_gnn.sort_passes(n) if e else 0)
+    want = torch.sort(_sort_key(seg, n), stable=True).indices.to(torch.int32)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(fused_gnn.segment_sort(seg, n), got)
+
+
+def test_segment_sort_with_random_delays_keeps_torch_sorts_permutation(cuda):
+    """The sort built with -DREPRO_SORT_JITTER: every thread sleeps a random
+    0-1023 ns wherever data passes between lanes, warps or blocks, so a
+    missing barrier gives a wrong permutation (without the one between the
+    ranking and the warps' combine, the first sort already fails)."""
+    from repro_torch.kernels import build
+
+    plain = build.library("segment_sort")
+    try:
+        build.load_variant("segment_sort", "-DREPRO_SORT_JITTER")
+        for n in (255, 65535, 150000):
+            for e, kind in SORT_CASES[1:] + [(1050000, "power law")]:
+                seg = _sort_ids(e, n, kind, n + e)
+                want = torch.sort(_sort_key(seg, n), stable=True).indices.to(torch.int32)
+                for _ in range(2):
+                    assert torch.equal(fused_gnn.segment_sort(seg, n), want), (n, e, kind)
+    finally:
+        build._LIBS["segment_sort"] = plain
+
+
+# (edges, rows of feats, segments, width, seed): ragged counts around the
+# sort's 4096-key tile, 1 to 3 passes, the widths of the paths
+DENSE_SWEEP = [
+    (0, 4, 5, 8, 0),
+    (1, 3, 1, 4, 1),
+    (37, 9, 11, 3, 2),
+    (4097, 300, 700, 16, 3),
+    (20000, 5000, 70000, 128, 4),
+    (65536, 20000, 4096, 256, 5),
+]
+
+
+def _dense_inputs(m, f, n, d, seed, dtype):
+    """Ids in any order: 10% padding (-1) and 2% ids >= n in seg, 5%
+    padding in idx."""
+    rng = np.random.default_rng(seed)
+    seg = rng.integers(0, n, m)
+    pick = rng.random(m)
+    seg[pick < 0.1] = -1
+    seg[(pick >= 0.1) & (pick < 0.12)] = n + 3
+    idx = np.where(rng.random(m) < 0.05, -1, rng.integers(0, f, m))
+    feats = rng.standard_normal((f, d)).astype(np.float32)
+    msg = rng.standard_normal((m, d)).astype(np.float32)
+    t = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
+    return (t(feats).to(dtype), t(msg).to(dtype), t(idx.astype(np.int32)),
+            t(seg.astype(np.int32)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,f,n,d,seed", DENSE_SWEEP)
+def test_dense_forms_match_plain_and_the_sorted_kernel_bitwise(cuda, m, f, n, d, seed, dtype):
+    feats, msg, idx, seg = _dense_inputs(m, f, n, d, seed, dtype)
+    sort_kernels = 3 * fused_gnn.sort_passes(n) if m else 0
+    fused_gnn.reset_launches()
+    dense = fused_gnn.segment_spmm(msg, seg, n)
+    gathered = fused_gnn.gather_spmm(feats, idx, seg, n)
+    assert {k: v for k, v in fused_gnn.LAUNCHES.items() if v} == {
+        k: v for k, v in (("segment_spmm", 1), ("gather_spmm", 1),
+                          ("segment_sort", 2 * sort_kernels)) if v}
+    assert dense.shape == gathered.shape == (n, d) and dense.dtype == gathered.dtype == dtype
+    _close(dense, _plain(segment_spmm_ref, msg, seg, n), dtype)
+    _close(gathered, _plain(gather_spmm_ref, feats, idx, seg, n), dtype)
+    order = torch.sort(_sort_key(seg, n), stable=True).indices
+    s_seg = seg[order].contiguous()
+    index = fused_gnn.segment_index(s_seg, n)
+    assert int(index[n + 1]) == 0  # the sorted input takes the CSR rows, not the scan
+    assert torch.equal(dense, fused_gnn.segment_spmm_ragged(msg[order].contiguous(), s_seg, n))
+    assert torch.equal(gathered, fused_gnn.gather_spmm_ragged(feats, idx[order].contiguous(),
+                                                              s_seg, n))
+    assert torch.equal(fused_gnn.segment_spmm(msg, seg, n), dense)
+    assert torch.equal(fused_gnn.gather_spmm(feats, idx, seg, n), gathered)
+
+
+def test_dense_forms_take_the_entry_points_keyword(cuda):
+    from repro_torch.kernels import ops
+
+    feats, msg, idx, seg = _dense_inputs(5000, 700, 900, 64, 6, torch.float32)
+    assert torch.equal(ops.gnn_aggregate(msg, seg, 900, ragged=False),
+                       fused_gnn.segment_spmm(msg, seg, 900))
+    assert torch.equal(ops.gnn_gather_aggregate(feats, idx, seg, 900, ragged=False),
+                       fused_gnn.gather_spmm(feats, idx, seg, 900))
+    # the ragged form of unsorted ids still gives the same bits (its scan)
+    assert torch.equal(ops.gnn_aggregate(msg, seg, 900), fused_gnn.segment_spmm(msg, seg, 900))
+
+
+def test_sort_order_keeps_its_bits_on_the_card(cuda):
+    """The gather backward's order: the radix sort gives the permutation
+    torch.sort gave, with no bound (four passes) and with the rows' bound."""
+    rng = np.random.default_rng(7)
+    for f, e in ((9, 200), (100000, 240000)):
+        idx = rng.integers(-1, f, e).astype(np.int32)
+        want = fused_gnn.sort_order(torch.as_tensor(idx))  # the CPU plain version
+        key = torch.as_tensor(np.where(idx < 0, 2**31 - 1, idx))
+        assert torch.equal(want, torch.sort(key, stable=True).indices.to(torch.int32))
+        t = torch.as_tensor(idx, device="cuda")
+        before = fused_gnn.LAUNCHES["segment_sort"]
+        assert torch.equal(fused_gnn.sort_order(t).cpu(), want)
+        assert torch.equal(fused_gnn.sort_order(t, f).cpu(), want)
+        assert fused_gnn.LAUNCHES["segment_sort"] == before + 3 * (4 + fused_gnn.sort_passes(f))
+    grad = torch.randn(300, 16, device="cuda")
+    idx_t = torch.as_tensor(rng.integers(-1, 50, 4000).astype(np.int32), device="cuda")
+    seg_t = torch.as_tensor(np.sort(rng.integers(0, 300, 4000)).astype(np.int32), device="cuda")
+    assert torch.equal(
+        fused_gnn.gather_spmm_ragged_backward(grad, idx_t, seg_t, 50),
+        fused_gnn.gather_spmm_ragged_backward(grad, idx_t, seg_t, 50,
+                                              fused_gnn.sort_order(idx_t)))
+
+
+def test_dense_forms_capture_in_a_cuda_graph(cuda):
+    """No host sync anywhere in the sort or the sums: a graph captures
+    each dense form, and its replay gives the eager bits."""
+    feats, msg, idx, seg = _dense_inputs(70000, 5000, 150000, 128, 8, torch.float32)
+    calls = {"segment_spmm": lambda: fused_gnn.segment_spmm(msg, seg, 150000),
+             "gather_spmm": lambda: fused_gnn.gather_spmm(feats, idx, seg, 150000)}
+    for name, fn in calls.items():
+        want = fn()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), name
+
+
+def _guarded_calls():
+    """Every kernel wrapper without a backward, as (name, call on inputs
+    that require grad)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan_fused
+
+    feats, msg, idx, seg = _dense_inputs(3000, 200, 300, 32, 9, torch.float32)
+    s_seg = torch.sort(seg).values
+    q, k, v = _attn_inputs(1, 64, 64, 2, 1, 64, torch.float32, 9)
+    x, dt, A, B, C, _ = _ssd_inputs(1, 32, 2, 32, 1, 32, torch.float32, 9, False)
+    g = lambda t: t.clone().requires_grad_(True)  # noqa: E731
+    return [
+        ("segment_spmm_ragged", lambda: fused_gnn.segment_spmm_ragged(g(msg), s_seg, 300)),
+        ("segment_sum_and_count", lambda: fused_gnn.segment_sum_and_count(g(msg), s_seg, 300)),
+        ("segment_max", lambda: fused_gnn.segment_max(g(msg[:, 0].contiguous()), seg, 300)),
+        ("flash_attention", lambda: flash_attention(g(q), k, v)),
+        ("ssd_scan_fused", lambda: ssd_scan_fused(g(x), dt * A, dt, B, C)),
+        ("segment_spmm", lambda: fused_gnn.segment_spmm(g(msg), seg, 300)),
+        ("gather_spmm", lambda: fused_gnn.gather_spmm(g(feats), idx, seg, 300)),
+    ]
+
+
+@pytest.mark.parametrize("which", range(7))
+def test_wrappers_without_a_backward_raise_under_autograd(cuda, which):
+    name, call = _guarded_calls()[which]
+    with pytest.raises(RuntimeError, match=name):
+        call()
+    with torch.no_grad():
+        out = call()
+    with torch.inference_mode():
+        call()
+    assert all(not t.requires_grad for t in (out if isinstance(out, tuple) else (out,)))

@@ -65,7 +65,8 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    "path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    + sorted((REPO / "tools").glob("*.py")),
     ids=lambda p: str(p.relative_to(REPO / "src" if PORT in p.parents else REPO)),
 )
 def test_no_module_of_the_port_imports_jax_or_repro(path):
