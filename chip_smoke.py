@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's main paths once on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--save-calls PATH]
 
 Builds the Hopper kernels from ``src/repro_torch/kernels/csrc/`` (one nvcc
 per source, in parallel), holds each kernel and each backward kernel
@@ -29,9 +29,12 @@ full width:
   bf16, and float32 with 10% padding and 1% ids >= n: each call one
   ``segment_spmm`` or ``gather_spmm`` launch and the sort's three passes
   (nine kernels); held against the plain versions, bitwise against the sorted-input kernel
-  over the same edges in ``torch.sort(stable=True)`` order, the sort's
-  permutation bitwise against that order, two runs bitwise equal; at two
-  small shapes also bitwise against the old route, the O(n E) scan;
+  over the same edges in ``torch.sort(stable=True)`` order and against
+  ``ref.chunked_segment_sum_ref``, the plain model of the CSR kernel's
+  order (rows of more than ``SUM_CHUNK`` edges summed in chunks, then the
+  chunk sums in chunk order), the sort's permutation bitwise against that
+  order, two runs bitwise equal; at two small shapes also bitwise against
+  the old route, the O(n E) scan;
 * transformer serving: ``repro_torch.launch.serve.serve`` for gemma-2b
   (18 layers, d_model 2048, 8 query heads over 1 KV head of 256, GeGLU
   16384, vocab 256,000) and mamba2-130m (24 layers, d_model 768, 24 SSD
@@ -74,8 +77,15 @@ wrapper called back to back from Python (bound by host issue time);
 ``plain_ms`` and ``library_ms`` are eager calls timed with CUDA events; the
 flash rows also time SDPA by CUDA-graph replay (``library_graph_ms``) and
 print the kernel's ratio to it and its share of the bound; the dense
-forms' rows add the sort alone (``sort_ms``, its share of ``ms``) and
-``ms`` in bf16.
+forms' rows add the sort alone (``sort_ms``, its share of ``ms``),
+``ms`` in bf16, the library route from the unsorted ids
+(``library_from_ids_ms``: for ``gather_spmm`` the COO tensor, its
+coalesce, the CSR conversion and ``torch.sparse.mm``, against the row's
+``ms``; ``library_ms`` there is ``torch.sparse.mm`` over a prebuilt CSR,
+against ``kernel_ms``; for ``segment_spmm``, ``index_add_`` starts from
+the ids, so the two are one time).
+``--save-calls PATH`` also saves the sampled paths' largest calls for
+``tools/time_sampled_rows.py``, which times them on another tree's kernels.
 Bounds: bytes at 3.35 TB/s against operations at 67 TFLOP/s (float32, the
 GNN kernels) or 989 TFLOP/s (bf16 tensor cores, the LM kernels; causal
 attention counts the unmasked half of the square). The flash kernel's
@@ -91,7 +101,8 @@ one rounding of the output, against the plain version run on the inputs
 upcast to float32 and rounded to bfloat16 (the kernels sum in float32 and
 round once); on the stand-in graph's rows (up to 6,447 edges) the dense
 forms in float32 against their sums in float64, within twice the rounding
-bound of a float32 sum in the kernel's order (``check_sum_f32``); whole
+bound of a float32 sum in the kernel's chunked order (``check_sum_f32``);
+the CSR kernel bitwise against the plain model of that order; whole
 layer slices float32 rtol 1e-4 / atol 1e-5 (a matmul
 follows the aggregation); a training batch's loss and gradients rtol
 1e-4 / atol 1e-6. Flash attention float32 rtol 1e-4 / atol 1e-5, the SSD
@@ -103,6 +114,7 @@ float32 and ``LM_BF16_RATIO`` in bf16 (see there).
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import itertools
 import json
@@ -159,18 +171,24 @@ U64 = 2.0**-53
 def check_sum_f32(name, got, terms, rows, n, in_order=True) -> float:
     """A float32 sum of rows held against the same sum in float64:
     ``terms`` [k, D] float32 summed into the output rows ``rows`` [k]
-    (non-decreasing; with ``in_order``, each row's terms in the order the
-    kernel adds them, one after another). The limit of an element is twice
-    the first-order rounding bound of its float32 sum: u * sum |s_i| over
-    the partial sums s_i of its row (u = 2^-24); or, where the order is not
-    known (a library's atomics), u * (k - 1) * sum |x| for a row of k terms;
-    plus k * 2^-53 * sum |x| for the float64 sum's own rounding. The
-    in-order limit grows as k^1.5 for k independent N(0, 1) terms and as k^2
-    where terms repeat (a hub's row gathered again and again): on the
-    stand-in's rows it stays far below the |x| ~ 1 by which a dropped or
-    doubled edge moves some of the 128 columns, where a per-edge atol does
-    not. Logs the error, its largest share of the limit, and the largest
-    limit."""
+    (non-decreasing; with ``in_order``, one term per edge slot of the
+    kernel's CSR rows, in slot order, a dropped gather's slot as a zero
+    term). The limit of an element is twice the first-order rounding bound
+    of its float32 sum in the CSR kernel's chunked order (``SUM_CHUNK``
+    slots a chunk, counted from the row's first slot, each chunk summed
+    in order, then the chunk sums in chunk order): u * (sum |s_i| over the
+    running sums within each chunk + sum |S_j| over the running sums of the
+    chunk combine after its first chunk), u = 2^-24; or, where the order is
+    not known (a library's atomics), u * (k - 1) * sum |x| for a row of k
+    terms; plus k * 2^-53 * sum |x| for the float64 sum's own rounding. The
+    in-order limit of a row of at most ``SUM_CHUNK`` terms grows as k^1.5
+    for k independent N(0, 1) terms and as k^2 where terms repeat; chunks
+    cap the first part at ``SUM_CHUNK`` terms: on the stand-in's rows it
+    stays far below the |x| ~ 1 by which a dropped or doubled edge moves
+    some of the 128 columns, where a per-edge atol does not. Logs the
+    error, its largest share of the limit, and the largest limit."""
+    from repro_torch.kernels.ref import SUM_CHUNK
+
     t = terms.double()
     rows = rows.long()
     zeros = torch.zeros((n, t.shape[1]), dtype=torch.float64, device=t.device)
@@ -179,11 +197,19 @@ def check_sum_f32(name, got, terms, rows, n, in_order=True) -> float:
     k = torch.bincount(rows, minlength=n).double()[:, None]
     if in_order:
         c = t.cumsum(0)
+
+        def before(at):  # the running sum of all terms before slot ``at``
+            return torch.where((at > 0)[:, None], c[(at - 1).clamp_min(0)], 0.0)
+
         first = torch.searchsorted(rows, rows)  # each term's row starts here
-        s = c - torch.where((first > 0)[:, None], c[(first - 1).clamp_min(0)], 0.0)
+        pos = torch.arange(rows.shape[0], device=rows.device) - first
+        spread = zeros.index_add_(0, rows, (c - before(first + pos - pos % SUM_CHUNK)).abs())
+        # a chunk's last slot, from the second chunk on: the combine's running sum
+        ends = torch.ones_like(rows, dtype=torch.bool)
+        ends[:-1] = rows[1:] != rows[:-1]
+        ends = (ends | (pos % SUM_CHUNK == SUM_CHUNK - 1)) & (pos >= SUM_CHUNK)
+        spread.index_add_(0, rows[ends], (c[ends] - before(first[ends])).abs())
         del c
-        spread = zeros.index_add_(0, rows, s.abs())
-        del s
     else:
         spread = (k - 1).clamp_min(0) * mag
     limit = 2 * U32 * spread + k * U64 * mag
@@ -524,7 +550,7 @@ def dense_form_path(g) -> tuple[dict, dict]:
     permutation bitwise against that order. Returns the path's numbers,
     its launches and the clean float32 call's arguments."""
     from repro_torch.kernels import fused_gnn, ops
-    from repro_torch.kernels.ref import gather_spmm_ref, segment_spmm_ref
+    from repro_torch.kernels.ref import chunked_segment_sum_ref, gather_spmm_ref, segment_spmm_ref
 
     log("phase: dense call forms through gnn_aggregate / gnn_gather_aggregate(ragged=False) "
         "on the stand-in graph's shuffled edges")
@@ -556,19 +582,25 @@ def dense_form_path(g) -> tuple[dict, dict]:
         tag = f"E={idx.shape[0]} n={n} D={DENSE_WIDTH} {label}"
         key = seg.long().masked_fill((seg < 0) | (seg >= n), n)
         order = torch.sort(key, stable=True).indices
+        rows, s_idx = key[order], idx[order]
+        # the rows the CSR kernel reads at each sorted slot (a dropped gather: zeros)
+        g_terms = torch.where((s_idx >= 0)[:, None], feats[s_idx.clamp_min(0).long()], 0.0)
         if dtype == torch.float32:
-            rows, s_idx = key[order], idx[order]
             ok = rows < n
             err6 = check_sum_f32(f"gnn_aggregate(ragged=False) {tag}", dense,
                                  msg[order[ok]], rows[ok], n)
-            ok &= s_idx >= 0
             err4 = check_sum_f32(f"gnn_gather_aggregate(ragged=False) {tag}", gathered,
-                                 feats[s_idx[ok].long()], rows[ok], n)
+                                 g_terms[ok], rows[ok], n)
         else:
             err6 = check_close(f"gnn_aggregate(ragged=False) {tag}", dense,
                                plain_up(segment_spmm_ref, msg, seg, n), dtype)
             err4 = check_close(f"gnn_gather_aggregate(ragged=False) {tag}", gathered,
                                plain_up(gather_spmm_ref, feats, idx, seg, n), dtype)
+        check_bitwise(f"gnn_aggregate(ragged=False) {tag} vs the CSR kernel's order model",
+                      dense, chunked_segment_sum_ref(msg[order], rows, n).to(dtype))
+        check_bitwise(f"gnn_gather_aggregate(ragged=False) {tag} vs the CSR kernel's order model",
+                      gathered, chunked_segment_sum_ref(g_terms, rows, n).to(dtype))
+        del g_terms
         check_bitwise(f"segment_sort permutation {tag} vs torch.sort(stable=True)",
                       fused_gnn.segment_sort(seg, n), order.to(torch.int32))
         s_seg = seg[order].contiguous()
@@ -1302,6 +1334,14 @@ def adjacency(rows, cols, shape):
     return coo.coalesce().to_sparse_csr()
 
 
+def sparse_mm_from_ids(seg, idx, x, n):
+    """``torch.sparse.mm`` of x by the adjacency built from the unsorted
+    ids themselves (the edges kept, COO, coalesced, CSR): the library
+    route from the dense gather's own inputs, every step of it timed."""
+    ok = (seg >= 0) & (seg < n) & (idx >= 0)
+    return torch.sparse.mm(adjacency(seg[ok], idx[ok], (n, x.shape[0])), x)
+
+
 def gather_row_dict(name, replaces, launches, err, fn, args, kernel_args, plain, lib, nbytes,
                     flops, shape) -> dict:
     from repro_torch.kernels import fused_gnn
@@ -1449,25 +1489,31 @@ def time_dense_forms(args, launches: dict) -> list:
     order = torch.sort(key, stable=True).indices
     s_key, s_idx = key[order], idx[order]
     ok = s_key < n
-    ok4 = ok & (s_idx >= 0)
+    g_terms = torch.where((s_idx >= 0)[:, None], feats[s_idx.clamp_min(0).long()], 0.0)
     sums = {"segment_spmm": (msg[order[ok]], s_key[ok]),
-            "gather_spmm": (feats[s_idx[ok4].long()], s_key[ok4])}
+            "gather_spmm": (g_terms[ok], s_key[ok])}
+    del g_terms
     check_sum_f32("torch.sparse.mm of the adjacency on the dense gather's call",
                   torch.sparse.mm(adj, feats), *sums["gather_spmm"], n, in_order=False)
     check_sum_f32("index_add_ into zeros on the dense sum's call",
                   msg.new_zeros((n, d)).index_add_(0, seg, msg), *sums["segment_spmm"], n,
                   in_order=False)
+    check_sum_f32("torch.sparse.mm of the adjacency built from the unsorted ids",
+                  sparse_mm_from_ids(seg, idx, feats, n), *sums["gather_spmm"], n,
+                  in_order=False)
     b_sort, by_sort = bound_ms(8 * e, 0)
     rows = []
-    for name, replaces, fn, a, a16, kernel_args, sort_args, plain, lib, nbytes in (
+    index_add = (lambda m, s_: m.new_zeros((n, d)).index_add_(0, s_, m), msg, seg)
+    for name, replaces, fn, a, a16, kernel_args, sort_args, plain, lib, from_ids, nbytes in (
         ("segment_spmm", "src/repro/kernels/segment_spmm.py:57", fused_gnn.segment_spmm,
          (msg, seg, n), (msg16, seg, n), (msg, perm, keys, index, out), (seg, n, keys, perm),
-         segment_spmm_ref, (lambda m, s_: m.new_zeros((n, d)).index_add_(0, s_, m), msg, seg),
+         segment_spmm_ref, index_add, None,
          lambda es: e * d * es + e * 4 + n * d * es),
         ("gather_spmm", "src/repro/kernels/fused_gnn.py:122", fused_gnn.gather_spmm,
          (feats, idx, seg, n), (feats16, idx, seg, n), (feats, gidx, keys, index, out),
          (seg, n, keys, perm, idx, gidx), gather_spmm_ref,
          (lambda x: torch.sparse.mm(adj, x), feats),
+         (lambda s_, i_, x: sparse_mm_from_ids(s_, i_, x, n), seg, idx, feats),
          lambda es: rows_read * d * es + 2 * e * 4 + n * d * es),
     ):
         got = fn(*a)
@@ -1475,6 +1521,11 @@ def time_dense_forms(args, launches: dict) -> list:
         ms = graph_ms(rotating(fn, *a))
         sort_ms = graph_ms(rotating(fused_gnn.launch_segment_sort, *sort_args))
         bound, by = bound_ms(nbytes(4), e * d)
+        kernel_ms = graph_ms(rotating(fused_gnn.launch_gather_sum, *kernel_args))
+        library_ms = time_ms(rotating(*lib))
+        # index_add_ starts from the ids; torch.sparse.mm from a prebuilt CSR
+        # matrix, so the whole library route from the ids is timed beside it
+        from_ids_ms = library_ms if from_ids is None else time_ms(rotating(*from_ids))
         rows.append({
             "name": name,
             "route": "cuda",
@@ -1483,14 +1534,18 @@ def time_dense_forms(args, launches: dict) -> list:
             "launches": launches[name],
             "max_abs_err": err,
             "ms": ms,
-            "kernel_ms": graph_ms(rotating(fused_gnn.launch_gather_sum, *kernel_args)),
+            "kernel_ms": kernel_ms,
             "sort_ms": sort_ms,
             "sort_share": sort_ms / ms,
             "eager_ms": time_ms(rotating(fn, *a)),
             "plain_ms": time_ms(rotating(plain, *a)),
             "bound_ms": bound,
             "bound_by": by,
-            "library_ms": time_ms(rotating(*lib)),
+            "library_ms": library_ms,
+            "library_from_ids_ms": from_ids_ms,
+            "ms_over_library_from_ids": ms / from_ids_ms,
+            "kernel_ms_over_library": kernel_ms / library_ms,
+            "kernel_ms_over_bound": kernel_ms / bound,
             "bf16": {"ms": graph_ms(rotating(fn, *a16)),
                      "bound_ms": bound_ms(nbytes(2), e * d)[0]},
             "device_ms_by_kernel": kernel_ms_by_name(fn, *a),
@@ -2070,7 +2125,25 @@ def time_ssd(call, launches: int) -> dict:
     }
 
 
+SAMPLED_ROWS = ("segment_spmm_ragged", "gat_softmax_aggregate", "gather_spmm_ragged",
+                "gather_spmm_ragged_backward")
+
+
+def save_calls(captured: dict, path: str) -> None:
+    """The sampled paths' largest calls (rows 1, 2, 3, 3b), on the CPU, for
+    ``tools/time_sampled_rows.py`` to time another tree's kernels on."""
+    calls = {k: tuple(a.detach().cpu() if torch.is_tensor(a) else a for a in captured[k])
+             for k in SAMPLED_ROWS}
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    torch.save(calls, path)
+    log(f"saved the sampled paths' largest calls to {path}")
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--save-calls", metavar="PATH",
+                    help="also save the sampled paths' largest calls (tools/time_sampled_rows.py)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one CUDA card",
               file=sys.stderr)
@@ -2153,6 +2226,10 @@ def main() -> int:
             f"eager_ms {r['eager_ms']:.4f} "
             f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) "
             f"library_ms {r['library_ms']}")
+        if "library_from_ids_ms" in r:
+            log(f"    {r['name']}: ms / library from the ids {r['ms_over_library_from_ids']:.3f}; "
+                f"kernel_ms / library {r['kernel_ms_over_library']:.3f}; "
+                f"kernel_ms / bound {r['kernel_ms_over_bound']:.3f}")
         if "library_graph_ms" in r:
             ratio = r["ms_over_library_graph"]
             log(f"    {r['name']}: SDPA by graph replay {r['library_graph_ms']} ms; kernel / "
@@ -2181,6 +2258,8 @@ def main() -> int:
             "bf16_plain_err_vs_f32")} for k, v in lm.items()},
         "total_s": time.perf_counter() - t_start,
     }))
+    if args.save_calls:
+        save_calls(captured, args.save_calls)
     shutil.rmtree(WORKDIR, ignore_errors=True)
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -42,14 +42,16 @@ _p = ctypes.c_void_p
 SIGNATURES = {
     "segment_sum": {
         "segment_offsets": (_p, _c, _c, _p, _p),
-        "segment_sum": (_p, _p, _c, _p, _c, _c, _c, _c, _c, _p, _p),
-        "gather_segment_sum": (_p, _p, _p, _c, _p, _c, _c, _c, _c, _c, _p, _p),
+        "segment_index_words": (_c, _c),
+        "segment_sum_scratch_rows": (_c,),
+        "segment_sum": (_p, _p, _c, _p, _l, _c, _c, _c, _c, _c, _c, _p, _l, _p, _p),
+        "gather_segment_sum": (_p, _p, _p, _c, _p, _l, _c, _c, _c, _c, _c, _c, _p, _l, _p, _p),
     },
     "segment_max": {
         "segment_max": (_p, _p, _c, _c, _c, _p, _p, _p),
     },
     "segment_sort": {
-        "segment_sort_pass": (_p, _p, _c, _c, _c, _c, _c, _p, _p, _l, _p, _p, _p, _p),
+        "segment_sort_pass": (_p, _p, _c, _c, _c, _c, _c, _c, _p, _p, _l, _p, _p, _p, _p),
     },
     "gat_softmax_aggregate": {
         "gat_softmax_aggregate": (_p, _p, _p, _c, _p, _c, _c, _c, _c, _c, _c, _p, _p, _p),
@@ -69,6 +71,8 @@ SIGNATURES = {
         ),
     },
 }
+# entries that return a size; every other returns a cudaError_t as int
+RESTYPES = {"segment_index_words": _l, "segment_sum_scratch_rows": _l}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOGS: dict[str, str] = {}
@@ -128,9 +132,19 @@ def build_all() -> dict[str, Path]:
 
 def ptxas_log() -> dict[str, str]:
     """nvcc's ``-Xptxas -v`` report (registers, shared memory, spills) of
-    each source compiled by this process; empty for a library that was
-    already built."""
+    each source compiled by this process (a variant's replaces its plain
+    build's); empty for a library that was already built."""
     return dict(_LOGS)
+
+
+def _bind(lib: ctypes.CDLL, stem: str) -> ctypes.CDLL:
+    """Set ``argtypes``/``restype`` of every entry of ``lib`` (built from
+    ``csrc/<stem>.cu``)."""
+    for sym, argtypes in SIGNATURES[stem].items():
+        fn = getattr(lib, sym)
+        fn.argtypes = list(argtypes)
+        fn.restype = RESTYPES.get(sym, _c)
+    return lib
 
 
 def library(stem: str) -> ctypes.CDLL:
@@ -141,12 +155,7 @@ def library(stem: str) -> ctypes.CDLL:
         for name, path in paths.items():
             if name in _LIBS:
                 continue
-            lib = ctypes.CDLL(str(path))
-            for sym, argtypes in SIGNATURES[name].items():
-                fn = getattr(lib, sym)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            _LIBS[name] = lib
+            _LIBS[name] = _bind(ctypes.CDLL(str(path)), name)
     return _LIBS[stem]
 
 
@@ -160,16 +169,12 @@ def load_variant(stem: str, *flags: str) -> ctypes.CDLL:
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, *flags, f"-I{CSRC}", "-o", tmp, str(CSRC / f"{stem}.cu")]
     res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    _LOGS[stem] = res.stdout
     if res.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {stem}.cu {' '.join(flags)}:\n{res.stdout}")
-    lib = ctypes.CDLL(tmp)
-    for sym, argtypes in SIGNATURES[stem].items():
-        fn = getattr(lib, sym)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    _LIBS[stem] = lib
-    return lib
+    _LIBS[stem] = _bind(ctypes.CDLL(tmp), stem)
+    return _LIBS[stem]
 
 
 def check(code: int, what: str) -> None:

@@ -9,7 +9,7 @@
 // `segment_offsets` raises a flag in device memory and `for_each_edge` scans
 // every edge for those of row r. Both visit a row's edges in index order
 // (the order a stable sort gives), so the two paths give the same bits.
-// Rows are reduced by one small thread group each, with no atomics, so a
+// Rows are reduced by small thread groups with no float atomics, so a
 // row's result does not depend on the rest of the batch.
 #pragma once
 
@@ -23,6 +23,21 @@ namespace repro_torch {
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
 constexpr int kThreads = 256;
+
+// The CSR sum's chunk length L (segment_sum.cu): a row of more than L edges
+// is summed in chunks of L edge slots counted from its first slot, each
+// chunk in edge order by a thread group of its own, and the chunks' partial
+// sums are then added in chunk order. A row of at most L edges is one chunk,
+// summed in edge order as a plain loop would. Mirrored by
+// kernels/ref.py::SUM_CHUNK (a CPU test pins the two together). Chosen by
+// tools/chunk_sweep.py on an H100: on the stand-in's 1.05 M edges the
+// dense sums' kernel took 0.224 / 0.124 ms (float32 / bf16) at L = 64,
+// 0.239 / 0.140 at 32 and 0.221 / 0.137 at 128. -DREPRO_SUM_CHUNK=<L>
+// builds another length, for that sweep only.
+#ifndef REPRO_SUM_CHUNK
+#define REPRO_SUM_CHUNK 64
+#endif
+constexpr int kSumChunk = REPRO_SUM_CHUNK;
 
 // Padding (seg < 0) and out-of-range ids sort after every real row, so a
 // batch whose padding sits at the tail is "sorted" under this key.
@@ -77,6 +92,30 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* __restrict__ p, fl
   const Pack<uint16_t, VEC> k = *reinterpret_cast<const Pack<uint16_t, VEC>*>(p);
 #pragma unroll
   for (int i = 0; i < VEC; ++i) x[i] = __uint_as_float(static_cast<uint32_t>(k.v[i]) << 16);
+}
+
+// VEC consecutive elements as stored (float, or bf16 bits): one 4..16-byte
+// load, converted only when added, so a batch of loads in flight costs
+// 16 bytes of registers each.
+template <typename T> struct Storage { using type = T; };
+template <> struct Storage<__nv_bfloat16> { using type = uint16_t; };
+template <typename T, int VEC>
+using Raw = Pack<typename Storage<T>::type, VEC>;
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(uint16_t v) {
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ Raw<T, VEC> load_raw(const T* __restrict__ p) {
+  return *reinterpret_cast<const Raw<T, VEC>*>(p);
+}
+
+template <typename P, int VEC>
+__device__ __forceinline__ void add_raw(float (&acc)[VEC], const P& x) {
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) acc[i] += to_float(x.v[i]);
 }
 
 template <int VEC>

@@ -86,10 +86,10 @@ static cudaError_t launch_gat(const float* logits, const void* msg, const int* s
 
 using namespace repro_torch;
 
-// logits [E, H] float32, msg [E, H, dh] (dtype), seg [E], index [n + 2]
-// from segment_offsets (segment_sum.cu), out [n, H, dh] (dtype); stats
-// null, or float32 [2, n, H] for the max and the denominator of each
-// (row, head).
+// logits [E, H] float32, msg [E, H, dh] (dtype), seg [E], the CSR index
+// from segment_offsets (segment_sum.cu; row_ptr in [0, n], the unsorted
+// flag at [n + 1]), out [n, H, dh] (dtype); stats null, or float32
+// [2, n, H] for the max and the denominator of each (row, head).
 extern "C" int gat_softmax_aggregate(const void* logits, const void* msg, const void* seg, int E,
                                      const void* index, int n, int H, int dh, int dtype, int vec,
                                      int tpr, void* out, void* stats, void* stream) {

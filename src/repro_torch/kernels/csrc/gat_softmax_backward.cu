@@ -103,8 +103,9 @@ using namespace repro_torch;
 
 // logits [E, H] float32, msg [E, H, dh], out and grad [n, H, dh] (dtype),
 // stats float32 [2, n, H] from the forward (max, then denominator), seg [E],
-// index [n + 2] from segment_offsets (segment_sum.cu); writes dmsg
-// [E, H, dh] (dtype) and dlogit [E, H] float32. Needs n * H > 0.
+// the CSR index from segment_offsets (segment_sum.cu; row_ptr in [0, n],
+// the unsorted flag at [n + 1]); writes dmsg [E, H, dh] (dtype) and
+// dlogit [E, H] float32. Needs n * H > 0.
 extern "C" int gat_softmax_aggregate_backward(const void* logits, const void* msg,
                                               const void* out, const void* grad,
                                               const void* stats, const void* seg, int E,

@@ -42,9 +42,14 @@ All are bound by bytes: a sum adds one float per element read, and the
 softmax adds one exp per edge and head. The TPU kernels multiply one-hot
 tiles on the MXU because a scatter is slow there; on Hopper each
 destination row is a contiguous run of edges (a CSR row), reduced by a
-small thread group with 16-byte loads, float accumulation and no atomics.
-That keeps every row's sum order fixed by its own edges, so a batched row
-equals the same row computed alone, and a training run repeats bit for bit.
+small thread group with 16-byte loads, float accumulation and no float
+atomics. The sums cut a row of more than ``SUM_CHUNK`` edges into chunks
+of that many edge slots counted from the row's first slot, sum the chunks
+in parallel and add their partial sums in chunk order
+(``ref.chunked_segment_sum_ref`` is that order in plain PyTorch); a row of
+at most ``SUM_CHUNK`` edges is one plain sum in edge order. That keeps
+every row's sum order fixed by its own edges, so a batched row equals the
+same row computed alone, and a training run repeats bit for bit.
 
 Sorted input (the ragged sums and the softmax aggregate). The engine and
 the server pass ``seg`` non-decreasing with the padding (-1) at the tail. A
@@ -74,6 +79,7 @@ import torch
 
 from repro_torch.kernels.build import check, forbid_grad, library, on_cpu
 from repro_torch.kernels.ref import (
+    SUM_CHUNK,
     gat_softmax_aggregate_ref,
     gather_spmm_ragged_backward_ref,
     gather_spmm_ref,
@@ -84,9 +90,11 @@ from repro_torch.kernels.ref import (
 
 __all__ = [
     "LAUNCHES",
+    "SUM_CHUNK",
     "reset_launches",
     "segment_index",
     "sort_passes",
+    "sort_digit_bits",
     "launch_segment_sort",
     "segment_sort",
     "sort_order",
@@ -122,7 +130,6 @@ LAUNCHES = {
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2**31 - 1
 _SORT_TILE = 4096  # keys per block of csrc/segment_sort.cu (kSortTile)
-_RADIX = 256
 _SORT_KERNELS_PER_PASS = 3  # count, scan, scatter
 
 
@@ -158,16 +165,41 @@ def _check_cuda_args(msg: torch.Tensor, seg: torch.Tensor, num_segments: int) ->
 
 
 def segment_index(seg: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """The CSR index of ``seg`` on the card: int32 [n + 2] with the row
-    offsets in [0, n] and the unsorted flag at [n + 1]."""
-    n = num_segments
-    index = torch.zeros(n + 2, dtype=torch.int32, device=seg.device)
-    code = library("segment_sum").segment_offsets(
-        seg.data_ptr(), seg.shape[0], n, index.data_ptr(),
-        torch.cuda.current_stream().cuda_stream,
+    """The CSR index of ``seg`` on the card, int32 and zeroed before the
+    offsets are written: the row offsets in [0, n], the unsorted flag at
+    [n + 1], then the sums' counters of long rows' chunks (each sum leaves
+    them at zero). ``csrc/segment_sum.cu`` owns the length."""
+    n, e = num_segments, seg.shape[0]
+    lib = library("segment_sum")
+    index = torch.zeros(lib.segment_index_words(e, n), dtype=torch.int32, device=seg.device)
+    code = lib.segment_offsets(
+        seg.data_ptr(), e, n, index.data_ptr(), torch.cuda.current_stream().cuda_stream,
     )
     check(code, "segment_offsets")
     return index
+
+
+def _partials(e: int, d: int, device) -> torch.Tensor:
+    """The sums' float32 scratch for the partial sums of long rows' chunks,
+    sized by ``csrc/segment_sum.cu``."""
+    rows = library("segment_sum").segment_sum_scratch_rows(e)
+    return torch.empty((rows, d), dtype=torch.float32, device=device)
+
+
+# Edges a row, on average, from which the batched build of the sum kernel
+# runs, by dtype; float32 always runs the lean one, which measured at or
+# below the batched one at 1-8 edges a row (tools/chunk_sweep.py, PERF.md).
+_BATCH_FROM = {torch.bfloat16: 4}
+
+
+def _lean(e: int, n: int, dtype: torch.dtype) -> int:
+    """Which build of the sum kernel runs (``csrc/segment_sum.cu``): the
+    lean one (one edge at a time, more rows in flight) for float32, and for
+    bf16 rows of under ``_BATCH_FROM[dtype]`` edges on average; else the
+    batched one. Both add in one order: the choice moves time, never
+    bits."""
+    cut = _BATCH_FROM.get(dtype)
+    return int(cut is None or e < cut * n)
 
 
 def launch_segment_sum(msg, seg, index, out) -> None:
@@ -175,17 +207,23 @@ def launch_segment_sum(msg, seg, index, out) -> None:
     seg [E], out [n, D]) and the index from :func:`segment_index`. Counts
     nothing: the wrapper counts its launches."""
     n, d = out.shape
+    e = seg.shape[0]
     vec, tpr = _vec_tpr(d, msg)
+    partial = _partials(e, d, out.device)
     code = library("segment_sum").segment_sum(
         msg.data_ptr(),
         seg.data_ptr(),
-        seg.shape[0],
+        e,
         index.data_ptr(),
+        index.shape[0],
         n,
         d,
         _DTYPE_CODE[msg.dtype],
         vec,
         tpr,
+        _lean(e, n, msg.dtype),
+        partial.data_ptr(),
+        partial.shape[0],
         out.data_ptr(),
         torch.cuda.current_stream().cuda_stream,
     )
@@ -197,18 +235,24 @@ def launch_gather_sum(feats, idx, seg, index, out) -> None:
     CUDA tensors (feats [F, D], idx and seg [E], out [n, D]) and the index
     of ``seg`` from :func:`segment_index`. Counts nothing."""
     n, d = out.shape
+    e = seg.shape[0]
     vec, tpr = _vec_tpr(d, feats, out)
+    partial = _partials(e, d, out.device)
     code = library("segment_sum").gather_segment_sum(
         feats.data_ptr(),
         idx.data_ptr(),
         seg.data_ptr(),
-        seg.shape[0],
+        e,
         index.data_ptr(),
+        index.shape[0],
         n,
         d,
         _DTYPE_CODE[feats.dtype],
         vec,
         tpr,
+        _lean(e, n, feats.dtype),
+        partial.data_ptr(),
+        partial.shape[0],
         out.data_ptr(),
         torch.cuda.current_stream().cuda_stream,
     )
@@ -333,9 +377,15 @@ def segment_sum_and_count(
 
 
 def sort_passes(num_segments: int) -> int:
-    """Passes of 8-bit digits that cover the sort's keys [0, n]:
-    ceil(bits(n) / 8), at least one (3 at n = 150,000; 4 at 2**31 - 1)."""
+    """Passes of digits of at most 8 bits that cover the sort's keys [0,
+    n]: ceil(bits(n) / 8), at least one (3 at n = 150,000; 4 at 2**31 - 1)."""
     return max(1, -(-int(num_segments).bit_length() // 8))
+
+
+def sort_digit_bits(num_segments: int) -> int:
+    """The digit width of every pass: bits(n) split evenly over
+    :func:`sort_passes` (6 at n = 150,000: 64 digits a pass), at least 1."""
+    return max(1, -(-int(num_segments).bit_length() // sort_passes(num_segments)))
 
 
 def launch_segment_sort(seg, num_segments, keys, perm, idx=None, idx_out=None) -> int:
@@ -349,8 +399,10 @@ def launch_segment_sort(seg, num_segments, keys, perm, idx=None, idx_out=None) -
     if e == 0:
         return 0
     passes = sort_passes(num_segments)
-    # the digit-major counts of every tile, then the 256 digit totals
-    table = torch.empty(_RADIX * (-(-e // _SORT_TILE) + 1), dtype=torch.int32, device=seg.device)
+    bits = sort_digit_bits(num_segments)
+    # the digit-major counts of every tile, then the digit totals
+    table = torch.empty((1 << bits) * (-(-e // _SORT_TILE) + 1), dtype=torch.int32,
+                        device=seg.device)
     scratch = torch.empty((2, e), dtype=torch.int32, device=seg.device) if passes > 1 else None
     lib = library("segment_sort")
     stream = torch.cuda.current_stream().cuda_stream
@@ -363,7 +415,8 @@ def launch_segment_sort(seg, num_segments, keys, perm, idx=None, idx_out=None) -
             None if src[1] is None else src[1].data_ptr(),
             e,
             num_segments,
-            8 * p,
+            bits * p,
+            bits,
             int(p == 0),
             int(last),
             idx.data_ptr() if last and idx is not None else None,

@@ -19,6 +19,8 @@ from __future__ import annotations
 import torch
 
 __all__ = [
+    "SUM_CHUNK",
+    "chunked_segment_sum_ref",
     "segment_spmm_ref",
     "segment_spmm_ragged_ref",
     "gather_spmm_ref",
@@ -35,8 +37,68 @@ __all__ = [
 ]
 
 
+# The CSR sum kernel's chunk length: ``kSumChunk`` in ``csrc/common.cuh``
+# (a CPU test pins the two together).
+SUM_CHUNK = 64
+
+
 def _valid(seg: torch.Tensor, num_segments: int) -> torch.Tensor:
     return (seg >= 0) & (seg < num_segments)
+
+
+def chunked_segment_sum_ref(
+    terms: torch.Tensor,
+    seg: torch.Tensor,
+    num_segments: int,
+    keep: torch.Tensor | None = None,
+    chunk: int = SUM_CHUNK,
+) -> torch.Tensor:
+    """The CSR sum kernel's order of additions, in float32: a test oracle
+    (no wrapper calls it). ``terms`` [E, D] are the rows the kernel reads at
+    each edge slot, ``seg`` [E] the slots' segment ids, non-decreasing with
+    the padding (seg < 0 or >= n) at the tail, as the kernel reads them;
+    ``keep`` [E] bool (None: all) is False where a gather drops the edge
+    (idx < 0): that slot adds nothing but still counts toward its row's
+    chunks. Row r is cut into chunks of ``chunk`` slots counted from its
+    first slot; each chunk is summed from +0.0 one slot after another, and
+    the chunk sums from +0.0 in chunk order. A row of at most ``chunk``
+    slots is so a plain sequential sum. Returns [n, D] float32.
+
+    Vectorised over rows: one step per position within a chunk, then one
+    per chunk index; elementwise float32 adds, so the result has the
+    kernel's bits on any device."""
+    n = num_segments
+    dev = terms.device
+    t = terms.float()
+    if keep is not None:
+        t = torch.where(keep[:, None], t, 0.0)  # +0.0 adds nothing: no sum is -0.0
+    key = seg.long().masked_fill(~_valid(seg, n), n)
+    ptr = torch.searchsorted(key, torch.arange(n + 1, device=dev))
+    lens = ptr[1:] - ptr[:-1]
+    chunks = (lens + chunk - 1) // chunk
+    chunk0 = torch.cumsum(chunks, 0) - chunks  # each row's first chunk id
+    valid = key < n
+    rows = key[valid]
+    pos = torch.nonzero(valid).flatten() - ptr[rows]  # slot within its row
+    cid = chunk0[rows] + pos // chunk
+    step = pos % chunk
+    by_step = torch.argsort(step, stable=True)
+    per_step = torch.bincount(step, minlength=chunk).tolist()
+    x = t[valid][by_step]
+    cid = cid[by_step]
+    partial = t.new_zeros((int(chunks.sum()), t.shape[1]))
+    at = 0
+    for count in per_step:  # a chunk has one slot at each step: no index repeats
+        sel = cid[at:at + count]
+        partial[sel] = partial[sel] + x[at:at + count]
+        at += count
+    out = t.new_zeros((n, t.shape[1]))
+    by_chunks = torch.argsort(chunks, descending=True, stable=True)
+    ranked = chunks[by_chunks]
+    for k in range(int(chunks.max()) if n else 0):
+        r = by_chunks[: int((ranked > k).sum())]
+        out[r] = out[r] + partial[chunk0[r] + k]
+    return out
 
 
 def segment_spmm_ref(

@@ -14,6 +14,8 @@ rounding of the output. The GAT backward's logit gradient: float32 rtol
 another order). Training runs and served responses are compared bit for
 bit. The LM kernels' tolerances are stated beside their tests below.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -22,6 +24,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import fused_gnn  # noqa: E402
 from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
+    SUM_CHUNK,
+    chunked_segment_sum_ref,
     gat_softmax_aggregate_backward_ref,
     gat_softmax_aggregate_ref,
     gather_spmm_ragged_backward_ref,
@@ -977,3 +981,189 @@ def test_wrappers_without_a_backward_raise_under_autograd(cuda, which):
     with torch.inference_mode():
         call()
     assert all(not t.requires_grad for t in (out if isinstance(out, tuple) else (out,)))
+
+
+# The CSR kernel's long rows (csrc/segment_sum.cu): a row of more than L =
+# SUM_CHUNK edge slots is summed in chunks of L slots counted from its own
+# first slot, each chunk in slot order, then the chunk sums in chunk order.
+# ref.chunked_segment_sum_ref is that order in plain PyTorch: the kernel
+# must have its bits on every case, so a row's bits depend on its own
+# edges only.
+LONG_ROWS = (1, SUM_CHUNK - 1, SUM_CHUNK, SUM_CHUNK + 1, 10 * SUM_CHUNK, 100000)
+
+
+def _row_batch(lengths, d, f, dtype, seed, drop=0.05, pad=7):
+    """Rows of the given slot counts in order, ``pad`` padding slots at the
+    tail; messages [E, d], feats [f, d] and idx (a ``drop`` share -1)."""
+    rng = np.random.default_rng(seed)
+    seg = np.concatenate([np.repeat(np.arange(len(lengths)), lengths), np.full(pad, -1)])
+    e = seg.shape[0]
+    idx = np.where(rng.random(e) < drop, -1, rng.integers(0, f, e))
+    t = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
+    return (t(seg.astype(np.int32)), t(rng.standard_normal((e, d)).astype(np.float32)).to(dtype),
+            t(rng.standard_normal((f, d)).astype(np.float32)).to(dtype),
+            t(idx.astype(np.int32)))
+
+
+def _same_bits(got, want):
+    torch.cuda.synchronize()
+    return torch.equal(_bits(got), _bits(want))
+
+
+def _model(src, seg, n, idx=None):
+    """The order model of either form, in the output's dtype."""
+    if idx is None:
+        return chunked_segment_sum_ref(src, seg, n).to(src.dtype)
+    return chunked_segment_sum_ref(src[idx.clamp_min(0).long()], seg, n, idx >= 0).to(src.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("length", LONG_ROWS)
+def test_csr_kernel_is_the_order_model_bitwise_on_long_rows(cuda, length, dtype):
+    lengths = [3, length, 0, length, SUM_CHUNK + 2, 5]
+    seg, msg, feats, idx = _row_batch(lengths, 128, 3000, dtype, seed=length)
+    n = len(lengths)
+    assert _same_bits(fused_gnn.segment_spmm_ragged(msg, seg, n), _model(msg, seg, n))
+    with torch.no_grad():
+        got = fused_gnn.gather_spmm_ragged(feats, idx, seg, n)
+    assert _same_bits(got, _model(feats, seg, n, idx))
+    # two launches over one index: the chunk counters are left ready for the next
+    total, count = fused_gnn.segment_sum_and_count(msg, seg, n)
+    assert _same_bits(total, _model(msg, seg, n))
+    ones = (seg >= 0).float()[:, None]
+    assert _same_bits(count, _model(ones, seg, n))
+
+
+@pytest.mark.parametrize("d", [1, 3, 24, 256])
+def test_csr_kernel_is_the_order_model_bitwise_at_every_width(cuda, d):
+    lengths = [SUM_CHUNK * 3 + 1, 2, SUM_CHUNK + 1, 700]
+    seg, msg, feats, idx = _row_batch(lengths, d, 500, torch.float32, seed=d)
+    n = len(lengths)
+    assert _same_bits(fused_gnn.segment_spmm_ragged(msg, seg, n), _model(msg, seg, n))
+    with torch.no_grad():
+        assert _same_bits(fused_gnn.gather_spmm_ragged(feats, idx, seg, n),
+                          _model(feats, seg, n, idx))
+
+
+@pytest.mark.parametrize("row", [SUM_CHUNK + 1, 10 * SUM_CHUNK + 3, 100000])
+def test_a_long_rows_bits_do_not_depend_on_where_it_sits(cuda, row):
+    """The same row after different rows (so at different edge offsets, and
+    with its chunks in different windows) and before others: its sum has
+    the same bits every time, in both forms."""
+    _, msg_row, feats, idx_row = _row_batch([row], 64, 2000, torch.float32, seed=1, pad=0)
+    want = want_gather = None
+    rng = np.random.default_rng(row)
+    for trial in range(6):
+        before = [int(x) for x in rng.integers(0, 3 * SUM_CHUNK, trial)]
+        after = [int(x) for x in rng.integers(0, 3 * SUM_CHUNK, 5 - trial)]
+        lengths = before + [row] + after
+        seg, msg, _, idx = _row_batch(lengths, 64, 2000, torch.float32, seed=trial)
+        at = sum(before)
+        msg[at:at + row] = msg_row
+        idx[at:at + row] = idx_row
+        got = fused_gnn.segment_spmm_ragged(msg, seg, len(lengths))[len(before)]
+        with torch.no_grad():
+            got_gather = fused_gnn.gather_spmm_ragged(feats, idx, seg, len(lengths))[len(before)]
+        if want is None:
+            want, want_gather = got, got_gather
+            alone = torch.zeros(row, dtype=torch.int32, device="cuda")
+            assert _same_bits(want, _model(msg_row, alone, 1)[0])
+            assert _same_bits(want_gather, _model(feats, alone, 1, idx_row)[0])
+        assert _same_bits(got, want) and _same_bits(got_gather, want_gather), (trial, at)
+
+
+@functools.lru_cache(maxsize=1)
+def _stand_in_edges():
+    """The ogbn-paper stand-in's 1.05 M edges shuffled, on the card: idx =
+    src, seg = dst (in-degrees up to 6,447), with 128-wide features."""
+    from repro_torch.graph import named_dataset
+
+    g = named_dataset("ogbn-paper", feat_dim=128, num_classes=16, seed=0, scale=1.0)
+    rng = np.random.default_rng(4)
+    perm = rng.permutation(g.num_edges)
+    idx = torch.as_tensor(g.src[perm].astype(np.int32), device="cuda")
+    seg = torch.as_tensor(g.dst[perm].astype(np.int32), device="cuda")
+    feats = torch.as_tensor(rng.standard_normal((g.num_vertices, 128)).astype(np.float32),
+                            device="cuda")
+    return idx, seg, feats, g.num_vertices
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_forms_on_the_stand_in_graph_are_the_order_model_bitwise(cuda, dtype):
+    idx, seg, feats32, n = _stand_in_edges()
+    feats = feats32.to(dtype)
+    msg = feats[idx.long()].contiguous()
+    order = torch.sort(_sort_key(seg, n), stable=True).indices
+    s_seg = seg[order]
+    assert int(torch.bincount(_sort_key(seg, n))[:n].max()) > 100 * SUM_CHUNK
+    assert _same_bits(fused_gnn.segment_spmm(msg, seg, n), _model(msg[order], s_seg, n))
+    assert _same_bits(fused_gnn.gather_spmm(feats, idx, seg, n),
+                      _model(feats, s_seg, n, idx[order]))
+
+
+def test_long_rows_capture_in_a_cuda_graph_and_replay_bitwise(cuda):
+    """No host sync in the chunked sums: a graph captures them, and every
+    replay (the chunk counters rearmed by the one before) gives the eager
+    bits."""
+    seg, msg, feats, idx = _row_batch([10 * SUM_CHUNK, 3, 100000, SUM_CHUNK + 1], 128, 3000,
+                                      torch.float32, seed=9)
+    calls = {"segment_spmm_ragged": lambda: fused_gnn.segment_spmm_ragged(msg, seg, 4),
+             "gather_spmm_ragged": lambda: fused_gnn.gather_spmm_ragged(feats, idx, seg, 4)}
+    with torch.no_grad():
+        for name, fn in calls.items():
+            want = fn()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = fn()
+            for _ in range(3):
+                graph.replay()
+                assert _same_bits(out, want), name
+
+
+def test_second_sort_of_padding_ids_holds_a_thousand_times(cuda):
+    """The one unexplained card failure of the first sort (a second
+    segment_sort of 50,000 padding ids at n = 65,535 raised a device
+    error), repeated on the current sort: every permutation is the
+    identity, and the card reports no error."""
+    seg = torch.full((50000,), -1, dtype=torch.int32, device="cuda")
+    want = torch.arange(50000, dtype=torch.int32, device="cuda")
+    for i in range(1000):
+        first = fused_gnn.segment_sort(seg, 65535)
+        second = fused_gnn.segment_sort(seg, 65535)
+        torch.cuda.synchronize()
+        assert torch.equal(first, want) and torch.equal(second, want), i
+
+
+def _lengths_beside_the_cut(side, dtype):
+    """Rows with a long row among them whose mean slot count lies below the
+    wrapper's cut between the sum kernel's builds (``side`` "lean") or
+    above it ("batched"), the tail's 7 padding slots counted. Float32 has
+    no cut (always lean): its rows average 6 slots."""
+    cut = fused_gnn._BATCH_FROM.get(dtype, 7)
+    long = 10 * SUM_CHUNK + 3
+    if side == "lean":
+        return [long] + [cut - 1] * (long + 8)
+    return [long] + [cut + 1] * 50
+
+
+@pytest.mark.parametrize("dtype, side", [(torch.float32, "lean"), (torch.bfloat16, "lean"),
+                                         (torch.bfloat16, "batched")])
+def test_both_builds_of_the_sum_kernel_give_the_same_bits(cuda, side, dtype):
+    """The lean build (one edge at a time) and the batched build add in
+    one order: on inputs on either side of the wrapper's cut, the build it
+    picks gives the order model's bits, long row included."""
+    lengths = _lengths_beside_the_cut(side, dtype)
+    seg, msg, feats, idx = _row_batch(lengths, 128, 900, dtype, seed=len(lengths))
+    n = len(lengths)
+    assert fused_gnn._lean(seg.shape[0], n, dtype) == (side == "lean")
+    index = fused_gnn.segment_index(seg, n)
+    out = torch.empty((n, 128), dtype=dtype, device="cuda")
+    fused_gnn.launch_segment_sum(msg, seg, index, out)
+    assert _same_bits(out, _model(msg, seg, n))
+    fused_gnn.launch_gather_sum(feats, idx, seg, index, out)
+    assert _same_bits(out, _model(feats, seg, n, idx))

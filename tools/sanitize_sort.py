@@ -2,6 +2,7 @@
 
     python3 tools/sanitize_sort.py [--out build/sanitize_sort.log]
     python3 tools/sanitize_sort.py --jitter 25
+    python3 tools/sanitize_sort.py --jitter 5 --drop 2
 
 The first form runs this file's workload (``--inner``) once under each of
 NVIDIA's compute-sanitizer tools memcheck, racecheck (shared-memory
@@ -16,7 +17,11 @@ The second form needs no sanitizer: it runs the workload 25 times with
 the sort built with ``-DREPRO_SORT_JITTER``, where every thread sleeps a
 random 0-1023 ns wherever data passes between lanes, warps or blocks
 (``csrc/segment_sort.cu``), so that a missing barrier gives a wrong
-permutation instead of hiding behind a lucky schedule.
+permutation instead of hiding behind a lucky schedule. With ``--drop K``
+as well, the jittered sort is built without the scatter's barrier K
+(``-DREPRO_SORT_DROP=K``, ``csrc/segment_sort.cu::scatter_barrier``): a
+mutant the workload must catch. It then exits 0 when the mutant gave a
+wrong permutation or a device error, and 1 when every round passed.
 
 The workload: the stable radix sort of ``csrc/segment_sort.cu`` on the
 card tests' hard cases (uniform ids with padding and ids >= n, all
@@ -108,6 +113,8 @@ def main() -> int:
     ap.add_argument("--timeout", type=float, default=300.0, help="seconds per tool")
     ap.add_argument("--jitter", type=int, default=0, metavar="ROUNDS",
                     help="run the workload ROUNDS times on the jittered sort instead")
+    ap.add_argument("--drop", type=int, default=0, metavar="K",
+                    help="with --jitter: leave the scatter's barrier K out (a mutant)")
     args = ap.parse_args()
     if args.inner:
         workload()
@@ -117,7 +124,19 @@ def main() -> int:
         sys.path.insert(0, str(ROOT / "src"))
         from repro_torch.kernels import build
 
-        build.load_variant("segment_sort", "-DREPRO_SORT_JITTER")
+        flags = ["-DREPRO_SORT_JITTER"] + ([f"-DREPRO_SORT_DROP={args.drop}"] if args.drop else [])
+        build.load_variant("segment_sort", *flags)
+        if args.drop:
+            for r in range(args.jitter):
+                try:
+                    workload()
+                except (SystemExit, RuntimeError) as exc:
+                    print(f"mutant without barrier {args.drop}: caught in round {r + 1}: {exc}",
+                          flush=True)
+                    return 0
+            print(f"mutant without barrier {args.drop}: not caught in {args.jitter} rounds",
+                  flush=True)
+            return 1
         sorts = sum(workload() for _ in range(args.jitter))
         print(f"jitter: {args.jitter} rounds, {sorts} sorts, every permutation and "
               "dense-form sum bitwise as expected", flush=True)
