@@ -49,7 +49,9 @@ full width:
   runs through the plain versions, in float32 and in bf16
   (``LM_F32_TOL``, ``LM_BF16_RATIO``), at full depth for the first two and
   at 4 layers for deepseek (its float32 upcast would not fit), counting
-  the MoE routing flips between the two float32 runs. Before it, both
+  the MoE routing flips between the two float32 runs; each prefill's
+  device profile must charge time to its kernel (``device_ms_by_kind``
+  classifies the SSD's three kernels by ``ssd_scan_kernel``). Before it, both
   kernels are held against their plain versions at the paths' shapes
   (flash at D 256 and at MLA's 192 over 128) and at ragged ones, float32
   and bf16.
@@ -92,7 +94,9 @@ attention counts the unmasked half of the square). The flash kernel's
 library yardstick is ``scaled_dot_product_attention``, the segment max's
 ``scatter_reduce(..., "amax")``, the dense sums' ``index_add_`` and
 ``torch.sparse.mm``, the sort's ``torch.sort(stable=True)``, all timed
-here and never called by the port.
+here and never called by the port. The SSD row adds each of its three
+kernels' device time from ``torch.profiler`` (``phase_kernel_ms``) and its
+share of the bound.
 
 Tolerances: kernel vs plain float32 rtol 1e-5 / atol 1e-5 (sums in
 another order); the GAT backward's logit gradient rtol 1e-4 / atol 1e-5
@@ -106,8 +110,9 @@ the CSR kernel bitwise against the plain model of that order; whole
 layer slices float32 rtol 1e-4 / atol 1e-5 (a matmul
 follows the aggregation); a training batch's loss and gradients rtol
 1e-4 / atol 1e-6. Flash attention float32 rtol 1e-4 / atol 1e-5, the SSD
-scan float32 rtol 1e-4 / atol 1e-4 (a step-by-step recurrence against the
-chunked plain version), both bf16 rtol 1e-2 / atol 1e-2 against the plain
+scan float32 rtol 1e-4 / atol 1e-4 (chunks of another length, sums in
+another order; the final state at this tolerance in bf16 too), both bf16
+rtol 1e-2 / atol 1e-2 against the plain
 version on the bf16 inputs; a sort's permutation and sums over the same
 edges in the same order bitwise; the LM prefill logits ``LM_F32_TOL`` in
 float32 and ``LM_BF16_RATIO`` in bf16 (see there).
@@ -1998,6 +2003,10 @@ def serve_lm(arch: str, kernel: str, f32_layers, captured: dict) -> dict:
         "profile": profile,
     }
     log(f"  serve {arch}: " + json.dumps(info))
+    kinds = profile["prefill"]
+    if isinstance(kinds, dict) and not kinds["device_ms_by_kind"].get(kernel, 0.0) > 0:
+        fail(f"{arch}: the prefill's device profile shows no time in {kernel}: "
+             f"{kinds['device_ms_by_kind']}")
     if not bitwise:
         fail(f"{arch}: two serving runs differ")
     if err_k > LM_BF16_RATIO * err_p:
@@ -2074,11 +2083,33 @@ def time_flash(call, launches: int, name: str = "flash_attention") -> dict:
     }
 
 
+def kernels_ms(fn, match: str, calls: int = 20) -> dict | str:
+    """Device ms a call of ``fn`` spends in each CUDA kernel whose name holds
+    ``match``, by the name's part after it (``torch.profiler``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA and match in evt.name:
+            name = evt.name.split(match, 1)[1].split("<")[0].split("(")[0].strip("_") or match
+            out[name] = out.get(name, 0.0) + evt.time_range.elapsed_us() / 1e3 / calls
+    return out or "not measured (the trace held no device events)"
+
+
 def time_ssd(call, launches: int) -> dict:
-    """The SSD kernel at the mamba2-130m prefill's call. Bound: x, B, C, a,
-    dt and the initial state read once, y and the final state written once
-    at 3.35 TB/s, against the recurrence's 6 P N flops per (step, head) at
-    989 TFLOP/s."""
+    """The SSD kernels at the mamba2-130m prefill's call, the whole call and
+    each of its three kernels. Bound: x, B, C, a, dt and the initial state
+    read once, y and the final state written once at 3.35 TB/s, against the
+    recurrence's 6 P N flops per (step, head) at 989 TFLOP/s (the formula of
+    PR 13's recurrence kernel, kept so that the row compares across
+    designs)."""
     import functools
 
     from repro_torch.kernels import ssd_scan as sk
@@ -2102,6 +2133,8 @@ def time_ssd(call, launches: int) -> dict:
               + 2 * b * h * p * n * 4)
     bound, by = bound_ms(nbytes, 6 * b * s * h * p * n, BF16_FLOPS)
     ys, fs = torch.empty_like(y), torch.empty_like(state)
+    launch = rotating(lambda *t: sk.launch_ssd_scan(*t, init, ys, fs), x, a, dt, B, C)
+    ms = graph_ms(rotating(functools.partial(sk.ssd_scan_fused, **kw), x, a, dt, B, C), iters=5)
     return {
         "name": "ssd_scan",
         "route": "cuda",
@@ -2109,10 +2142,9 @@ def time_ssd(call, launches: int) -> dict:
         "replaces": "src/repro/kernels/ssd_scan.py:65",
         "launches": launches,
         "max_abs_err": err,
-        "ms": graph_ms(rotating(functools.partial(sk.ssd_scan_fused, **kw), x, a, dt, B, C),
-                       iters=5),
-        "kernel_ms": graph_ms(rotating(
-            lambda *t: sk.launch_ssd_scan(*t, init, ys, fs), x, a, dt, B, C), iters=5),
+        "ms": ms,
+        "kernel_ms": graph_ms(launch, iters=5),
+        "phase_kernel_ms": kernels_ms(launch, "ssd_scan_kernel_"),
         "eager_ms": time_ms(rotating(functools.partial(sk.ssd_scan_fused, **kw), x, a, dt, B, C),
                             iters=20),
         "plain_ms": time_ms(rotating(functools.partial(ssd_chunked_ref, **kw), x, a, dt, B, C),
@@ -2120,8 +2152,9 @@ def time_ssd(call, launches: int) -> dict:
         "bound_ms": bound,
         "bound_by": by,
         "library_ms": None,
+        "bound_share": bound / ms,
         "shape": {"B": b, "S": s, "H": h, "P": p, "G": g, "N": n, "chunk": kw["chunk"],
-                  "dtype": str(x.dtype)},
+                  "kernel_chunk": sk.kernel_chunk(x.dtype), "dtype": str(x.dtype)},
     }
 
 
@@ -2226,6 +2259,9 @@ def main() -> int:
             f"eager_ms {r['eager_ms']:.4f} "
             f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) "
             f"library_ms {r['library_ms']}")
+        if "phase_kernel_ms" in r:
+            log(f"    {r['name']}: by kernel {r['phase_kernel_ms']}; share of the bound "
+                f"{r['bound_share']:.3f}")
         if "library_from_ids_ms" in r:
             log(f"    {r['name']}: ms / library from the ids {r['ms_over_library_from_ids']:.3f}; "
                 f"kernel_ms / library {r['kernel_ms_over_library']:.3f}; "

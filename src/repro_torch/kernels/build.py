@@ -65,13 +65,15 @@ SIGNATURES = {
         "flash_attention": (_p, _p, _p, _p, _c, _c, _c, _c, _c, _c, _c, _c, _c, _c, _c, _p),
     },
     "ssd_scan": {
+        "ssd_scan_chunk": (_c,),
         "ssd_scan": (
-            _p, _l, _l, _p, _p, _p, _l, _l, _p, _l, _l, _p, _p, _p,
+            _p, _l, _l, _p, _p, _p, _l, _l, _p, _l, _l, _p, _p, _p, _p, _p,
             _c, _c, _c, _c, _c, _c, _c, _p,
         ),
     },
 }
-# entries that return a size; every other returns a cudaError_t as int
+# entries that return a size; every other returns an int (a cudaError_t,
+# or ``ssd_scan_chunk``'s length)
 RESTYPES = {"segment_index_words": _l, "segment_sum_scratch_rows": _l}
 
 _LIBS: dict[str, ctypes.CDLL] = {}

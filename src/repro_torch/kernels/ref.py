@@ -2,7 +2,8 @@
 
 Counterparts of ``repro/kernels/ref.py``; the attention and SSD versions
 are at the bottom, with ``ssd_chunked_ref``, the chunked SSD of
-``repro/models/transformer/ssm.py::ssd_chunked_jnp``. The tests hold the CUDA
+``repro/models/transformer/ssm.py::ssd_chunked_jnp``, and the three phases
+the SSD kernels split it into (``ssd_phases_ref``). The tests hold the CUDA
 kernels and the JAX package against them, and the kernel wrappers use them
 (with autograd through them) for tensors that lie on the CPU. Their gathers
 are ``index_select``, whose CPU backward (``index_add_``) adds in index
@@ -34,6 +35,10 @@ __all__ = [
     "flash_attention_ref",
     "ssd_scan_ref",
     "ssd_chunked_ref",
+    "ssd_chunk_states_ref",
+    "ssd_state_pass_ref",
+    "ssd_chunk_out_ref",
+    "ssd_phases_ref",
 ]
 
 
@@ -332,4 +337,79 @@ def ssd_chunked_ref(x, a, dt, B, C, *, chunk: int = 128, init_state=None):
             "blhp,blhn->bhpn", xk * w[..., None], bk
         )
         ys.append(y)
+    if not ys:  # S = 0
+        return x.new_empty((bz, 0, H, P)), state
     return torch.cat(ys, dim=1)[:, :S].to(x.dtype), state
+
+
+def _ssd_chunks(x, a, dt, B, C, chunk):
+    """Inputs padded to whole chunks (a = 0, dt = 0, x = B = C = 0 past S)
+    and cut into them: x [Bz, nc, L, H, P], a and dt [Bz, nc, L, H], B and C
+    [Bz, nc, L, H, N] with the groups repeated over their heads, all
+    float32; and the running sum of a within each chunk."""
+    bz, S, H, P = x.shape
+    reps = H // B.shape[2]
+    pad = (-S) % chunk
+    if pad:
+        x, B, C = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, B, C))
+        a, dt = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (a, dt))
+    nc = (S + pad) // chunk
+
+    def cut(t):
+        return t.float().reshape((bz, nc, chunk) + t.shape[2:])
+
+    xc, ac, dc = cut(x), cut(a), cut(dt)
+    Bc, Cc = (cut(t.repeat_interleave(reps, dim=2)) for t in (B, C))
+    return xc, ac, dc, Bc, Cc, torch.cumsum(ac, dim=2)
+
+
+def ssd_chunk_states_ref(x, a, dt, B, *, chunk: int):
+    """The SSD kernels' first phase (``ssd_scan_kernel_chunk_state``): each
+    chunk's own state S_c = sum_j exp(csum_L - csum_j) dt_j x_j (x) B_j and
+    its decay exp(csum_L), from the chunk alone. x [Bz, S, H, P]; a = dt * A
+    and dt [Bz, S, H]; B [Bz, S, G, N]. Returns (states [Bz, H, nc, P, N],
+    decay [Bz, H, nc]), float32; nc = ceil(S / chunk)."""
+    xc, _, dc, Bc, _, csum = _ssd_chunks(x, a, dt, B, B, chunk)
+    w = torch.exp(csum[:, :, -1:] - csum) * dc  # [Bz, nc, L, H]
+    states = torch.einsum("bclhp,bclhn->bhcpn", xc * w[..., None], Bc)
+    return states, torch.exp(csum[:, :, -1]).permute(0, 2, 1)
+
+
+def ssd_state_pass_ref(states, decay, init_state=None):
+    """The second phase (``ssd_scan_kernel_state_pass``): the state entering
+    each chunk, H_{c-1}, in chunk order from ``init_state`` [Bz, H, P, N]
+    (None: zeros), with H_c = decay_c H_{c-1} + S_c. Returns (entering
+    [Bz, H, nc, P, N], final_state [Bz, H, P, N]), float32."""
+    h = torch.zeros_like(states[:, :, 0]) if init_state is None else init_state.float()
+    entering = []
+    for c in range(states.shape[2]):
+        entering.append(h)
+        h = decay[:, :, c, None, None] * h + states[:, :, c]
+    return torch.stack(entering, dim=2) if entering else states.clone(), h
+
+
+def ssd_chunk_out_ref(x, a, dt, B, C, entering, *, chunk: int):
+    """The third phase (``ssd_scan_kernel_chunk_out``): per chunk
+    y = diag(exp(csum)) C H_{c-1}^T + M x, M_ij = (C_i . B_j)
+    exp(csum_i - csum_j) dt_j for j <= i, with ``entering`` the states from
+    :func:`ssd_state_pass_ref`. Returns y [Bz, S, H, P] in x's dtype."""
+    bz, S, H, P = x.shape
+    xc, _, dc, Bc, Cc, csum = _ssd_chunks(x, a, dt, B, C, chunk)
+    g = torch.einsum("bclhn,bcmhn->bchlm", Cc, Bc)
+    seg = csum[:, :, :, None, :] - csum[:, :, None, :, :]  # [Bz, nc, L, L, H]: i, j
+    ii = torch.arange(chunk, device=x.device)
+    causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
+    decay = torch.where(causal, torch.exp(torch.where(causal, seg, 0.0)), 0.0)
+    m = g * decay.permute(0, 1, 4, 2, 3) * dc.permute(0, 1, 3, 2)[:, :, :, None, :]
+    y = torch.einsum("bchlm,bcmhp->bclhp", m, xc)
+    y = y + torch.exp(csum)[..., None] * torch.einsum("bclhn,bhcpn->bclhp", Cc, entering)
+    return y.reshape(bz, -1, H, P)[:, :S].to(x.dtype)
+
+
+def ssd_phases_ref(x, a, dt, B, C, *, chunk: int, init_state=None):
+    """The SSD as the kernels split it: chunk states, state passing, chunk
+    output, in plain PyTorch; the same function as :func:`ssd_chunked_ref`.
+    Returns (y [Bz, S, H, P] in x's dtype, final_state [Bz, H, P, N])."""
+    states, decay = ssd_chunk_states_ref(x, a, dt, B, chunk=chunk)
+    entering, final = ssd_state_pass_ref(states, decay, init_state)
+    return ssd_chunk_out_ref(x, a, dt, B, C, entering, chunk=chunk), final

@@ -7,9 +7,11 @@ ssd_chunked_jnp`` (``:33``), which computes the same function: B and C in
 group form, an optional initial state, and the final state returned.
 
 Dispatch follows the tensors' device: CPU tensors go to the plain version
-(``ref.ssd_chunked_ref``, differentiable); CUDA tensors launch the kernel
-or raise, and raise under autograd (no backward kernel yet). Each launch
-adds one to ``LAUNCHES["ssd_scan"]``.
+(``ref.ssd_chunked_ref``, differentiable); CUDA tensors launch the kernels
+or raise, and raise under autograd (no backward kernel yet). A call runs
+three CUDA kernels (chunk states, state passing, chunk output; see the
+source's header) on float32 scratch the wrapper allocates, and adds one
+to ``LAUNCHES["ssd_scan"]``.
 """
 from __future__ import annotations
 
@@ -18,8 +20,8 @@ import torch
 from repro_torch.kernels.build import check, forbid_grad, library, on_cpu
 from repro_torch.kernels.ref import ssd_chunked_ref
 
-__all__ = ["LAUNCHES", "reset_launches", "HEAD_DIMS", "STATE_DIMS", "launch_ssd_scan",
-           "ssd_scan_fused"]
+__all__ = ["LAUNCHES", "reset_launches", "HEAD_DIMS", "STATE_DIMS", "kernel_chunk",
+           "launch_ssd_scan", "ssd_scan_fused"]
 
 LAUNCHES = {"ssd_scan": 0}
 HEAD_DIMS = (16, 32, 64)  # P values the kernel is compiled for
@@ -35,8 +37,9 @@ def reset_launches() -> None:
 
 def _inner_contiguous(t: torch.Tensor, name: str) -> None:
     """[B, S, groups, width] with the last two dims packed (steps and
-    batches may have any stride, as slices of a wider projection do)."""
-    if t.stride(3) != 1 or t.stride(2) != t.shape[3]:
+    batches may have any stride, as slices of a wider projection do); an
+    empty tensor, whose strides may be anything, holds nothing to read."""
+    if t.numel() and (t.stride(3) != 1 or t.stride(2) != t.shape[3]):
         raise ValueError(f"{name} must have its last two dims contiguous, strides {t.stride()}")
 
 
@@ -70,20 +73,34 @@ def _check_cuda_args(x, a, dt, B, C, init_state) -> None:
         raise ValueError(f"sizes out of the kernel's range: x {tuple(x.shape)}")
 
 
+def kernel_chunk(dtype: torch.dtype) -> int:
+    """The kernels' own chunk length L for ``dtype`` (builds the library):
+    float32 64, bf16 the length chosen by ``tools/ssd_sweep.py``."""
+    return library("ssd_scan").ssd_scan_chunk(_DTYPE_CODE[dtype])
+
+
 def launch_ssd_scan(x, a, dt, B, C, init_state, y, final_state) -> None:
-    """Launch the kernel on checked CUDA tensors; counts nothing."""
+    """Launch the kernels on checked CUDA tensors, with their float32
+    scratch allocated here (each chunk's state [Bz, H, S / L, P, N] and
+    decay [Bz, H, S / L]); counts nothing."""
     bz, s, h, p = x.shape
-    code = library("ssd_scan").ssd_scan(
+    n = B.shape[3]
+    lib = library("ssd_scan")
+    code = _DTYPE_CODE[x.dtype]
+    nc = -(-s // lib.ssd_scan_chunk(code))
+    states = torch.empty((bz, h, nc, p, n), dtype=torch.float32, device=x.device)
+    decay = torch.empty((bz, h, nc), dtype=torch.float32, device=x.device)
+    err = lib.ssd_scan(
         x.data_ptr(), x.stride(0), x.stride(1),
         a.data_ptr(), dt.data_ptr(),
         B.data_ptr(), B.stride(0), B.stride(1),
         C.data_ptr(), C.stride(0), C.stride(1),
         None if init_state is None else init_state.data_ptr(),
-        y.data_ptr(), final_state.data_ptr(),
-        bz, s, h, B.shape[2], p, B.shape[3], _DTYPE_CODE[x.dtype],
+        y.data_ptr(), final_state.data_ptr(), states.data_ptr(), decay.data_ptr(),
+        bz, s, h, B.shape[2], p, n, code,
         torch.cuda.current_stream().cuda_stream,
     )
-    check(code, "ssd_scan")
+    check(err, "ssd_scan")
 
 
 def ssd_scan_fused(
@@ -101,10 +118,12 @@ def ssd_scan_fused(
     from ``init_state`` [Bz, H, P, N] float32 (None: zeros). Returns
     (y [Bz, S, H, P] in x's dtype, final_state [Bz, H, P, N] float32).
 
-    ``chunk`` is the plain version's chunk length; the kernel runs the
-    recurrence step by step, which is the same function. On the card: x,
-    B, C float32 or bfloat16 with their last two dims contiguous, P in
-    ``HEAD_DIMS``, N in ``STATE_DIMS``."""
+    ``chunk`` is the plain version's chunk length. The kernels cut the
+    sequence into chunks of their own length (:func:`kernel_chunk`), which
+    computes the same function: the result does not depend on ``chunk``.
+    On the card: x, B, C float32 or bfloat16 with their last two dims
+    contiguous, P in ``HEAD_DIMS``, N in ``STATE_DIMS``; a ragged S needs
+    no padding copy."""
     if on_cpu(x, a, dt, B, C):
         return ssd_chunked_ref(x, a, dt, B, C, chunk=chunk, init_state=init_state)
     _check_cuda_args(x, a, dt, B, C, init_state)

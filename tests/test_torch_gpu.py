@@ -530,6 +530,99 @@ def test_ssd_scan_takes_strided_slices(cuda):
     _allclose(st, want_st, _SSD_TOL[torch.float32])
 
 
+def _ssd_check(x, dt, A, B, C, st, tol=None):
+    """One kernel launch per call, y and the final state against the plain
+    version, finite, and a second call bitwise equal. ``tol``: the float32
+    tolerance where the default's does not hold (fast decays)."""
+    from repro_torch.kernels import ops, ssd_scan
+    from repro_torch.kernels.ref import ssd_chunked_ref
+
+    before = ssd_scan.LAUNCHES["ssd_scan"]
+    y, final = ops.ssd_scan(x, dt, A, B, C, chunk=128, init_state=st)
+    assert ssd_scan.LAUNCHES["ssd_scan"] == before + 1
+    want_y, want_state = ssd_chunked_ref(x, dt * A, dt, B, C, chunk=128, init_state=st)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(final).all()
+    f32 = tol or _SSD_TOL[torch.float32]
+    _allclose(y, want_y, f32 if x.dtype == torch.float32 else _SSD_TOL[x.dtype])
+    _allclose(final, want_state, f32)
+    y2, final2 = ops.ssd_scan(x, dt, A, B, C, chunk=128, init_state=st)
+    assert ssd_scan.LAUNCHES["ssd_scan"] == before + 2
+    assert torch.equal(y, y2) and torch.equal(final, final2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", ["0", "L-1", "L", "L+1", "2L+1"])
+def test_ssd_scan_at_the_kernel_chunk_edges(cuda, offset, dtype):
+    """S around the kernels' own chunk length L: no step (the final state is
+    the initial one), a partial chunk, exactly one, one step into a second,
+    and a third chunk of one step."""
+    from repro_torch.kernels.ssd_scan import kernel_chunk
+
+    L = kernel_chunk(dtype)
+    s = {"0": 0, "L-1": L - 1, "L": L, "L+1": L + 1, "2L+1": 2 * L + 1}[offset]
+    _ssd_check(*_ssd_inputs(2, s, 4, 64, 1, 128, dtype, s, True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_fast_decay_underflows_without_nan(cuda, dtype):
+    """a down to -30 a step: decays underflow to 0 within a chunk. The
+    exponents are differences of float32 running sums of up to 30 L, added
+    in another order than the plain version's, each off by up to
+    |csum| 2^-24: the float32 tolerance is twice that, relative (1e-4
+    where that is larger)."""
+    from repro_torch.kernels.ssd_scan import kernel_chunk
+
+    L = kernel_chunk(dtype)
+    x, dt, A, B, C, st = _ssd_inputs(2, L + 9, 4, 64, 1, 128, dtype, 17, True)
+    A = torch.full_like(A, -60.0)  # a = dt A from -0.6 to -30.6
+    assert float((dt * A).min()) < -25
+    csum = float(-(dt * A)[:, :L].sum(dim=1).min())
+    tol = max(1e-4, 2 * csum * 2.0**-24)
+    _ssd_check(x, dt, A, B, C, st, tol=(tol, tol))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_tiny_dt(cuda, dtype):
+    """dt near 0 (1e-6 to 1e-4): almost no input and almost no decay."""
+    from repro_torch.kernels.ssd_scan import kernel_chunk
+
+    L = kernel_chunk(dtype)
+    x, dt, A, B, C, st = _ssd_inputs(2, 2 * L + 5, 4, 64, 1, 128, dtype, 23, True)
+    dt = 1e-6 + dt * 2e-4
+    _ssd_check(x, dt, A, B, C, st)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,h", [(2, 8), (4, 16)])
+def test_ssd_scan_groups_of_several_heads(cuda, g, h, dtype):
+    """G = 2 and 4 with four heads a group, from an initial state."""
+    from repro_torch.kernels.ssd_scan import kernel_chunk
+
+    L = kernel_chunk(dtype)
+    _ssd_check(*_ssd_inputs(2, L + 33, h, 32, g, 64, dtype, g + h, True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lead", [0, 8])
+def test_ssd_scan_takes_strided_slices_with_an_initial_state(cuda, lead, dtype):
+    """x, B and C as slices of one wider projection, with an initial state;
+    ``lead`` bytes before them in each row (8: not 16-byte aligned, so the
+    kernels stage by element loads)."""
+    from repro_torch.kernels.ssd_scan import kernel_chunk
+
+    b, s, h, p, g, n = 2, kernel_chunk(dtype) + 7, 4, 32, 1, 64
+    x, dt, A, B, C, st = _ssd_inputs(b, s, h, p, g, n, dtype, 29, True)
+    pad = x.new_zeros((b, s, lead // x.element_size()))
+    wide = torch.cat([pad, x.reshape(b, s, -1), B.reshape(b, s, -1), C.reshape(b, s, -1)], -1)
+    wide = wide[..., pad.shape[-1]:]
+    xs = wide[..., : h * p].reshape(b, s, h, p)
+    bs = wide[..., h * p: h * p + g * n].reshape(b, s, g, n)
+    cs = wide[..., h * p + g * n:].reshape(b, s, g, n)
+    assert not xs.is_contiguous() and not bs.is_contiguous()
+    assert (xs.data_ptr() % 16 == 0) == (lead == 0)
+    _ssd_check(xs, dt, A, bs, cs, st)
+
+
 @pytest.mark.parametrize("arch,kernel", [("gemma-2b", "flash_attention"),
                                          ("mamba2-130m", "ssd_scan"),
                                          ("deepseek-v2-lite-16b", "flash_attention"),
