@@ -19,6 +19,20 @@ full width:
   weight decay 1e-4), then the first batch's loss and every gradient
   with kernels vs plain versions, and determinism: two 6-step runs, and a
   run checkpointed at step 3 and resumed to 6, must end with the same bits;
+* sample-wise inference: ``repro_torch.core.inference.samplewise_inference``
+  (the paper's baseline: each target's 3-hop subgraph through the whole
+  model) for SAGE and GAT over 2,048 seeded targets, batch 256, with the
+  layerwise pass's layer callables: one sum-and-count (SAGE) or softmax
+  aggregate (GAT) launch per layer and batch; bitwise equal run to run and
+  within the layer slices' tolerance of the plain versions, each on a
+  fresh, identically seeded client; the paper's two ratios against the
+  layerwise pass (vertex-layer computations per target over K, wall per
+  target x N over the layerwise wall);
+* the training launcher: ``repro_torch.launch.train`` ``gnn --config
+  gcn-products`` (GCN-3x256) and ``--config hgt-relnet`` (HGT-2x128, 4
+  heads), one epoch each at scale 0.5, in process and on the card by
+  default: the launches each step and evaluation batch imply, finite
+  losses, steady step wall, test accuracy;
 * segment max: ``repro_torch.kernels.gnn_segment_max`` on the stand-in
   graph's destination ids shuffled (10% padding, 1% ids >= n), float32 and
   bf16, one launch each; bitwise equal to its plain version there and on
@@ -107,8 +121,8 @@ round once); on the stand-in graph's rows (up to 6,447 edges) the dense
 forms in float32 against their sums in float64, within twice the rounding
 bound of a float32 sum in the kernel's chunked order (``check_sum_f32``);
 the CSR kernel bitwise against the plain model of that order; whole
-layer slices float32 rtol 1e-4 / atol 1e-5 (a matmul
-follows the aggregation); a training batch's loss and gradients rtol
+layer slices, and the sample-wise pass through three of them, float32
+rtol 1e-4 / atol 1e-5 (a matmul follows the aggregation); a training batch's loss and gradients rtol
 1e-4 / atol 1e-6. Flash attention float32 rtol 1e-4 / atol 1e-5, the SSD
 scan float32 rtol 1e-4 / atol 1e-4 (chunks of another length, sums in
 another order; the final state at this tolerance in bf16 too), both bf16
@@ -754,7 +768,7 @@ def time_segment_max(args, launches: int) -> dict:
     lib = base.scatter_reduce(0, sl, xs, "amax")
     check_bitwise("scatter_reduce amax on the same call (empty rows to 0.0)",
                   torch.where(torch.isfinite(lib), lib, 0.0), got)
-    keys = torch.empty(n, dtype=torch.int32, device=x.device)
+    keys = fused_gnn.segment_max_keys(n, x.device)
     esize = x.element_size()
     bound, by = bound_ms(e * (4 + esize) + n * esize, e)
     return {
@@ -990,6 +1004,82 @@ def run_model(system, kind: str, kernel: str, launches: dict, captured: dict) ->
     check_close(f"{kind} layer-0 first batch kernel vs plain", kern, plain,
                 tol=(1e-4, 1e-5))
     info["serve"] = serve(system, zipf_requests(g, 32, 1), kernel, launches)
+    info["samplewise"] = samplewise(system, kind, kernel, fns, wall_s, launches)
+    return info
+
+
+SAMPLEWISE_TARGETS = 2048
+SAMPLEWISE_BATCH = 256
+
+
+def fresh_client(system):
+    """A blocking gather-apply client over the system's partitions with
+    fresh servers: two of them draw the same samples."""
+    from repro_torch.core.sampling import GatherApplyClient, SamplingServer, VertexRouter
+
+    cfg = system.config
+    return GatherApplyClient(
+        [SamplingServer(p, seed=cfg.seed) for p in system.partitions],
+        VertexRouter(system.graph, system.plan.edge_parts, cfg.num_parts), seed=cfg.seed)
+
+
+def samplewise(system, kind: str, kernel: str, fns, layerwise_wall_s: float,
+               launches: dict) -> dict:
+    """``samplewise_inference`` (the paper's baseline) over 2,048 seeded
+    targets with the layerwise pass's layer callables: per batch of 256
+    each target's 3-hop subgraph (fanouts 15/10/5) through the whole model.
+    Counts zeroed just before, read just after; held against the same pass
+    through the plain versions and against itself, each on a fresh,
+    identically seeded client. Returns its numbers and the paper's two
+    ratios against the layerwise pass: vertex-layer computations per
+    target over K, and wall per target x N over the layerwise wall."""
+    from repro_torch.core.inference import samplewise_inference
+    from repro_torch.kernels import fused_gnn
+
+    g = system.graph
+    k = len(fns)
+    targets = np.random.default_rng(7).choice(g.num_vertices, SAMPLEWISE_TARGETS, replace=False)
+    fanouts = list(system.config.fanouts[:k])
+
+    def run():
+        return samplewise_inference(g, fresh_client(system), fns, g.vertex_feats, targets,
+                                    fanouts=fanouts, batch_size=SAMPLEWISE_BATCH)
+
+    fused_gnn.reset_launches()
+    t0 = time.perf_counter()
+    emb, stats = run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    got = {name: v for name, v in fused_gnn.LAUNCHES.items() if v}
+    batches = -(-SAMPLEWISE_TARGETS // SAMPLEWISE_BATCH)
+    want = {kernel: (2 if kernel == "segment_spmm_ragged" else 1) * k * batches}
+    if got != want:
+        fail(f"{kind} sample-wise pass launched {got}, the path implies {want}")
+    launches[kernel] += got.get(kernel, 0)
+    if emb.shape != (SAMPLEWISE_TARGETS, 256) or not np.all(np.isfinite(emb)):
+        fail(f"{kind} sample-wise embeddings {emb.shape}, finite={np.all(np.isfinite(emb))}")
+    again, stats2 = run()
+    if stats2 != stats or not np.array_equal(again, emb):
+        fail(f"{kind} sample-wise pass is not bitwise equal run to run")
+    with plain_aggregation():
+        plain, stats_p = run()
+    if stats_p != stats:
+        fail(f"{kind} sample-wise counts differ through the plain versions")
+    err = check_close(f"{kind} sample-wise pass, kernels vs plain versions",
+                      torch.as_tensor(emb), torch.as_tensor(plain), tol=(1e-4, 1e-5))
+    info = {
+        "targets": SAMPLEWISE_TARGETS,
+        "batch": SAMPLEWISE_BATCH,
+        "fanouts": fanouts,
+        "wall_s": wall_s,
+        **stats,
+        "launches": got,
+        "runs_bitwise_equal": True,
+        "max_abs_err_vs_plain": err,
+        "computations_ratio": stats["vertices_computed"] / (k * SAMPLEWISE_TARGETS),
+        "wall_ratio": wall_s / SAMPLEWISE_TARGETS * g.num_vertices / layerwise_wall_s,
+    }
+    log(f"  samplewise {kind}: " + json.dumps(info))
     return info
 
 
@@ -1198,6 +1288,86 @@ def train_model(system, kind: str, train_ids, launches: dict, captured: dict) ->
     }
     log(f"  train {kind}: " + json.dumps(info))
     info["first_batch_max_grad_err"] = compare_first_batch(kind, b)
+    return info
+
+
+# 20,000 / 200,000 vertices: the largest scale tried that keeps the phase
+# under about 60 s (tools/time_launcher.py: about 47 s at 0.5, 98 s at the
+# stand-ins' full 40,000 / 400,000, where sampling grows each gcn step)
+LAUNCH_SCALE = 0.5
+# kernel launches per training step and per evaluation batch that the
+# launcher's configs imply: gcn (3 layers) gathers once per layer with the
+# host's degrees, and runs the gather backward for layers 1-2; hgt (2
+# layers) runs one softmax aggregate and its backward per layer, and row
+# gathers q[dst] (both layers) and h[src] (layer 1: layer 0's input needs
+# no gradient) whose backwards are the gather kernel
+LAUNCH_PER_STEP = {
+    "gcn-products": {"gather_spmm_ragged": 3, "gather_spmm_ragged_backward": 2},
+    "hgt-relnet": {"gat_softmax_aggregate": 2, "gat_softmax_aggregate_backward": 2,
+                   "gather_spmm_ragged_backward": 3},
+}
+LAUNCH_PER_EVAL = {"gcn-products": {"gather_spmm_ragged": 3},
+                   "hgt-relnet": {"gat_softmax_aggregate": 2}}
+
+
+def launcher_train(config: str, launches: dict) -> dict:
+    """``python -m repro_torch.launch.train gnn --config <config>`` in
+    process (one epoch at ``LAUNCH_SCALE``, on the card by default):
+    counts zeroed just before, read just after, against the steps and
+    evaluation batches the run took."""
+    from repro_torch.configs.gnn import get_gnn_config
+    from repro_torch.graph.generate import DATASETS
+    from repro_torch.kernels import fused_gnn
+    from repro_torch.launch import train as launcher
+
+    cfg = get_gnn_config(config)
+    rec = StepRecorder()
+    fused_gnn.reset_launches()
+    t0 = time.perf_counter()
+    with rec.patched():
+        out = launcher.main(["gnn", "--config", config, "--scale", str(LAUNCH_SCALE),
+                             "--log-every", "1"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    got = {k: v for k, v in fused_gnn.LAUNCHES.items() if v}
+    steps = len(rec.starts)
+    vertices = max(64, int(DATASETS[cfg.dataset]["num_vertices"] * LAUNCH_SCALE))
+    evals = min(8, (vertices - int(0.8 * vertices)) // cfg.batch_size)
+    want = dict.fromkeys(LAUNCH_PER_STEP[config], 0)
+    for name, n in LAUNCH_PER_STEP[config].items():
+        want[name] += n * steps
+    for name, n in LAUNCH_PER_EVAL[config].items():
+        want[name] += n * evals
+    if got != want or steps == 0:
+        fail(f"{config}: launched {got} in {steps} steps and {evals} evaluation batches, "
+             f"the path implies {want}")
+    for name, n in got.items():
+        launches[name] += n
+    losses = out["losses"]
+    if len(losses) != steps or not np.all(np.isfinite(losses)):
+        fail(f"{config}: losses {losses[:4]}... for {steps} steps")
+    gaps = np.diff(rec.starts) * 1e3
+    step_ms = rec.device_ms()
+    info = {
+        "config": config,
+        "model": f"{cfg.model}-{cfg.num_layers}x{cfg.hidden}"
+                 + (f", {cfg.num_heads} heads" if cfg.model in ("gat", "hgt") else ""),
+        "scale": LAUNCH_SCALE,
+        "vertices": vertices,
+        "steps": steps,
+        "eval_batches": evals,
+        "wall_s": wall_s,
+        "step_wall_ms_steady_median": float(np.median(gaps)) if gaps.size else None,
+        "step_device_ms_median": float(np.median(step_ms)),
+        "device_idle_share_steady": 1.0 - float(np.median(step_ms) / np.median(gaps))
+        if gaps.size else None,
+        "first_loss": losses[0],
+        "last_loss": losses[-1],
+        "test_acc": out["test_acc"],
+        "sample_time_s": out["sample_time_s"],
+        "launches": got,
+    }
+    log(f"  launch.train {config}: " + json.dumps(info))
     return info
 
 
@@ -2225,6 +2395,9 @@ def main() -> int:
     trained = {k: train_model(system, k, train_ids, launches, captured) for k in TRAIN_STEPS}
     log("phase: determinism (two runs, and a checkpoint-resume run)")
     det = {k: determinism(system, k, train_ids) for k in TRAIN_STEPS}
+    log(f"phase: the training launcher, gcn-products and hgt-relnet, one epoch at scale "
+        f"{LAUNCH_SCALE}")
+    launched = {c: launcher_train(c, launches) for c in LAUNCH_PER_STEP}
 
     log(f"phase: transformer serving at full width (batch {LM_BATCH}, prompt {LM_PROMPT}, "
         f"{LM_GEN} greedy tokens)")
@@ -2285,6 +2458,12 @@ def main() -> int:
                       "first_loss": v["losses"][0], "last_loss": v["losses"][-1]}
                   for k, v in trained.items()},
         "determinism": det,
+        "samplewise": {k: {key: v["samplewise"][key] for key in (
+            "wall_s", "vertices_computed", "edges_aggregated", "feature_rows_read",
+            "computations_ratio", "wall_ratio")} for k, v in (("sage", sage), ("gat", gat))},
+        "launch_train": {c: {key: v[key] for key in (
+            "steps", "step_wall_ms_steady_median", "first_loss", "last_loss", "test_acc",
+            "launches")} for c, v in launched.items()},
         "segment_max_path": seg_max,
         "dense_form_path": {k: v for k, v in dense.items() if k != "launches"},
         "lm_serve": {k: {key: v[key] for key in (

@@ -48,6 +48,7 @@ SIGNATURES = {
         "gather_segment_sum": (_p, _p, _p, _c, _p, _l, _c, _c, _c, _c, _c, _c, _p, _l, _p, _p),
     },
     "segment_max": {
+        "segment_max_key_words": (_c,),
         "segment_max": (_p, _p, _c, _c, _c, _p, _p, _p),
     },
     "segment_sort": {
@@ -74,7 +75,8 @@ SIGNATURES = {
 }
 # entries that return a size; every other returns an int (a cudaError_t,
 # or ``ssd_scan_chunk``'s length)
-RESTYPES = {"segment_index_words": _l, "segment_sum_scratch_rows": _l}
+RESTYPES = {"segment_index_words": _l, "segment_sum_scratch_rows": _l,
+            "segment_max_key_words": _l}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOGS: dict[str, str] = {}

@@ -34,9 +34,15 @@
   stable-sorted input. The same sort gives :func:`sort_order` on the card.
 * :func:`segment_max` replaces
   ``repro/kernels/fused_gnn.py::segment_max_pallas`` (``:348``); kernel in
-  ``csrc/segment_max.cu``. The ids come in any order: each edge does an
-  integer ``atomicMax`` of its value's order-preserving key, which gives
-  the same bits in any order (no float atomics), and a second pass decodes.
+  ``csrc/segment_max.cu``. The ids come in any order: each value maps to
+  an order-preserving integer key; a thread folds equal ids among the 16
+  edges it loads, a warp whose lanes share one id sends one key, and each
+  block keeps a cache in shared memory of the (id, key) pairs it has sent,
+  so an ``atomicMax`` goes out only where that cache does not already
+  hold a key at least as large. A segment's key slot is spread over the
+  128-byte lines (slot (s mod r) * 32 + s / r, r = ceil(n / 32)) so
+  neighbouring hub ids hit different L2 slices. An integer max gives the
+  same bits in any order (no float atomics), and a second pass decodes.
 
 All are bound by bytes: a sum adds one float per element read, and the
 softmax adds one exp per edge and head. The TPU kernels multiply one-hot
@@ -103,6 +109,7 @@ __all__ = [
     "launch_gat_softmax_aggregate",
     "launch_gat_softmax_aggregate_backward",
     "launch_segment_max",
+    "segment_max_keys",
     "segment_spmm_ragged",
     "segment_sum_and_count",
     "gather_spmm_ragged",
@@ -756,10 +763,18 @@ def gat_softmax_aggregate(
     return out.view(out_shape)
 
 
+def segment_max_keys(num_segments: int, device) -> torch.Tensor:
+    """The 32-bit key scratch of :func:`launch_segment_max` for
+    ``num_segments`` segments (the library's ``segment_max_key_words``:
+    whole lines of 32 keys)."""
+    words = library("segment_max").segment_max_key_words(num_segments)
+    return torch.empty(words, dtype=torch.int32, device=device)
+
+
 def launch_segment_max(x, seg, keys, out) -> None:
     """Launch ``csrc/segment_max.cu`` on checked CUDA tensors (x [E], seg
-    [E], 32-bit scratch ``keys`` [n], out [n] in x's dtype; n > 0).
-    Counts nothing."""
+    [E], the scratch ``keys`` from :func:`segment_max_keys`, out [n] in x's
+    dtype; n > 0). Counts nothing."""
     code = library("segment_max").segment_max(
         x.data_ptr(),
         seg.data_ptr(),
@@ -792,8 +807,7 @@ def segment_max(x: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.
     out = torch.empty(num_segments, dtype=x.dtype, device=x.device)
     if num_segments == 0:
         return out
-    keys = torch.empty(num_segments, dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
-        launch_segment_max(x, seg, keys, out)
+        launch_segment_max(x, seg, segment_max_keys(num_segments, x.device), out)
     LAUNCHES["segment_max"] += 1
     return out

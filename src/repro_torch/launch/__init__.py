@@ -1,2 +1,3 @@
-"""Launchers of the transformer side: shapes and step functions
-(``specs``), and the serving entry point (``serve``)."""
+"""Launchers: the transformer side's shapes and step functions
+(``specs``) and serving entry point (``serve``), and the GNN training
+launcher (``train``)."""

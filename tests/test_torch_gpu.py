@@ -734,6 +734,123 @@ def test_segment_max_rejects_what_the_kernel_does_not_take(cuda):
         fused_gnn.segment_max(x, seg.cpu(), 8)
 
 
+# The scatter kernel folds equal ids in a thread and a warp and sends no
+# key that its block's shared-memory cache shows would not raise the
+# segment's key; these cases aim at that: one segment holding every edge,
+# hot rows whose values rise or fall along the edges (the cache never or
+# always holds a key as large), hot rows of special values, inputs off the
+# 16-byte alignment of the vector loads, and E = 0.
+
+
+def _max_check(x, seg, n):
+    from repro_torch.kernels.ref import segment_max_ref
+
+    got = fused_gnn.segment_max(x, seg, n)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == (n,)
+    assert torch.equal(_bits(got), _bits(segment_max_ref(x, seg, n)))
+    assert torch.equal(_bits(got).cpu(), _bits(segment_max_ref(x.cpu(), seg.cpu(), n)))
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,at", [(200_003, 1, 0), (200_000, 4096, 4095), (33, 7, 3)])
+def test_segment_max_one_segment_holds_every_edge(cuda, m, n, at, dtype):
+    rng = np.random.default_rng(m + n)
+    x = torch.as_tensor(rng.standard_normal(m).astype(np.float32), device="cuda").to(dtype)
+    seg = torch.full((m,), at, dtype=torch.int32, device="cuda")
+    got = _max_check(x, seg, n)
+    assert float(got[at]) == float(x.float().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shuffle", [False, True])
+@pytest.mark.parametrize("order", ["ascending", "descending"])
+def test_segment_max_hot_row_values_in_order(cuda, order, shuffle, dtype):
+    """A hot row of 60,000 edges among 40,000 others over 1,000 rows, its
+    values strictly rising (every read finds a smaller key) or falling
+    along the edges; the ids in place or the whole edge list shuffled."""
+    rng = np.random.default_rng(7)
+    hot, m_hot, m_rest, n = 17, 60_000, 40_000, 1000
+    seg = np.concatenate([np.full(m_hot, hot), rng.integers(0, n, m_rest)]).astype(np.int32)
+    vals = np.linspace(-50.0, 50.0, m_hot, dtype=np.float32)  # distinct in bf16 too, in part
+    x = np.concatenate([vals if order == "ascending" else vals[::-1],
+                        rng.standard_normal(m_rest).astype(np.float32)])
+    if shuffle:
+        perm = rng.permutation(seg.shape[0])
+        seg, x = seg[perm], x[perm]
+    got = _max_check(torch.as_tensor(x, device="cuda").to(dtype),
+                     torch.as_tensor(seg, device="cuda"), n)
+    assert float(got[hot]) == 50.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("values,want", [
+    ((-0.0, 0.0), "+0"),
+    ((-0.0,), "-0"),
+    ((-0.0, 0.0, -np.inf), "+0"),
+    ((np.inf, -np.inf, 0.0, -0.0), "zero"),
+    ((np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0), "zero"),
+    ((-np.nan, -np.inf), "zero"),
+    ((-np.inf,), "zero"),
+])
+def test_segment_max_hot_row_of_special_values(cuda, values, want, dtype):
+    """A hot row of 50,000 edges drawn from ``values`` (NaN, +-inf, signed
+    zeros) beside random rows: +inf and NaN (above +inf in the kernel's
+    order) give 0.0, and so does -inf alone; -0.0 lies below +0.0."""
+    rng = np.random.default_rng(len(values))
+    hot, m_hot, m_rest, n = 5, 50_000, 20_000, 300
+    rest = rng.integers(0, n - 1, m_rest)
+    rest[rest >= hot] += 1  # the hot row holds only the special values
+    seg = np.concatenate([np.full(m_hot, hot), rest]).astype(np.int32)
+    x = np.concatenate([rng.choice(np.array(values, np.float32), m_hot),
+                        rng.standard_normal(m_rest).astype(np.float32)])
+    perm = rng.permutation(seg.shape[0])
+    got = _max_check(torch.as_tensor(x[perm], device="cuda").to(dtype),
+                     torch.as_tensor(seg[perm], device="cuda"), n)
+    v = got[hot : hot + 1].float()
+    assert float(v) == 0.0
+    if want != "zero":
+        assert bool(torch.signbit(v)) == (want == "-0")
+
+
+def test_segment_max_repeats_bit_for_bit_whatever_its_scratch_holds(cuda):
+    """Ten calls on power-law ids (hub rows of thousands of edges) give one
+    result, and so does the launch on a scratch full of stale keys."""
+    rng = np.random.default_rng(11)
+    n, m = 20_000, 400_000
+    seg = np.minimum(rng.zipf(1.3, m) - 1, n + 5).astype(np.int32)  # some ids >= n
+    seg[rng.random(m) < 0.1] = -1
+    x = torch.as_tensor(rng.standard_normal(m).astype(np.float32), device="cuda")
+    seg = torch.as_tensor(rng.permutation(seg), device="cuda")
+    first = _max_check(x, seg, n)
+    for _ in range(9):
+        assert torch.equal(_bits(fused_gnn.segment_max(x, seg, n)), _bits(first))
+    keys = fused_gnn.segment_max_keys(n, "cuda").fill_(-1)  # above every key
+    out = torch.empty_like(first)
+    fused_gnn.launch_segment_max(x, seg, keys, out)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out), _bits(first))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_segment_max_off_the_vector_alignment(cuda, offset, dtype):
+    """x and seg starting 1-3 elements into their storage (the scalar
+    loads), with E not a multiple of 4."""
+    x, seg = _max_inputs(10_007 + offset, 300, 0.1, 0.02, offset, dtype, True)
+    _max_check(x[offset:], seg[offset:], 300)
+    _max_check(x[offset:], seg[:-offset].contiguous(), 300)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_max_no_edges_one_segment(cuda, dtype):
+    x = torch.zeros(0, dtype=dtype, device="cuda")
+    seg = torch.zeros(0, dtype=torch.int32, device="cuda")
+    got = _max_check(x, seg, 1)
+    assert got.shape == (1,) and float(got[0]) == 0.0 and not bool(torch.signbit(got[0]))
+
+
 # (B, Sq, Skv, H, D, Dv, window, kv_offset): MLA's widths (192 over 128) and
 # the reduced deepseek config's (96 over 64), ragged, windowed, after a cache
 MLA_ATTN_SWEEP = [

@@ -30,6 +30,7 @@ MODULES = [
     "repro_torch.kernels.ssd_scan",
     "repro_torch.launch.serve",
     "repro_torch.launch.specs",
+    "repro_torch.launch.train",
     "repro_torch.models.gnn",
     "repro_torch.models.transformer.layers",
     "repro_torch.models.transformer.model",
