@@ -49,6 +49,20 @@ full width:
   chunk sums in chunk order), the sort's permutation bitwise against that
   order, two runs bitwise equal; at two small shapes also bitwise against
   the old route, the O(n E) scan;
+* the distributed tier: the system rebuilt with ``dist_transport="mp"``
+  and ``"socket"`` (one forked sampling worker per part, forked from this
+  process with its CUDA context live), 64 requests of 256 seeds, keys
+  ``(0xD15B, i)``, each answer bitwise the in-process system's
+  (throughput, client dispatch p50 / p95, ``server_workloads()``); a
+  worker killed with SIGKILL, respawned, the next 8 answers bitwise; then
+  ``system.dp_trainer(model, train_ids, num_shards=S, reference=True)``
+  over the ``mp`` workers for SAGE and GAT at S = 1, 2 and 4 (256 seeds a
+  shard, prefetch 0, 8 steps): the merged step's losses within rtol 1e-5
+  / atol 1e-6 of the per-shard twin's, its launches a step those of one
+  training step whatever S (the twin's S times that), the first step's
+  merged aggregates, layer by layer, bitwise each shard's own launches on
+  the same layer inputs and the per-shard loop's own forward; ``close()``
+  twice, and no worker left;
 * transformer serving: ``repro_torch.launch.serve.serve`` for gemma-2b
   (18 layers, d_model 2048, 8 query heads over 1 KV head of 256, GeGLU
   16384, vocab 256,000) and mamba2-130m (24 layers, d_model 768, 24 SSD
@@ -1406,6 +1420,294 @@ def determinism(system, kind: str, train_ids, steps: int = 6, cut: int = 3) -> d
 
 
 # ---------------------------------------------------------------------------
+# the distributed tier: forked sampling workers and data-parallel training
+# ---------------------------------------------------------------------------
+
+DIST_REQUESTS = 64
+DIST_SEEDS = 256
+DIST_KEY = 0xD15B
+DIST_AFTER_KILL = 8
+DP_SHARDS = (1, 2, 4)
+DP_STEPS = 8
+DP_SEEDS_PER_SHARD = 256
+DP_TOL = (1e-5, 1e-6)  # merged step vs the per-shard twin: the reference's own bound
+
+
+def dist_requests(g, count: int, first: int = 0) -> list:
+    """``count`` requests of ``DIST_SEEDS`` distinct seeds, keys
+    ``(DIST_KEY, i)``, request i's seeds drawn with seed i."""
+    return [((DIST_KEY, i), np.sort(np.random.default_rng(i).choice(
+        g.num_vertices, DIST_SEEDS, replace=False))) for i in range(first, first + count)]
+
+
+def same_sample(a, b) -> bool:
+    return len(a.hops) == len(b.hops) and all(
+        np.array_equal(x.src, y.src) and np.array_equal(x.dst, y.dst)
+        and np.array_equal(x.eid, y.eid) for x, y in zip(a.hops, b.hops))
+
+
+def answer(system, reqs) -> tuple[list, float]:
+    """Every request through ``system.sample``, one after another; the
+    answers and the wall seconds."""
+    t0 = time.perf_counter()
+    subs = [system.sample(seeds, key=key) for key, seeds in reqs]
+    return subs, time.perf_counter() - t0
+
+
+def remote_sampling(remote, transport: str, reqs, want: list, local_s: float) -> dict:
+    """The requests through a system whose servers are forked workers:
+    every answer bitwise the in-process system's."""
+    pool = remote.backend.service.dispatcher
+    pool.drain_latencies()
+    got, wall = answer(remote, reqs)
+    lat = np.asarray(pool.drain_latencies())
+    same = sum(same_sample(a, b) for a, b in zip(got, want))
+    out = {
+        "requests": len(reqs), "bitwise_equal_to_inproc": same,
+        "requests_per_s": len(reqs) / wall, "inproc_requests_per_s": len(reqs) / local_s,
+        "dispatches": int(lat.size),
+        "dispatch_ms_p50": float(np.percentile(lat, 50)),
+        "dispatch_ms_p95": float(np.percentile(lat, 95)),
+        "server_workloads": [float(w) for w in remote.server_workloads()],
+    }
+    log(f"  sampling over {transport} workers: " + json.dumps(out))
+    if same != len(reqs):
+        fail(f"{transport}: {len(reqs) - same} of {len(reqs)} answers differ from in process")
+    return out
+
+
+class AggregateRecorder:
+    """Keeps every call of the model's two aggregation entry points (the
+    gather aggregate of gcn/sage, the softmax aggregate of gat/hgt)."""
+
+    def __init__(self):
+        self.calls = []
+
+    @contextmanager
+    def patched(self):
+        from repro_torch.models.gnn import models
+
+        def wrap(kind, fn):
+            def call(*args):
+                out = fn(*args)
+                self.calls.append((kind, args, out))
+                return out
+            return call
+
+        with mock.patch.object(models, "gnn_gather_aggregate",
+                               wrap("gather", models.gnn_gather_aggregate)), \
+                mock.patch.object(models, "gnn_gat_aggregate",
+                                  wrap("gat", models.gnn_gat_aggregate)):
+            yield self
+
+
+@torch.no_grad()
+def shard_mismatches(calls, num_shards: int, rows: int) -> list:
+    """For each recorded merged call, per shard, the count of output
+    elements whose bits differ from the shard's own launch over its rows
+    and edges of the same inputs (the merged edges are dst-sorted, so
+    shard s's edges are one run)."""
+    from repro_torch.kernels import ops
+
+    out = []
+    for kind, args, merged in calls:
+        seg = args[2]
+        real = seg[seg >= 0]
+        starts = torch.arange(num_shards + 1, device=seg.device, dtype=seg.dtype) * rows
+        cuts = torch.searchsorted(real, starts).tolist()
+        bad = []
+        for s in range(num_shards):
+            a, b, lo = cuts[s], cuts[s + 1], s * rows
+            if kind == "gather":
+                got = ops.gnn_gather_aggregate(args[0][lo:lo + rows].detach(),
+                                               args[1][a:b] - lo, seg[a:b] - lo, rows)
+            else:
+                got = ops.gnn_gat_aggregate(args[0][a:b].detach(), args[1][a:b].detach(),
+                                            seg[a:b] - lo, rows)
+            bad.append(int((bits(got) != bits(merged[lo:lo + rows].detach())).sum()))
+        out.append(bad)
+    return out
+
+
+def dp_train(remote, kind: str, num_shards: int, train_ids, launches: dict) -> dict:
+    """``remote.dp_trainer(model, train_ids, num_shards=S, reference=True)
+    .train(...)``: the merged step's losses within ``DP_TOL`` of the
+    per-shard twin's, its launches one per layer whatever S (the twin's S),
+    and the first step's merged aggregates bitwise each shard's own."""
+    from repro_torch.kernels import fused_gnn
+    from repro_torch.train.data_parallel import shard
+
+    tr = remote.dp_trainer(fresh_model(kind), train_ids, num_shards=num_shards,
+                           batch_size=DP_SEEDS_PER_SHARD * num_shards, prefetch=0,
+                           reference=True)
+    seen = {"merged": [], "twin": []}
+    events, first = [], {}
+
+    def counted(name, fn):
+        def step(batch):
+            before = dict(fused_gnn.LAUNCHES)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(batch)
+            stop.record()
+            first.setdefault(name, batch)
+            seen[name].append({k: v - before[k] for k, v in fused_gnn.LAUNCHES.items()
+                               if v != before[k]})
+            events.append((name, start, stop))
+            return out
+        return step
+
+    fused_gnn.reset_launches()
+    with mock.patch.object(tr, "merged_step", counted("merged", tr.merged_step)), \
+            mock.patch.object(tr, "reference_step", counted("twin", tr.reference_step)):
+        dlog = tr.train(log_every=1, max_steps=DP_STEPS)
+    torch.cuda.synchronize()
+    for name, n in fused_gnn.LAUNCHES.items():
+        if n:
+            launches[name] += n
+    per_step = PER_STEP[kind]
+    want = {"merged": per_step, "twin": {k: v * num_shards for k, v in per_step.items()}}
+    for name in ("merged", "twin"):
+        if len(seen[name]) != DP_STEPS or any(s != want[name] for s in seen[name]):
+            fail(f"DP {kind} S={num_shards}: the {name} steps launched {seen[name]}, "
+                 f"the path implies {want[name]} a step")
+    losses, ref = np.asarray(dlog.losses), np.asarray(dlog.ref_losses)
+    if len(losses) != DP_STEPS or not np.all(np.isfinite(losses)):
+        fail(f"DP {kind} S={num_shards}: losses {dlog.losses}")
+    if not np.allclose(losses, ref, rtol=DP_TOL[0], atol=DP_TOL[1]):
+        fail(f"DP {kind} S={num_shards}: merged losses {dlog.losses} vs the per-shard "
+             f"twin's {dlog.ref_losses}")
+    device_ms = {n: [a.elapsed_time(b) for m, a, b in events if m == n]
+                 for n in ("merged", "twin")}
+
+    # the first step's merged forward, layer by layer, against each shard's
+    # own launches on the same layer inputs (the kernels' row independence),
+    # and against the per-shard loop's own forward, whose layer inputs come
+    # from its matmuls over V rows, not S x V (cuBLAS gave them the same
+    # bits here; a change of that shows as a failure of the second check
+    # only)
+    merged_batch = first["merged"]
+    rows = merged_batch.feats.shape[0] // num_shards
+    rec = AggregateRecorder()
+    with torch.no_grad(), rec.patched():
+        fresh_model(kind).apply(merged_batch)
+    fused_gnn.reset_launches()  # the comparisons' launches count for nothing
+    bad = shard_mismatches(rec.calls, num_shards, rows)
+    if len(bad) != 3 or any(any(b) for b in bad):
+        fail(f"DP {kind} S={num_shards}: merged aggregates differ from the shards' own "
+             f"launches in {bad} elements (layer x shard)")
+    twin = AggregateRecorder()
+    stacked_first = first["twin"]
+    with torch.no_grad(), twin.patched():
+        model = fresh_model(kind)
+        for s in range(num_shards):
+            model.apply(shard(stacked_first, s).to(merged_batch.feats.device))
+    twin_bad = []
+    for k in range(3):
+        merged_out = rec.calls[k][2]
+        differ = 0
+        for s in range(num_shards):
+            mine = merged_out[s * rows:(s + 1) * rows]
+            theirs = twin.calls[s * 3 + k][2]
+            differ += int((bits(mine[: theirs.shape[0]]) != bits(theirs)).sum())
+        twin_bad.append(differ)
+    fused_gnn.reset_launches()
+    if any(twin_bad):
+        fail(f"DP {kind} S={num_shards}: merged aggregates differ from the per-shard loop's "
+             f"forward in {twin_bad} elements (by layer)")
+
+    wall_ms = np.asarray(dlog.wall) * 1e3
+    span_ms = float(np.sum(device_ms["merged"]))
+    info = {
+        "kind": kind, "shards": num_shards, "global_batch": DP_SEEDS_PER_SHARD * num_shards,
+        "steps": DP_STEPS, "losses": dlog.losses, "ref_losses": dlog.ref_losses,
+        "max_rel_loss_diff": float(np.max(np.abs(losses - ref) / np.abs(ref))),
+        "step_wall_ms_steady_median": float(np.median(wall_ms[1:])),
+        "step_wall_ms": wall_ms.tolist(),
+        "sample_s": dlog.sample_time, "compute_s": dlog.compute_time,
+        "merged_step_device_ms_median": float(np.median(device_ms["merged"])),
+        "twin_step_device_ms_median": float(np.median(device_ms["twin"])),
+        "device_idle_share": 1.0 - span_ms / float(np.sum(wall_ms)),
+        "merged_launches_per_step": seen["merged"][0],
+        "twin_launches_per_step": seen["twin"][0],
+        "merged_rows": int(merged_batch.feats.shape[0]),
+        "merged_layer0_edges": int(merged_batch.layer_dst[0].shape[0]),
+        "aggregates_bitwise_per_shard": True,
+        "aggregates_bitwise_to_the_per_shard_loop": True,
+    }
+    log(f"  dp {kind} S={num_shards}: " + json.dumps(info))
+    return info
+
+
+def dist_phase(g, system, train_ids, launches: dict) -> dict:
+    """Forked sampling workers (``dist_transport="mp"`` and ``"socket"``)
+    against the in-process system, a worker killed and respawned, then
+    data-parallel SAGE and GAT training over the ``mp`` workers at S = 1,
+    2 and 4, then ``close()`` twice. The pools fork from this process, whose
+    CUDA context has been live since the first phase."""
+    import multiprocessing as mp
+    import os
+    import signal
+
+    from repro_torch.api import GLISPSystem
+
+    t0 = time.perf_counter()
+    reqs = dist_requests(g, DIST_REQUESTS)
+    want, local_s = answer(system, reqs)
+    cache = str(WORKDIR / "partitions")
+    out = {"inproc_requests_per_s": len(reqs) / local_s}
+    remotes = {}
+    try:
+        for transport in ("mp", "socket"):
+            tb = time.perf_counter()
+            remotes[transport] = GLISPSystem.build(
+                g, system.config.replace(dist_transport=transport), cache_dir=cache)
+            out[f"{transport}_build_s"] = time.perf_counter() - tb
+            out[transport] = remote_sampling(remotes[transport], transport, reqs, want, local_s)
+
+        sock = remotes.pop("socket")
+        sock_procs = [w.proc for w in sock.backend.service.dispatcher._workers]
+        sock.close()
+        sock.close()
+        remote = remotes["mp"]
+        pool = remote.backend.service.dispatcher
+        victim = pool._workers[1].proc
+        os.kill(victim.pid, signal.SIGKILL)
+        victim.join(timeout=10.0)
+        after = dist_requests(g, DIST_AFTER_KILL, first=DIST_REQUESTS)
+        got, _ = answer(remote, after)
+        ref, _ = answer(system, after)
+        same = sum(same_sample(a, b) for a, b in zip(got, ref))
+        out["respawn"] = {"killed_pid": victim.pid, "respawns": pool.respawn_count,
+                          "bitwise_equal_after": same, "requests_after": len(after)}
+        log("  a worker killed: " + json.dumps(out["respawn"]))
+        if pool.respawn_count != 1 or same != len(after):
+            fail(f"respawn: {out['respawn']}")
+
+        out["dp"] = {f"{kind}_s{s}": dp_train(remote, kind, s, train_ids, launches)
+                     for kind in ("sage", "gat") for s in DP_SHARDS}
+        procs = sock_procs + [w.proc for w in pool._workers]
+        remotes.pop("mp")
+        remote.close()
+        tc = time.perf_counter()
+        remote.close()
+        out["second_close_s"] = time.perf_counter() - tc
+    finally:
+        for r in remotes.values():
+            r.close()
+    alive = [p.pid for p in procs if p.is_alive()]
+    left = [p.pid for p in mp.active_children() if p.pid in {q.pid for q in procs}]
+    out["workers_alive_after_close"] = alive + left
+    out["active_children_after_close"] = len(mp.active_children())
+    if alive or left:
+        fail(f"close() left sampling workers running: {alive + left}")
+    out["phase_s"] = time.perf_counter() - t0
+    log("  dist: " + json.dumps({k: v for k, v in out.items() if k not in ("dp", "mp", "socket")}))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: kernel times at the path's largest shape
 # ---------------------------------------------------------------------------
 
@@ -2407,6 +2709,10 @@ def main() -> int:
         torch.cuda.empty_cache()  # the earlier model's weights and caches
         lm[arch] = serve_lm(arch, kernel, f32_layers, lm_captured)
 
+    log(f"phase: the distributed tier: {DIST_REQUESTS} requests through forked sampling "
+        f"workers (mp, socket), data-parallel SAGE and GAT at S = {DP_SHARDS}")
+    dist = dist_phase(g, system, train_ids, launches)
+
     log("phase: kernel times at the path's largest shapes (CUDA events, 100 calls, "
         f"{COPIES} rotating input copies)")
     rows = [
@@ -2464,6 +2770,16 @@ def main() -> int:
         "launch_train": {c: {key: v[key] for key in (
             "steps", "step_wall_ms_steady_median", "first_loss", "last_loss", "test_acc",
             "launches")} for c, v in launched.items()},
+        "dist": {
+            "sampling": {t: {key: dist[t][key] for key in (
+                "requests_per_s", "inproc_requests_per_s", "dispatch_ms_p50",
+                "dispatch_ms_p95", "server_workloads")} for t in ("mp", "socket")},
+            "dp": {k: {key: v[key] for key in (
+                "step_wall_ms_steady_median", "sample_s", "compute_s",
+                "merged_step_device_ms_median", "twin_step_device_ms_median",
+                "device_idle_share", "max_rel_loss_diff")}
+                for k, v in dist["dp"].items()},
+            "phase_s": dist["phase_s"]},
         "segment_max_path": seg_max,
         "dense_form_path": {k: v for k, v in dense.items() if k != "launches"},
         "lm_serve": {k: {key: v[key] for key in (

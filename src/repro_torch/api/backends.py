@@ -191,6 +191,27 @@ class EdgeCutBackend(_ServiceBackend):
         return self.service.routing.owner
 
 
+def _build_dispatcher(parts: list[GraphPartition], config: "GLISPConfig", cost: str):
+    """The remote worker pool for ``dist_transport != "inproc"`` — one
+    forked process per partition, mirroring the service's replica layout
+    and fault machinery so results stay bit-identical."""
+    if config.dist_transport == "inproc":
+        return None
+    from repro_torch.dist.client import WorkerPool  # lazy: inproc stays fork-free
+
+    return WorkerPool(
+        parts,
+        transport=config.dist_transport,
+        seed=config.seed,
+        cost_model=cost,
+        replicas=config.server_replicas,
+        fault_plan=config.fault_plan,
+        retry_policy=config.retry_policy,
+        respawns=config.worker_respawns,
+        dispatch_timeout=config.dist_dispatch_timeout,
+    )
+
+
 SAMPLERS: Registry = Registry("sampler backend")
 
 
@@ -214,6 +235,7 @@ def _build_gather_apply(
         fault_plan=config.fault_plan,
         retry_policy=config.retry_policy,
         ticket_timeout=config.ticket_timeout,
+        dispatcher=_build_dispatcher(parts, config, cost),
     )
     return GatherApplyBackend(service)
 
@@ -243,6 +265,7 @@ def _build_edge_cut(
         fault_plan=config.fault_plan,
         retry_policy=config.retry_policy,
         ticket_timeout=config.ticket_timeout,
+        dispatcher=_build_dispatcher(parts, config, cost),
     )
     return EdgeCutBackend(service)
 

@@ -242,12 +242,6 @@ class GLISPConfig:
                 "dist_transport must be 'inproc', 'mp' or 'socket', got "
                 f"{self.dist_transport!r}"
             )
-        if self.dist_transport != "inproc":
-            raise NotImplementedError(
-                f"dist_transport={self.dist_transport!r}: the remote sampling "
-                "workers (repro.dist) come with the port's distributed-"
-                "transport slice; this slice runs the servers in process"
-            )
         if self.dist_dispatch_timeout <= 0:
             raise ValueError(
                 "dist_dispatch_timeout must be positive, got "

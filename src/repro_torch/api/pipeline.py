@@ -304,7 +304,10 @@ class BatchPipeline:
         finally:
             self._drop_pending()
 
-    def _host_batches(self, epochs: int):
+    def host_batches(self, epochs: int):
+        """Yield ``(seeds, GNNBatch)`` with numpy fields, before any copy
+        to a device (the data-parallel trainer merges shards on the host);
+        closing the generator stops the producer."""
         if self.prefetch <= 0:
             return self._produce_np(epochs)
         if self.workers == "process" and _FORK_AVAILABLE:
@@ -318,7 +321,7 @@ class BatchPipeline:
         """Yield ``(seeds, GNNBatch)`` with tensors on the pipeline's
         device; sampling runs ahead of the consumer when ``prefetch >= 1``.
         The copies to the device are made here, in the consumer."""
-        stream = self._host_batches(epochs)
+        stream = self.host_batches(epochs)
         try:
             for seeds, batch in stream:
                 yield seeds, batch.to(self.device)

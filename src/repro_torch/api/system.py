@@ -7,13 +7,15 @@
     for seeds, batch in system.loader(train_ids):       # prefetching pipeline
         ...
     trainer = system.train(model, train_ids, epochs=2)  # on the model's device
+    dp = system.dp_trainer(model, train_ids, num_shards=4)  # S shards, one card
     result = system.infer_layerwise(layer_fns, workdir)  # on the card
     server = system.server()                            # online serving
     system.close()                                      # idempotent; or use `with`
 
-Counterpart of ``repro/api/system.py``: build, sampling, the batch
-pipeline, training, layerwise inference and serving. ``dp_trainer`` (data
-parallel) comes in a later slice.
+Counterpart of ``repro/api/system.py``: build, sampling (in process, or
+through forked sampling workers with ``dist_transport="mp"|"socket"``),
+the batch pipeline, training, data-parallel training, layerwise inference
+and serving.
 """
 from __future__ import annotations
 
@@ -189,9 +191,11 @@ class GLISPSystem:
 
     # -- lifecycle -----------------------------------------------------
     def close(self, timeout: float = 2.0) -> None:
-        """Release owned OS resources: the backend's, when it has a
-        ``close`` (remote sampling workers, in a later slice). Idempotent;
-        the in-process system owns none, so this is a no-op there."""
+        """Release owned OS resources — today that is the remote sampling
+        worker pool when ``dist_transport != "inproc"`` (shutdown frame,
+        then join / terminate / kill, ``timeout`` seconds a rung).
+        Idempotent; the in-process system is a no-op, so unconditional
+        cleanup is cheap."""
         close = getattr(self.backend, "close", None)
         if close is not None:
             close(timeout=timeout)
@@ -320,10 +324,46 @@ class GLISPSystem:
         tr.train(epochs=epochs, log_every=log_every)
         return tr
 
-    def dp_trainer(self, *args, **kwargs):
-        """The data-parallel trainer of the reference; not in the port yet."""
-        raise NotImplementedError(
-            "the data-parallel trainer (repro.train.data_parallel) is not ported yet"
+    def dp_trainer(
+        self,
+        model,
+        train_ids: np.ndarray,
+        *,
+        num_shards: int = 1,
+        opt=None,
+        batch_size: int | None = None,
+        prefetch: int | None = None,
+        reference: bool = False,
+        device="cuda",
+    ):
+        """A ``DataParallelGNNTrainer``: ``num_shards`` sampling clients
+        over this system's backend, their batches laid out block-diagonally
+        as one batch, one step on ``device`` with the loss the mean of the
+        shards' means (the reference shards over a mesh's data axis; one
+        card has only the shard axis). ``reference=True`` also runs the
+        per-shard loop on a copy of the parameters and logs its losses."""
+        from repro_torch.train.data_parallel import (  # lazy: avoids import cycle
+            DataParallelGNNTrainer,
+        )
+
+        cfg = self.config
+        return DataParallelGNNTrainer(
+            model,
+            self.backend,
+            self.graph,
+            train_ids,
+            num_shards=num_shards,
+            spec=cfg.sampling_spec(),
+            batch_size=batch_size if batch_size is not None else cfg.batch_size,
+            opt=opt,
+            seed=cfg.seed,
+            prefetch=prefetch if prefetch is not None else cfg.prefetch,
+            inflight=cfg.inflight,
+            vertex_quantum=cfg.vertex_quantum,
+            edge_quantum=cfg.edge_quantum,
+            ticket_timeout=cfg.ticket_timeout,
+            reference=reference,
+            device=device,
         )
 
     # -- layerwise inference -------------------------------------------

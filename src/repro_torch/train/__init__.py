@@ -1,8 +1,9 @@
 """Training: the hand-written optimizers, checkpoints and the GNN trainer.
 
-Counterpart of ``repro.train`` for the GNN side; the data-parallel trainer
-and the LM trainer come in later slices."""
+Counterpart of ``repro.train`` for the GNN side, data-parallel training
+included; the LM trainer comes in a later slice."""
 from repro_torch.train.checkpoint import CheckpointError, load_checkpoint, save_checkpoint
+from repro_torch.train.data_parallel import DataParallelGNNTrainer, DPTrainLog, stack_batches
 from repro_torch.train.loop import GNNTrainer, TrainLog
 from repro_torch.train.optim import (
     AdamWConfig,
@@ -23,4 +24,7 @@ __all__ = [
     "load_checkpoint",
     "GNNTrainer",
     "TrainLog",
+    "DataParallelGNNTrainer",
+    "DPTrainLog",
+    "stack_batches",
 ]

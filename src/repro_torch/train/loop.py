@@ -52,6 +52,23 @@ class TrainLog:
     compute_time: float = 0.0
 
 
+def descend(params, loss_fn, opt_state, opt_cfg: AdamWConfig):
+    """One optimizer step in place: clear the gradients of ``params`` (a
+    tree of leaf tensors), ``loss_fn().backward()``, then AdamW into the
+    same tensors. Returns the loss (0-d, detached, not waited for) and the
+    new optimizer state."""
+    for p in tree_leaves(params):
+        p.grad = None
+    loss = loss_fn()
+    loss.backward()
+    grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, params)
+    new, opt_state, _ = adamw_update(params, grads, opt_state, opt_cfg)
+    with torch.no_grad():
+        for p, q in zip(tree_leaves(params), tree_leaves(new)):
+            p.copy_(q)
+    return loss.detach(), opt_state
+
+
 class GNNTrainer:
     def __init__(
         self,
@@ -125,17 +142,10 @@ class GNNTrainer:
         """One step on a batch on the model's device: forward,
         ``loss.backward()``, AdamW. Returns the loss (a 0-d tensor, not
         waited for)."""
-        params = self.params
-        for p in tree_leaves(params):
-            p.grad = None
-        loss = self.model.loss(batch)
-        loss.backward()
-        grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, params)
-        new, self.opt_state, _ = adamw_update(params, grads, self.opt_state, self.opt_cfg)
-        with torch.no_grad():
-            for p, q in zip(tree_leaves(params), tree_leaves(new)):
-                p.copy_(q)
-        return loss.detach()
+        loss, self.opt_state = descend(
+            self.params, lambda: self.model.loss(batch), self.opt_state, self.opt_cfg
+        )
+        return loss
 
     # -- checkpoint / resume -------------------------------------------------
     @property

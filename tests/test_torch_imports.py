@@ -16,11 +16,16 @@ PORT = REPO / "src" / "repro_torch"
 MODULES = [
     "repro_torch",
     "repro_torch.api",
+    "repro_torch.api.registry",
     "repro_torch.configs",
     "repro_torch.core.inference",
     "repro_torch.core.partition",
     "repro_torch.core.sampling",
     "repro_torch.core.storage",
+    "repro_torch.dist",
+    "repro_torch.dist.client",
+    "repro_torch.dist.transport",
+    "repro_torch.dist.worker",
     "repro_torch.graph",
     "repro_torch.kernels.build",
     "repro_torch.kernels.flash_attention",
@@ -36,6 +41,8 @@ MODULES = [
     "repro_torch.models.transformer.model",
     "repro_torch.models.transformer.ssm",
     "repro_torch.serve",
+    "repro_torch.train",
+    "repro_torch.train.data_parallel",
 ] + [f"repro_torch.configs.{p.stem}" for p in sorted((PORT / "configs").glob("[!_]*.py"))]
 
 
@@ -46,6 +53,22 @@ def test_import_loads_neither_jax_nor_repro():
         "    __import__(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
+def test_the_sampling_workers_path_loads_no_torch():
+    """A sampling worker is forked from a process that may hold a live CUDA
+    context; nothing it imports may load torch."""
+    code = (
+        "import sys\n"
+        "import repro_torch.dist, repro_torch.dist.worker, repro_torch.core.sampling.service\n"
+        "print(','.join(sorted(m for m in sys.modules if m.split('.')[0] == 'torch')))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run(

@@ -155,8 +155,18 @@ def test_config_validation_matches_the_reference(bad):
 
 @pytest.mark.parametrize("transport", ["mp", "socket"])
 def test_remote_transports_wait_for_a_later_slice(transport):
-    with pytest.raises(NotImplementedError, match="repro.dist"):
-        torch_api.GLISPConfig(dist_transport=transport).validate()
+    """The remote transports are ported (``repro_torch.dist``): the config
+    validates, and ``close()`` after ``build`` leaves no worker process."""
+    import multiprocessing as mp
+
+    cfg = torch_api.GLISPConfig(dist_transport=transport, **CONFIG)
+    assert cfg.validate() is cfg
+    system = torch_api.GLISPSystem.build(torch_graph(**GRAPH), cfg)
+    procs = [w.proc for w in system.backend.service.dispatcher._workers]
+    assert len(procs) == CONFIG["num_parts"] and all(p.is_alive() for p in procs)
+    system.close()
+    assert not any(p.is_alive() for p in procs)
+    assert [p for p in mp.active_children() if p.is_alive()] == []
 
 
 def test_server_requires_inference_artifact():

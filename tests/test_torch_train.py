@@ -42,7 +42,7 @@ from repro_torch.kernels.ref import (  # noqa: E402
 )
 from repro_torch.models.gnn import GNNModel, load_jax_params  # noqa: E402
 from repro_torch.models.gnn.batching import GNNBatch, sorted_order, subgraph_to_batch  # noqa: E402
-from repro_torch.train import GNNTrainer, optim  # noqa: E402
+from repro_torch.train import DataParallelGNNTrainer, GNNTrainer, optim  # noqa: E402
 from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 
 HIDDEN, LAYERS, HEADS, FANOUTS = 32, 2, 2, [5, 3]
@@ -304,8 +304,10 @@ def test_facade_loader_trainer_and_train(port_system):
     tr = port_system.train(_model(), ids, epochs=1, batch_size=100, prefetch=0, log_every=1)
     assert len(tr.log.losses) == 3 and np.all(np.isfinite(tr.log.losses))
     assert 0.0 <= tr.evaluate(ids, batches=2) <= 1.0
-    with pytest.raises(NotImplementedError):
-        port_system.dp_trainer(_model(), ids)
+    dp = port_system.dp_trainer(_model(), ids, num_shards=2, batch_size=64, device="cpu")
+    assert isinstance(dp, DataParallelGNNTrainer) and len(dp.pipelines) == 2
+    assert [pl.loader.batch for pl in dp.pipelines] == [32, 32]
+    assert all(pl.workers == "thread" for pl in dp.pipelines)
 
 
 def test_facade_trainer_matches_the_jax_facade():
