@@ -8,8 +8,8 @@ against its plain PyTorch version on the card, then runs the port's paths
 at the paper's model width on the ``ogbn-paper`` stand-in graph (150,000
 vertices, 1.05 M edges, 4 parts, fanouts 15/10/5), for SAGE (3 layers,
 128 -> 256 -> 256 -> 256, head 256 -> 16) and GAT (4 heads, same widths),
-runs the segment max on its ids, and serves three language models at
-full width:
+runs the segment max on its ids, serves four language models and trains
+three at full width:
 
 * inference and serving: ``GLISPSystem.build -> infer_layerwise ->
   server().submit/step/response``; 32 Zipf requests served batched and
@@ -79,13 +79,32 @@ full width:
   at 4 layers for deepseek (its float32 upcast would not fit), counting
   the MoE routing flips between the two float32 runs; each prefill's
   device profile must charge time to its kernel (``device_ms_by_kind``
-  classifies the SSD's three kernels by ``ssd_scan_kernel``). Before it, both
-  kernels are held against their plain versions at the paths' shapes
+  classifies the SSD's three kernels by ``ssd_scan_kernel``); and
+  recurrentgemma-2b (26 layers, d_model 2560, RG-LRU blocks and a local
+  attention of 10 query heads over one KV head of 256, window 2048, every
+  third layer: 8 flash launches per prefill) the same way. Before it,
+  both kernels are held against their plain versions at the paths' shapes
   (flash at D 256 and at MLA's 192 over 128) and at ragged ones, float32
-  and bf16.
+  and bf16, and so are both backward kernels against autograd of the
+  plain versions (every head width, gemma-2b's and recurrentgemma-2b's
+  training attention, MLA's, a window, a ``kv_offset``; the SSD at
+  mamba2-130m's training shape, a ragged S and an initial state), each
+  twice bitwise;
+* LM training: ``repro_torch.train.LMTrainer`` on the synthetic token
+  stream, bf16 on float32 master weights, remat per layer, the reference
+  trainer's AdamW (lr 3e-4 after 100 warmup steps): gemma-2b
+  at batch 2 x 2048 tokens (5 steps), mamba2-130m at 4 x 2048 (6) and
+  recurrentgemma-2b at 1 x 4096 (4), where the window of 2048 bites. Each
+  model's first step in float32, kernels vs plain versions on the card
+  (loss and every gradient leaf; gemma-2b at 4 layers, recurrentgemma-2b
+  at 3), a bf16 forward and backward twice (bitwise, or the leaves that
+  differ named), the launches of every step (per attention or SSD layer
+  two forward launches, one of them remat's recompute, and one backward
+  launch), losses finite and falling, and one step profiled.
 
 Weights are random, drawn with numpy from seed 0 (the LM weights on the
-card from a ``torch.Generator`` seeded with 0). Launch counters are
+card from a ``torch.Generator`` seeded with 0; the LM training batches
+from ``SyntheticTokenStream`` seeded with 0). Launch counters are
 zeroed just before each path and read just after; each path must launch
 exactly the kernels it implies (per training step: SAGE 3 gathers + 2
 gather backwards; GAT 3 softmax aggregates + 3 backwards + 6 row-gather
@@ -183,6 +202,16 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     if a.numel() == 0:
         return 0.0
     return float((a.detach().float() - b.detach().float()).abs().max())
+
+
+def tol_share(got: torch.Tensor, want: torch.Tensor, tol) -> float:
+    """The largest |got - want| / (atol + rtol |want|): at most 1 where
+    ``torch.allclose`` at ``tol`` = (rtol, atol) holds."""
+    if got.numel() == 0:
+        return 0.0
+    rtol, atol = tol
+    got, want = got.detach().float(), want.detach().float()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
 
 
 def check_close(name, got, want, dtype=torch.float32, tol=None) -> float:
@@ -1128,33 +1157,35 @@ def fresh_model(kind: str):
 
 
 class StepRecorder:
-    """Wraps ``GNNTrainer.train_step``: keeps the first batch, the host
-    clock at each step's start, and CUDA events around each step
-    (forward, backward, update; no host sync)."""
+    """Wraps a trainer class's ``train_step`` (``GNNTrainer``'s by default):
+    keeps the first call's first argument (the batch), the host clock at
+    each step's start, and CUDA events around each step (forward,
+    backward, update; no host sync)."""
 
-    def __init__(self):
+    def __init__(self, trainer_cls=None):
+        from repro_torch.train.loop import GNNTrainer
+
+        self.cls = trainer_cls or GNNTrainer
         self.first = None
         self.starts = []
         self.events = []
 
     def patched(self):
-        from repro_torch.train.loop import GNNTrainer
+        orig = self.cls.train_step
 
-        orig = GNNTrainer.train_step
-
-        def train_step(trainer, batch):
+        def train_step(trainer, batch, *rest):
             self.starts.append(time.perf_counter())
             if self.first is None:
                 self.first = batch
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = orig(trainer, batch)
+            out = orig(trainer, batch, *rest)
             stop.record()
             self.events.append((start, stop))
             return out
 
-        return mock.patch.object(GNNTrainer, "train_step", train_step)
+        return mock.patch.object(self.cls, "train_step", train_step)
 
     def device_ms(self) -> list:
         torch.cuda.synchronize()
@@ -2116,6 +2147,7 @@ LM_ARCHS = {
     "gemma-2b": ("flash_attention", None),
     "mamba2-130m": ("ssd_scan", None),
     "deepseek-v2-lite-16b": ("flash_attention", 4),
+    "recurrentgemma-2b": ("flash_attention", None),
 }
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
 # The prefill's last logits, kernels vs plain versions. In float32 the two
@@ -2129,6 +2161,17 @@ LM_F32_TOL = (1e-3, 1e-3)
 LM_BF16_RATIO = 2.0
 ATTN_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
 SSD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+
+
+# the layer kinds whose full-sequence forward launches each LM kernel
+KERNEL_KINDS = {"flash_attention": ("attn", "local_attn"), "ssd_scan": ("ssm",)}
+
+
+def kernel_layers(cfg, kernel: str, depth: int | None = None) -> int:
+    """Layers among the first ``depth`` (None: all) that launch ``kernel``
+    once a forward."""
+    kinds = cfg.layer_kinds()[:depth]
+    return sum(k in KERNEL_KINDS[kernel] for k in kinds)
 
 
 def lm_launches() -> dict:
@@ -2195,6 +2238,100 @@ def compare_lm_kernels() -> None:
                         tol=SSD_TOL[torch.float32])
 
 
+# The backward kernels against autograd of the plain versions, on the card.
+# float32: ATTN_TOL / SSD_TOL. bf16 attention: the kernel reads the bf16
+# output o for D = rowsum(dO o), which autograd of the plain version has
+# unrounded, so a sum of many terms that cancel moves by ~1e-2; both are
+# held against autograd of the plain version on the inputs upcast to
+# float32, the kernel's largest error at most ATTN_BF16_GRAD_RATIO times
+# the plain version's own. bf16 SSD: dx, dB and dC (rounded once from
+# float32) against the upcast run at rtol 1e-2, atol 1e-3 of the tensor's
+# largest element. The SSD's float32 gradients (and bf16's float32 da and
+# ddt) at SSD_GRAD_TOL: da is a difference of sums of up to S P N terms.
+ATTN_BF16_GRAD_RATIO = 2.0
+SSD_GRAD_TOL = (1e-3, 1e-3)
+# (B, Sq, Skv, H, Hkv, D, Dv, causal, window, kv_offset)
+ATTN_BWD_CASES = (
+    (2, 2048, 2048, 8, 1, 256, 256, True, 0, 0),  # gemma-2b training: MQA 8:1
+    (1, 4096, 4096, 10, 1, 256, 256, True, 2048, 0),  # recurrentgemma-2b: window, 10:1
+    (4, 2048, 2048, 16, 16, 192, 128, True, 0, 0),  # deepseek-v2-lite's MLA, no GQA
+    (2, 1000, 1000, 16, 8, 128, 128, True, 512, 0),
+    (2, 333, 1357, 16, 8, 64, 64, True, 0, 1024),  # kv_offset
+    (1, 300, 500, 8, 2, 96, 64, True, 100, 200),
+    (1, 77, 77, 4, 4, 32, 32, False, 0, 0),
+)
+# (B, S, H, P, G, N, init)
+SSD_BWD_CASES = (
+    (4, 2048, 24, 64, 1, 128, False),  # mamba2-130m training
+    (4, 2000, 24, 64, 1, 128, True),  # ragged S, from an initial state
+    (2, 333, 8, 32, 2, 64, True),
+)
+
+
+def compare_lm_backward_kernels() -> None:
+    """The flash and SSD backward kernels against autograd of the plain
+    versions, at every head width and the training paths' shapes, float32
+    and bf16; each twice, bitwise."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.kernels.ref import attention_backward_ref, ssd_backward_ref
+
+    log("phase: LM backward kernels vs autograd of the plain versions on the card")
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, sq, skv, h, hkv, d, dv, causal, window, off in ATTN_BWD_CASES:
+            kw = dict(causal=causal, window=window, kv_offset=off)
+            q, k, v = attn_inputs(b, sq, skv, h, hkv, d, dtype, sq + d, dv)
+            dout = attn_inputs(b, sq, 1, h, 1, dv, dtype, sq + dv + 1)[0]
+            label = (f"B={b} Sq={sq} Skv={skv} H={h}/{hkv} D={d} Dv={dv} causal={causal} "
+                     f"window={window} kv_offset={off} {dtype}")
+            lse = torch.empty((b, h, sq), dtype=torch.float32, device="cuda")
+            out = torch.empty((b, sq, h, dv), dtype=dtype, device="cuda")
+            fa.launch_flash_attention(q, k, v, out, lse, **kw)
+            got = fa.flash_attention_backward(q, k, v, out, dout, lse, **kw)
+            again = fa.flash_attention_backward(q, k, v, out, dout, lse, **kw)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                fail(f"flash_attention_backward {label}: two runs differ")
+            want = attention_backward_ref(q, k, v, dout, **kw)
+            if dtype == torch.float32:
+                for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                    check_close(f"flash_attention_backward {name} {label}", g, w,
+                                tol=ATTN_TOL[dtype])
+            else:
+                up = attention_backward_ref(q.float(), k.float(), v.float(), dout.float(), **kw)
+                for name, g, w, u in zip(("dq", "dk", "dv"), got, want, up):
+                    ek, ep = max_err(g, u), max_err(w, u)
+                    if ek > ATTN_BF16_GRAD_RATIO * ep:
+                        fail(f"flash_attention_backward {name} {label}: {ek} from the float32 "
+                             f"run, beyond {ATTN_BF16_GRAD_RATIO}x the plain version's {ep}")
+                    log(f"  ok flash_attention_backward {name} {label}: max abs err from the "
+                        f"float32 run: kernel {ek:.3e}, plain {ep:.3e}, ratio "
+                        f"{ek / max(ep, 1e-30):.3f} "
+                        f"(limit {ATTN_BF16_GRAD_RATIO}); share of ATTN_TOL: kernel "
+                        f"{tol_share(g, u, ATTN_TOL[dtype]):.3f}, plain "
+                        f"{tol_share(w, u, ATTN_TOL[dtype]):.3f}")
+            del q, k, v, dout, out, got, again, want
+        for b, s, h, p, g, n, init in SSD_BWD_CASES:
+            x, dt, A, B, C, st = ssd_inputs(b, s, h, p, g, n, dtype, s + p + 1, init)
+            a = dt * A[None, None, :]
+            gen = torch.Generator("cuda").manual_seed(s)
+            dy = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+            dfinal = torch.randn((b, h, p, n), generator=gen, device="cuda")
+            label = f"B={b} S={s} H={h} P={p} G={g} N={n} init={init} {dtype}"
+            got = sk.ssd_scan_backward(x, a, dt, B, C, dy, dfinal, init_state=st)
+            again = sk.ssd_scan_backward(x, a, dt, B, C, dy, dfinal, init_state=st)
+            if not all((u is None and w is None) or torch.equal(u, w) for u, w in zip(got, again)):
+                fail(f"ssd_scan_backward {label}: two runs differ")
+            want = ssd_backward_ref(x.float(), a, dt, B.float(), C.float(), dy.float(), dfinal,
+                                    init_state=st)
+            for name, gg, w in zip(("dx", "da", "ddt", "dB", "dC", "dinit"), got, want):
+                if w is None:
+                    continue
+                tol = SSD_GRAD_TOL
+                if dtype == torch.bfloat16 and name in ("dx", "dB", "dC"):
+                    tol = (1e-2, 1e-3 * float(w.abs().max()))
+                check_close(f"ssd_scan_backward {name} {label}", gg, w, tol=tol)
+
+
 class FirstCall:
     """Wraps an entry point and keeps the arguments of its first call."""
 
@@ -2253,7 +2390,11 @@ def device_ms_by_kind(prof) -> tuple[dict, list] | None:
         if evt.device_type != DeviceType.CUDA:
             continue
         name = evt.name.lower()
-        if "flash_attention_kernel" in name:
+        if "flash_bwd_kernel" in name:
+            kind = "flash_attention_backward"
+        elif "ssd_bwd_kernel" in name:
+            kind = "ssd_scan_backward"
+        elif "flash_attention_kernel" in name:
             kind = "flash_attention"
         elif "ssd_scan_kernel" in name:
             kind = "ssd_scan"
@@ -2288,7 +2429,13 @@ def profile_lm(cfg, params, prefill_wall_ms: float, decode_wall_ms: float) -> di
     from repro_torch.models.transformer.model import init_cache
 
     rng = np.random.default_rng(0)
-    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)), device="cuda")
+    if cfg.input_mode == "embeddings":  # fed embeddings, as ``serve`` feeds them
+        prompt = torch.as_tensor(rng.standard_normal((LM_BATCH, LM_PROMPT, cfg.d_model),
+                                                     dtype=np.float32), device="cuda")
+        step_in = prompt[:, :1]
+    else:
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)),
+                                 device="cuda")
     cache = init_cache(cfg, LM_BATCH, LM_PROMPT + PROFILE_DECODE_STEPS, "cuda")
     prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -2299,7 +2446,8 @@ def profile_lm(cfg, params, prefill_wall_ms: float, decode_wall_ms: float) -> di
         tok = logits[:, : cfg.vocab_size].argmax(dim=-1)
         with profile(activities=acts) as pd:
             for i in range(PROFILE_DECODE_STEPS):
-                logits, cache = decode(params, cache, {"inputs": tok[:, None]}, LM_PROMPT + i)
+                inp = step_in if cfg.input_mode == "embeddings" else tok[:, None]
+                logits, cache = decode(params, cache, {"inputs": inp}, LM_PROMPT + i)
                 tok = logits[:, : cfg.vocab_size].argmax(dim=-1)
             torch.cuda.synchronize()
     out = {}
@@ -2376,8 +2524,8 @@ def serve_lm(arch: str, kernel: str, f32_layers, captured: dict) -> dict:
     kw = dict(batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN, seed=0, device="cuda",
               params=params)
 
-    def launched(what, layers_run=cfg.num_layers):
-        want = {kernel: layers_run}
+    def launched(what, depth=None):
+        want = {kernel: kernel_layers(cfg, kernel, depth)}
         got = {k: v for k, v in lm_launches().items() if v}
         if got != want:
             fail(f"{arch} {what} launched {got}, the path implies {want}")
@@ -2487,6 +2635,222 @@ def serve_lm(arch: str, kernel: str, f32_layers, captured: dict) -> dict:
     return info
 
 
+# ---------------------------------------------------------------------------
+# phase 12: LM training at full width
+# ---------------------------------------------------------------------------
+
+# arch -> (batch, sequence, steps, layers of the float32 check against the
+# plain versions: None = all). gemma-2b's float32 copy of all 18 layers
+# would fit, but its plain attention's float32 scores for each layer's
+# backward make the check the phase's longest part: 4 layers hold the
+# same kernels. recurrentgemma-2b at 3, one (RG-LRU, RG-LRU, local
+# attention) period; at 4096 tokens its window of 2048 bites.
+LM_TRAIN = {
+    "gemma-2b": (2, 2048, 5, 4),
+    "mamba2-130m": (4, 2048, 6, None),
+    "recurrentgemma-2b": (1, 4096, 4, 3),
+}
+# the first step's float32 loss and gradients, kernels vs plain versions:
+# loss rtol / atol 1e-4; each gradient leaf's largest error at most
+# LM_GRAD_SHARE of its largest element (sums in another order through the
+# layers and back; a leaf's own scale, since embedding and norm gradients
+# are 1e-6-1e-2)
+LM_GRAD_SHARE = 1e-3
+
+
+def loss_and_grads(params, cfg, inp, tgt) -> tuple:
+    """``lm_loss`` (remat on, as the trainer runs it) and its backward:
+    (loss, the gradient of every leaf in ``tree_leaves`` order)."""
+    from repro_torch.models.transformer.model import lm_loss
+    from repro_torch.train.optim import tree_leaves
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.grad = None
+    loss, _ = lm_loss(params, cfg, inp, tgt, remat=True)
+    loss.backward()
+    grads = [p.grad for p in leaves]
+    for p in leaves:
+        p.grad = None
+    return loss.detach(), grads
+
+
+def train_lm(arch: str, captured: dict) -> dict:
+    """``repro_torch.train.LMTrainer`` at the full config, computing in its
+    dtype (bf16) on float32 master weights, as the reference trainer's,
+    drawn on the card from seed 0, with the reference's AdamW config (lr
+    3e-4 after a linear warmup of 100 steps): first the first batch's
+    float32 loss and gradients at ``LM_TRAIN``'s depth, kernels vs plain
+    versions; then whether a bf16 forward and backward repeats bit for bit
+    (the leaves that differ are named); then ``train(steps)`` with the
+    counts zeroed just before and read just after (per step, each
+    attention or SSD layer: two forward launches, one in the forward and
+    one in remat's recompute, and one backward launch), the losses finite
+    and falling; then one step under ``torch.profiler``."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.models.transformer.model import init_params
+    from repro_torch.train import LMTrainer
+    from repro_torch.train.optim import tree_leaves
+    from torch.profiler import ProfilerActivity, profile
+
+    batch, seq, steps, f32_layers = LM_TRAIN[arch]
+    cfg = get_config(arch, reduced=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    allocated_gb = torch.cuda.memory_allocated() / 1e9
+    # the trainer's own draw (its default), made here so that the checks
+    # below run before its optimizer state takes 4 bytes x 2 a parameter
+    params = init_params(dataclasses.replace(cfg, dtype="float32"),
+                         torch.Generator("cuda").manual_seed(0), "cuda")
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    inp, tgt = (torch.as_tensor(t, device="cuda").long()
+                for t in SyntheticTokenStream(cfg.vocab_size, batch, seq, 0).next_batch())
+
+    # float32 at the cut depth: the same first step through the kernels and
+    # through the plain versions
+    depth = cfg.num_layers if f32_layers is None else f32_layers
+    head = {**params, "layers": params["layers"][:depth]}
+    p32 = tree_map(lambda t: t.detach().float().requires_grad_(True), head)
+    cfg32 = dataclasses.replace(cfg, num_layers=depth, dtype="float32")
+    loss_k, grads_k = loss_and_grads(p32, cfg32, inp, tgt)
+    with plain_lm():
+        loss_p, grads_p = loss_and_grads(p32, cfg32, inp, tgt)
+    check_close(f"{arch} float32 first-step loss at {depth} layers, kernels vs plain versions",
+                loss_k, loss_p, tol=(1e-4, 1e-4))
+    worst = 0.0
+    for i, (gk, gp) in enumerate(zip(grads_k, grads_p)):
+        if gk is None or gp is None or gk.shape != gp.shape:
+            fail(f"{arch} float32 gradient leaf {i}: {gk is None} {gp is None}")
+        share = max_err(gk, gp) / max(float(gp.abs().max()), 1e-30)
+        worst = max(worst, share)
+        if share > LM_GRAD_SHARE:
+            fail(f"{arch} float32 gradient leaf {i} {tuple(gp.shape)}: max err {share:.3e} of "
+                 f"its largest element, beyond {LM_GRAD_SHARE}")
+    log(f"  ok {arch} float32 first-step gradients at {depth} of {cfg.num_layers} layers, "
+        f"{len(grads_k)} leaves: largest error {worst:.3e} of a leaf's largest element")
+    del p32, grads_k, grads_p, head
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16: one forward and backward twice from the same weights
+    loss_a, grads_a = loss_and_grads(params, cfg, inp, tgt)
+    loss_b, grads_b = loss_and_grads(params, cfg, inp, tgt)
+    names = [n for n, _ in named_leaves(params)]
+    differ = [n for n, x, y in zip(names, grads_a, grads_b) if not torch.equal(x, y)]
+    step_bitwise = bool(torch.equal(loss_a, loss_b)) and not differ
+    log(f"  {arch} bf16 forward + backward twice: loss bitwise {torch.equal(loss_a, loss_b)}, "
+        f"gradient leaves that differ: {differ or 'none'}")
+    del grads_a, grads_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = LMTrainer(cfg, batch=batch, seq_len=seq, seed=0, device="cuda", params=params)
+    del params
+
+    # the trainer: counts zeroed just before, read just after
+    rec = StepRecorder(LMTrainer)
+    bwd_calls = {"flash_attention_backward": FirstCall(fa.flash_attention_backward),
+                 "ssd_scan_backward": FirstCall(sk.ssd_scan_backward)}
+    reset_lm_launches()
+    t0 = time.perf_counter()
+    with rec.patched(), \
+            mock.patch.object(fa, "flash_attention_backward",
+                              bwd_calls["flash_attention_backward"]), \
+            mock.patch.object(sk, "ssd_scan_backward", bwd_calls["ssd_scan_backward"]):
+        tlog = trainer.train(steps, log_every=1)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    got = {k: v for k, v in lm_launches().items() if v}
+    want = {}
+    for kernel in KERNEL_KINDS:
+        n = kernel_layers(cfg, kernel)
+        if n:
+            want[kernel] = 2 * n * steps
+            want[kernel + "_backward"] = n * steps
+    if got != want:
+        fail(f"{arch} training launched {got}, the path implies {want}")
+    for name, call in bwd_calls.items():
+        if call.args is not None:  # the first model's: gemma-2b's attention
+            # detached: remat's recomputed tensors would keep the step's
+            # graph, and through it every weight and gradient, alive
+            args, kw = call.args
+            captured.setdefault(name, (tuple(a.detach() if torch.is_tensor(a) else a
+                                             for a in args), kw))
+    losses = tlog.losses
+    if len(losses) != steps or not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"{arch} training losses {losses}: not finite or not falling")
+    gaps = np.diff(rec.starts) * 1e3
+    steady_ms = float(np.median(gaps[1:])) if gaps.size > 1 else float(gaps[0])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # one more step under the profiler: device time by kind, busy share
+    s_inp, s_tgt = (torch.as_tensor(t, device="cuda").long()
+                    for t in trainer.stream.next_batch())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(s_inp, s_tgt)
+        torch.cuda.synchronize()
+    found = device_ms_by_kind(prof)
+    if found is None:
+        prof_info = "not measured (the trace held no device events)"
+        busy = None
+    else:
+        kinds, top = found
+        busy = sum(kinds.values())
+        prof_info = {"device_ms_by_kind": kinds, "device_busy_ms": busy,
+                     "idle_share_of_steady_wall": 1.0 - busy / steady_ms,
+                     "top_kernels_ms": [[n, ms] for n, ms in top[:6]]}
+    info = {
+        "config": cfg.name,
+        "dtype": cfg.dtype,
+        "batch": batch,
+        "seq": seq,
+        "steps": steps,
+        "params": sum(p.numel() for p in tree_leaves(trainer.params)),
+        "wall_s": wall_s,
+        "step_wall_ms": [float(g) for g in gaps],
+        "step_wall_ms_steady_median": steady_ms,
+        "tokens_per_s": batch * seq / steady_ms * 1e3,
+        "step_device_ms": rec.device_ms(),
+        "losses": losses,
+        "launches": got,
+        "launches_per_step": {k: v // steps for k, v in got.items()},
+        "f32_depth": depth,
+        "f32_loss_kernels": float(loss_k),
+        "f32_loss_plain": float(loss_p),
+        "f32_worst_grad_share": worst,
+        "bf16_step_bitwise_run_to_run": step_bitwise,
+        "bf16_grad_leaves_not_bitwise": differ,
+        "allocated_before_gb": allocated_gb,
+        "peak_memory_gb": peak_gb,
+        "profile": prof_info,
+    }
+    log(f"  train {arch}: " + json.dumps(info))
+    if isinstance(prof_info, dict):
+        for kernel in want:
+            if not prof_info["device_ms_by_kind"].get(kernel, 0.0) > 0:
+                fail(f"{arch}: the step's device profile shows no time in {kernel}: "
+                     f"{prof_info['device_ms_by_kind']}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+def named_leaves(tree, prefix=""):
+    """(name, leaf) in ``tree_leaves`` order: dict keys sorted, lists in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in named_leaves(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in named_leaves(v, f"{prefix}{i}.")]
+    return [(prefix[:-1], tree)]
+
+
 def time_flash(call, launches: int, name: str = "flash_attention") -> dict:
     """The flash kernel at a serving prefill's call (gemma-2b: D 256 over
     one KV head; deepseek-v2-lite: q and k 192 wide, v 128). Bound: q, k,
@@ -2529,6 +2893,7 @@ def time_flash(call, launches: int, name: str = "flash_attention") -> dict:
         graph_note = None
     except RuntimeError as e:  # the yardstick only: the port never calls SDPA
         library_graph, graph_note = None, f"SDPA could not be captured: {e}"[:200]
+    lse = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
     return {
         "name": name,
         "route": "cuda",
@@ -2537,6 +2902,10 @@ def time_flash(call, launches: int, name: str = "flash_attention") -> dict:
         "launches": launches,
         "max_abs_err": err,
         "ms": ms,
+        # the training call: the same kernel writing each row's log-sum-exp
+        "with_lse_kernel_ms": graph_ms(rotating(
+            lambda q_, k_, v_: fa.launch_flash_attention(q_, k_, v_, out, lse, **kw), q, k, v),
+            iters=5),
         "kernel_ms": graph_ms(rotating(
             functools.partial(fa.launch_flash_attention, **kw), q, k, v, out), iters=5),
         "eager_ms": time_ms(rotating(functools.partial(fa.flash_attention, **kw), q, k, v),
@@ -2552,6 +2921,141 @@ def time_flash(call, launches: int, name: str = "flash_attention") -> dict:
         "bound_share": bound / ms,
         "shape": {"B": b, "S": s, "H": h, "Hkv": hkv, "D": d, "Dv": dv, "causal_pairs": pairs,
                   "dtype": str(q.dtype)},
+    }
+
+
+def time_flash_backward(call, launches: int) -> dict:
+    """The flash backward kernels at the first training call (gemma-2b:
+    B 2, S 2048, 8 query heads over one KV head of 256). Bound:
+    operations, 2.5 times the forward's causal products (2 (D + Dv) flops
+    per unmasked pair) at 989 TFLOP/s, against q, k, v, o, dO and the
+    log-sum-exp read once and dq, dk, dv written once at 3.35 TB/s. The
+    yardstick: the backward of ``scaled_dot_product_attention`` by
+    autograd (its forward run once, the graph kept)."""
+    import functools
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_backward_ref
+
+    (q, k, v, o, dout, lse), kw = call
+    b, s, h, d = q.shape
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    got = fa.flash_attention_backward(q, k, v, o, dout, lse, **kw)
+    want = attention_backward_ref(q, k, v, dout, **kw)
+    up = attention_backward_ref(q.float(), k.float(), v.float(), dout.float(), **kw)
+    err = max(max_err(g, u) for g, u in zip(got, up))
+    plain_err = max(max_err(w, u) for w, u in zip(want, up))
+    if err > ATTN_BF16_GRAD_RATIO * plain_err:
+        fail(f"flash_attention_backward on the path's call: {err} from the float32 run, beyond "
+             f"{ATTN_BF16_GRAD_RATIO}x the plain version's {plain_err}")
+    log(f"  ok flash_attention_backward on the path's call B={b} S={s} H={h}/{hkv} D={d}: max "
+        f"abs err from the float32 run: kernel {err:.3e}, plain {plain_err:.3e}, ratio "
+        f"{err / max(plain_err, 1e-30):.3f} (limit {ATTN_BF16_GRAD_RATIO})")
+    window = kw["window"]
+    q_pos = kw["kv_offset"] + np.arange(s)
+    lo = np.maximum(0, q_pos - window + 1) if window > 0 else np.zeros(s, np.int64)
+    hi = np.minimum(skv, q_pos + 1) if kw["causal"] else np.full(s, skv)
+    pairs = b * h * int(np.maximum(hi - lo, 0).sum())
+    esize = q.element_size()
+    nbytes = (2 * (q.numel() + k.numel() + v.numel()) + 2 * o.numel()) * esize + lse.numel() * 4
+    bound, by = bound_ms(nbytes, 2.5 * 2 * (d + dv) * pairs, BF16_FLOPS)
+    ms = graph_ms(rotating(functools.partial(fa.flash_attention_backward, **kw),
+                           q, k, v, o, dout, lse), iters=3)
+    try:
+        leaves = [t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=kw["causal"] and not window,
+                                             enable_gqa=h != hkv)
+        gout = dout.transpose(1, 2)
+        library = time_ms(lambda: torch.autograd.grad(out, leaves, gout, retain_graph=True),
+                          iters=5, warmup=2)
+        note = "autograd of SDPA's backward" + ("" if not window else "; SDPA has no window")
+        del out
+    except RuntimeError as e:  # the yardstick only: the port never calls SDPA
+        library, note = None, f"SDPA's backward could not run: {e}"[:200]
+    return {
+        "name": "flash_attention_backward",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_backward.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:91",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "kernel_ms": ms,
+        "eager_ms": time_ms(rotating(functools.partial(fa.flash_attention_backward, **kw),
+                                     q, k, v, o, dout, lse), iters=5, warmup=2),
+        "plain_ms": time_ms(rotating(functools.partial(attention_backward_ref, **kw),
+                                     q, k, v, dout), iters=3, warmup=1),
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": library,
+        "library_note": note,
+        "bound_share": bound / ms,
+        "phase_kernel_ms": kernels_ms(
+            lambda: fa.flash_attention_backward(q, k, v, o, dout, lse, **kw), "flash_bwd_kernel_",
+            calls=3),
+        "shape": {"B": b, "S": s, "H": h, "Hkv": hkv, "D": d, "Dv": dv, "pairs": pairs,
+                  "window": window, "dtype": str(q.dtype)},
+    }
+
+
+def time_ssd_backward(call, launches: int) -> dict:
+    """The SSD backward kernels at the first training call (mamba2-130m: B
+    4, S 2048, 24 heads of 64, state 128, bf16). Bound: bytes, x, dy, B,
+    C, a, dt (and the initial state and the final state's gradient where
+    given) read once, dx, dB, dC, da, ddt (and dinit) written once at 3.35
+    TB/s, against the recurrence's backward, twice the forward's 6 P N
+    flops per (step, head), at 989 TFLOP/s. No single PyTorch call
+    computes it."""
+    import functools
+
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.kernels.ref import ssd_backward_ref
+
+    (x, a, dt, B, C, dy, dfinal), kw = call
+    init = kw.get("init_state")
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    got = sk.ssd_scan_backward(x, a, dt, B, C, dy, dfinal, init_state=init)
+    want = ssd_backward_ref(x.float(), a, dt, B.float(), C.float(), dy.float(), dfinal,
+                            init_state=init)
+    err = 0.0
+    for name, gg, w in zip(("dx", "da", "ddt", "dB", "dC", "dinit"), got, want):
+        if w is None:
+            continue
+        tol = SSD_GRAD_TOL
+        if x.dtype == torch.bfloat16 and name in ("dx", "dB", "dC"):
+            tol = (1e-2, 1e-3 * float(w.abs().max()))
+        err = max(err, check_close(f"ssd_scan_backward {name} on the path's call", gg, w,
+                                   tol=tol))
+    esize = x.element_size()
+    states = 0 if init is None else 2 * init.numel() * 4
+    final = 0 if dfinal is None else dfinal.numel() * 4
+    nbytes = (3 * x.numel() + 4 * B.numel()) * esize + 4 * a.numel() * 4 + states + final
+    bound, by = bound_ms(nbytes, 12 * b * s * h * p * n, BF16_FLOPS)
+    fn = functools.partial(sk.ssd_scan_backward, init_state=init)
+    ms = graph_ms(rotating(fn, x, a, dt, B, C, dy, dfinal), iters=5)
+    return {
+        "name": "ssd_scan_backward",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_backward.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:65",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "kernel_ms": ms,
+        "eager_ms": time_ms(rotating(fn, x, a, dt, B, C, dy, dfinal), iters=20),
+        "plain_ms": time_ms(rotating(functools.partial(ssd_backward_ref, init_state=init),
+                                     x, a, dt, B, C, dy, dfinal), iters=3, warmup=1),
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,
+        "bound_share": bound / ms,
+        "phase_kernel_ms": kernels_ms(lambda: fn(x, a, dt, B, C, dy, dfinal), "ssd_bwd_kernel_",
+                                      calls=5),
+        "shape": {"B": b, "S": s, "H": h, "P": p, "G": g, "N": n, "dtype": str(x.dtype),
+                  "init_state": init is not None, "final_state_grad": dfinal is not None},
     }
 
 
@@ -2671,6 +3175,20 @@ def main() -> int:
     compare_training_kernels()
     dense_small()
     compare_lm_kernels()
+    compare_lm_backward_kernels()
+
+    # first among the paths: recurrentgemma-2b's float32 weights, gradients
+    # and moments take 46 GB, so nothing of the other phases stays beside them
+    log("phase: LM training at full width (LMTrainer: bf16 on float32 weights, remat per "
+        "layer, the reference's AdamW)")
+    lm_train_captured: dict = {}
+    lm_train = {}
+    for arch in LM_TRAIN:
+        torch.cuda.empty_cache()  # the earlier model's weights, gradients and moments
+        lm_train[arch] = train_lm(arch, lm_train_captured)
+    train_launches = {k: sum(v["launches"].get(k, 0) for v in lm_train.values())
+                      for k in ("flash_attention_backward", "ssd_scan_backward")}
+
 
     log("phase: build the system (ogbn-paper stand-in, 4 parts, fanouts 15/10/5)")
     t0 = time.perf_counter()
@@ -2730,6 +3248,10 @@ def main() -> int:
                    lm["deepseek-v2-lite-16b"]["launches"]["flash_attention"],
                    name="flash_attention_mla"),
         time_ssd(lm_captured["mamba2-130m"], lm["mamba2-130m"]["launches"]["ssd_scan"]),
+        time_flash_backward(lm_train_captured["flash_attention_backward"],
+                            train_launches["flash_attention_backward"]),
+        time_ssd_backward(lm_train_captured["ssd_scan_backward"],
+                          train_launches["ssd_scan_backward"]),
     ]
     for r in rows:
         if r["launches"] <= 0:
@@ -2787,6 +3309,10 @@ def main() -> int:
             "two_runs_bitwise_equal", "f32_depth", "f32_logits_max_abs_err_vs_plain",
             "f32_routing_flips_per_layer", "bf16_kernels_err_vs_f32",
             "bf16_plain_err_vs_f32")} for k, v in lm.items()},
+        "lm_train": {k: {key: v[key] for key in (
+            "step_wall_ms_steady_median", "tokens_per_s", "losses", "launches_per_step",
+            "f32_depth", "f32_worst_grad_share", "bf16_step_bitwise_run_to_run",
+            "bf16_grad_leaves_not_bitwise", "peak_memory_gb")} for k, v in lm_train.items()},
         "total_s": time.perf_counter() - t_start,
     }))
     if args.save_calls:

@@ -1,5 +1,6 @@
 """Hopper kernels (``csrc/``: GNN aggregation, segment max, flash attention,
-the SSD scan), their wrappers and plain versions.
+the SSD scan, and the backwards of GNN aggregation, flash attention and the
+SSD scan), their wrappers and plain versions.
 
 Nothing is built at import: :mod:`repro_torch.kernels.build` compiles the
 CUDA sources at the first launch. The GNN entry points and

@@ -9,7 +9,8 @@ unchanged one loads the existing file. Nothing is built at import.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; the wrappers
 raise on a non-zero code through :func:`check`. :func:`on_cpu` and
-:func:`forbid_grad` are the wrappers' shared dispatch checks.
+:func:`forbid_grad` are the wrappers' shared dispatch checks; the wrappers
+with a backward kernel use :func:`wants_grad` instead of the latter.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import torch
 
 __all__ = [
     "CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "library", "load_variant", "check",
-    "ptxas_log", "on_cpu", "forbid_grad",
+    "ptxas_log", "on_cpu", "wants_grad", "forbid_grad",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -63,7 +64,10 @@ SIGNATURES = {
         ),
     },
     "flash_attention": {
-        "flash_attention": (_p, _p, _p, _p, _c, _c, _c, _c, _c, _c, _c, _c, _c, _c, _c, _p),
+        "flash_attention": (_p, _p, _p, _p, _p, _c, _c, _c, _c, _c, _c, _c, _c, _c, _c, _c, _p),
+    },
+    "flash_attention_backward": {
+        "flash_attention_backward": (_p,) * 12 + (_c,) * 11 + (_p,),
     },
     "ssd_scan": {
         "ssd_scan_chunk": (_c,),
@@ -72,9 +76,13 @@ SIGNATURES = {
             _c, _c, _c, _c, _c, _c, _c, _p,
         ),
     },
+    "ssd_scan_backward": {
+        "ssd_scan_backward_chunk": (),
+        "ssd_scan_backward": (_p,) * 19 + (_c,) * 7 + (_p,),
+    },
 }
 # entries that return a size; every other returns an int (a cudaError_t,
-# or ``ssd_scan_chunk``'s length)
+# or ``ssd_scan_chunk``'s and ``ssd_scan_backward_chunk``'s length)
 RESTYPES = {"segment_index_words": _l, "segment_sum_scratch_rows": _l,
             "segment_max_key_words": _l}
 
@@ -199,12 +207,18 @@ def on_cpu(*ts) -> bool:
     return False
 
 
+def wants_grad(*ts) -> bool:
+    """True when autograd will need a backward: grad mode on and some of
+    the tensors ``ts`` (None skipped) requiring grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
+
+
 def forbid_grad(name: str, *ts) -> None:
     """Raise for a kernel without a backward when autograd would need one:
     grad mode on and some of the tensors ``ts`` (None skipped) requiring
     grad. Its output would otherwise carry no ``grad_fn`` and the inputs'
     gradients would be missing without an error."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts):
+    if wants_grad(*ts):
         raise RuntimeError(
             f"{name}: the CUDA kernel has no backward kernel yet, and an input requires "
             "grad; call it under torch.no_grad() or torch.inference_mode(), or on CPU "

@@ -24,6 +24,11 @@
 // same), and neither uses atomics: every output element is written once,
 // in a fixed order, so two runs give the same bits.
 //
+// Training: given an `lse` pointer, both routes also write each query
+// row's log-sum-exp of its scaled, masked scores (float32 [B, H, Sq],
+// natural log), from which flash_attention_backward.cu recomputes P; a
+// serving call passes null and writes nothing more.
+//
 // Route: a static choice by dtype, not a fallback; a failed build or
 // launch raises in the wrapper.
 //
@@ -170,8 +175,9 @@ struct Products<float, D> {
 template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv, int H,
-                           int Hkv, int causal, int window, int kv_offset, float scale) {
+                           const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
+                           int Sq, int Skv, int H, int Hkv, int causal, int window, int kv_offset,
+                           float scale) {
   constexpr int kLd = DQK + Tile<T>::kPad;   // Q and K rows
   constexpr int kLdv = DV + Tile<T>::kPad;   // V rows
   constexpr int kLdp = kBK + Tile<T>::kPad;
@@ -282,6 +288,8 @@ __global__ void __launch_bounds__(kThreads)
     const int row = wr + g + 8 * r;
     if (row >= q_valid) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && t == 0)
+      lse[(static_cast<long>(b) * H + h) * Sq + q0 + row] = m[r] + logf(l[r]);
     T* orow = ob + row * o_stride + 2 * t;
 #pragma unroll
     for (int nd = 0; nd < DV / 8; ++nd) {
@@ -292,8 +300,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int DQK, int DV>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv, int H,
-           int Hkv, int causal, int window, int kv_offset, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
+           int Skv, int H, int Hkv, int causal, int window, int kv_offset, cudaStream_t stream) {
   constexpr int kLd = DQK + Tile<T>::kPad;
   constexpr int kLdv = DV + Tile<T>::kPad;
   constexpr int kLdp = kBK + Tile<T>::kPad;
@@ -314,7 +322,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_attention_kernel<T, DQK, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Sq, Skv, H, Hkv, causal, window, kv_offset,
+      static_cast<T*>(out), lse, Sq, Skv, H, Hkv, causal, window, kv_offset,
       1.0f / sqrtf(static_cast<float>(DQK)));
   return static_cast<int>(cudaGetLastError());
 }
@@ -342,6 +350,7 @@ constexpr int kBN = 64;             // keys per tile
 constexpr int kSmemLimit = 232448;  // bytes a block may use on the H100
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // how a head width is cut into TMA boxes: 64 columns under the 128-byte
 // swizzle, or 32 under the 64-byte one
@@ -530,9 +539,9 @@ __global__ void __launch_bounds__(Layout<DQK, DV>::kThreads, 1)
     flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                                  const __grid_constant__ CUtensorMap tm_k,
                                  const __grid_constant__ CUtensorMap tm_v,
-                                 __nv_bfloat16* __restrict__ out, int B, int Sq, int Skv, int H,
-                                 int Hkv, int causal, int window, int kv_offset,
-                                 float scale_log2) {
+                                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int B,
+                                 int Sq, int Skv, int H, int Hkv, int causal, int window,
+                                 int kv_offset, float scale_log2) {
   using L = Layout<DQK, DV>;
   using CQ = Cols<DQK>;
   using CV = Cols<DV>;
@@ -633,6 +642,9 @@ __global__ void __launch_bounds__(Layout<DQK, DV>::kThreads, 1)
         const int row = row0 + 8 * rr;
         if (row >= w.q_valid) continue;
         const float inv = 1.f / fmaxf(l[rr], 1e-30f);
+        // the row's log-sum-exp in natural units (m is in log2 units)
+        if (lse != nullptr && t == 0)
+          lse[(static_cast<long>(w.b) * H + w.h) * Sq + w.q0 + row] = (m[rr] + log2f(l[rr])) * kLn2;
         __nv_bfloat16* orow = out + ((static_cast<long>(w.b) * Sq + w.q0 + row) * H + w.h) *
                                         static_cast<long>(DV) +
                               2 * t;
@@ -731,12 +743,18 @@ int encode(CUtensorMap* map, const void* ptr, int D, int heads, int rows, int ba
 }
 
 template <int DQK, int DV>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv, int H,
-           int Hkv, int causal, int window, int kv_offset, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
+           int Skv, int H, int Hkv, int causal, int window, int kv_offset, cudaStream_t stream) {
   using L = Layout<DQK, DV>;
-  if (Skv == 0)  // no keys: every row is 0 / max(0, 1e-30), as the float32 kernel gives
+  if (Skv == 0) {  // no keys: every row is 0 / max(0, 1e-30), as the float32 kernel gives
+    if (lse != nullptr) {
+      const cudaError_t e =
+          cudaMemsetAsync(lse, 0, static_cast<size_t>(B) * H * Sq * sizeof(float), stream);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
     return static_cast<int>(cudaMemsetAsync(
         out, 0, static_cast<size_t>(B) * Sq * H * DV * sizeof(__nv_bfloat16), stream));
+  }
   const int q_tiles = (Sq + L::kBM - 1) / L::kBM;
   if (static_cast<long>(q_tiles) * H * B >= (1l << 31))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -768,8 +786,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
   const long tiles = static_cast<long>(q_tiles) * H * B;
   const int grid = static_cast<int>(tiles < sm_count ? tiles : sm_count);
   flash_attention_kernel_wgmma<DQK, DV><<<grid, L::kThreads, L::kSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), B, Sq, Skv, H, Hkv, causal, window, kv_offset,
-      kLog2e / sqrtf(static_cast<float>(DQK)));
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, B, Sq, Skv, H, Hkv, causal, window,
+      kv_offset, kLog2e / sqrtf(static_cast<float>(DQK)));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -777,13 +795,13 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
 
 // dtype 0 float32, 1 bfloat16: the route is a static choice by dtype
 int dispatch(int dtype, int D, int Dv, const void* q, const void* k, const void* v, void* out,
-             int B, int Sq, int Skv, int H, int Hkv, int causal, int window, int kv_offset,
-             cudaStream_t stream) {
-#define REPRO_FLASH(DQK, DV)                                                                  \
-  (dtype == 1 ? ws::launch<DQK, DV>(q, k, v, out, B, Sq, Skv, H, Hkv, causal, window,        \
-                                    kv_offset, stream)                                        \
-              : f32::launch<float, DQK, DV>(q, k, v, out, B, Sq, Skv, H, Hkv, causal, window, \
-                                            kv_offset, stream))
+             float* lse, int B, int Sq, int Skv, int H, int Hkv, int causal, int window,
+             int kv_offset, cudaStream_t stream) {
+#define REPRO_FLASH(DQK, DV)                                                                 \
+  (dtype == 1 ? ws::launch<DQK, DV>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, causal, window,  \
+                                    kv_offset, stream)                                       \
+              : f32::launch<float, DQK, DV>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, causal,   \
+                                            window, kv_offset, stream))
   if (D == 64 && Dv == 64) return REPRO_FLASH(64, 64);
   if (D == 128 && Dv == 128) return REPRO_FLASH(128, 128);
   if (D == 256 && Dv == 256) return REPRO_FLASH(256, 256);
@@ -799,14 +817,17 @@ int dispatch(int dtype, int D, int Dv, const void* q, const void* k, const void*
 // q [B, Sq, H, D], k [B, Skv, Hkv, D], v [B, Skv, Hkv, Dv], out [B, Sq, H,
 // Dv], all contiguous, 16-byte aligned, of one dtype (0 float32, 1
 // bfloat16); (D, Dv) in {(64, 64), (128, 128), (256, 256), (192, 128),
-// (96, 64), (32, 32)}; Hkv divides H. Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for widths or a dtype it does not take;
-// 10000 + the CUresult where a bf16 tensor map cannot be encoded).
-extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out, int B,
-                               int Sq, int Skv, int H, int Hkv, int D, int Dv, int dtype,
-                               int causal, int window, int kv_offset, void* stream) {
+// (96, 64), (32, 32)}; Hkv divides H. lse [B, H, Sq] float32 or null: each
+// row's log-sum-exp of its scaled, masked scores (natural log), which the
+// backward (flash_attention_backward.cu) recomputes P from; written only
+// when given. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for widths or a dtype it does not take; 10000 +
+// the CUresult where a bf16 tensor map cannot be encoded).
+extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,
+                               float* lse, int B, int Sq, int Skv, int H, int Hkv, int D, int Dv,
+                               int dtype, int causal, int window, int kv_offset, void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return 0;
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(dtype, D, Dv, q, k, v, out, B, Sq, Skv, H, Hkv, causal, window, kv_offset,
+  return dispatch(dtype, D, Dv, q, k, v, out, lse, B, Sq, Skv, H, Hkv, causal, window, kv_offset,
                   static_cast<cudaStream_t>(stream));
 }

@@ -11,9 +11,12 @@ order, so a CPU training run repeats bit for bit. ``seg == -1``
 marks padding, and so does an id ``>= num_segments`` (dropped, as
 ``jax.ops.segment_sum`` drops it); ``idx == -1`` marks a padding gather.
 
-The ``*_backward_ref`` functions are the backwards written out from their
-formulas, the twins of the backward kernels; the tests hold them against
-``torch.autograd`` of the plain forwards.
+The GNN ``*_backward_ref`` functions are the backwards written out from
+their formulas, the twins of the backward kernels; the tests hold them
+against ``torch.autograd`` of the plain forwards. The attention and SSD
+backward kernels' twins are ``torch.autograd`` of the plain forwards
+(``attention_backward_ref``, ``ssd_backward_ref``); ``ssd_chunk_grads_ref``
+writes out the SSD backward kernels' algorithm, held against them.
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ __all__ = [
     "gat_softmax_aggregate_ref",
     "gat_softmax_aggregate_backward_ref",
     "attention_ref",
+    "attention_lse_ref",
+    "attention_backward_ref",
     "flash_attention_ref",
     "ssd_scan_ref",
     "ssd_chunked_ref",
@@ -39,6 +44,8 @@ __all__ = [
     "ssd_state_pass_ref",
     "ssd_chunk_out_ref",
     "ssd_phases_ref",
+    "ssd_backward_ref",
+    "ssd_chunk_grads_ref",
 ]
 
 
@@ -264,6 +271,35 @@ def attention_ref(
 flash_attention_ref = attention_ref
 
 
+def attention_lse_ref(q, k, *, causal: bool = True, window: int = 0, kv_offset: int = 0):
+    """Each query row's log-sum-exp of its scaled, masked scores (float32
+    [B, H, Sq], natural log), the flash kernel's ``lse`` output: the
+    backward kernel recomputes P = exp(s - lse) from it."""
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    q5 = q.reshape(b, sq, hkv, h // hkv, d).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q5, k.float()) / d**0.5
+    q_pos = kv_offset + torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    return torch.logsumexp(torch.where(mask, s, -1e30), dim=-1).reshape(b, h, sq)
+
+
+def attention_backward_ref(q, k, v, dout, *, causal: bool = True, window: int = 0,
+                           kv_offset: int = 0):
+    """(dq, dk, dv) of :func:`attention_ref` for the output gradient
+    ``dout``, by ``torch.autograd`` (the backward kernel's twin); each in
+    its input's dtype."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = attention_ref(*leaves, causal=causal, window=window, kv_offset=kv_offset)
+        return torch.autograd.grad(out, leaves, dout)
+
+
 def ssd_scan_ref(
     x: torch.Tensor,  # [S, H, P]
     dt: torch.Tensor,  # [S, H]
@@ -413,3 +449,83 @@ def ssd_phases_ref(x, a, dt, B, C, *, chunk: int, init_state=None):
     states, decay = ssd_chunk_states_ref(x, a, dt, B, chunk=chunk)
     entering, final = ssd_state_pass_ref(states, decay, init_state)
     return ssd_chunk_out_ref(x, a, dt, B, C, entering, chunk=chunk), final
+
+
+def ssd_backward_ref(x, a, dt, B, C, dy, dfinal=None, *, chunk: int = 128, init_state=None):
+    """The gradients of :func:`ssd_chunked_ref` for dy (y's gradient) and
+    dfinal (the final state's, None: zero), by ``torch.autograd`` (the SSD
+    backward kernels' twin): (dx, da, ddt, dB, dC, dinit), dt's gradient
+    its direct part only (a = dt * A carries the rest), dinit None without
+    an ``init_state``."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x, a, dt, B, C)]
+        init = None if init_state is None else init_state.detach().requires_grad_(True)
+        y, final = ssd_chunked_ref(*ins, chunk=chunk, init_state=init)
+        outs, grads = [y], [dy]
+        if dfinal is not None:
+            outs.append(final)
+            grads.append(dfinal)
+        got = torch.autograd.grad(outs, ins + ([init] if init is not None else []), grads)
+    return (*got[:5], got[5] if init is not None else None)
+
+
+def ssd_chunk_grads_ref(x, a, dt, B, C, dy, dfinal=None, *, chunk: int = 64, init_state=None):
+    """The SSD backward kernels' algorithm (``csrc/ssd_scan_backward.cu``)
+    in plain PyTorch, float32: the states entering each chunk (H_c) and the
+    gradients arriving at each chunk's end (D_c) by two state passes, then
+    each chunk's gradients from its quadratic form. Returns what
+    :func:`ssd_backward_ref` returns."""
+    bz, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    reps = H // G
+    xc, ac, dc, Bc, Cc, csum = _ssd_chunks(x, a, dt, B, C, chunk)
+    dyc = _ssd_chunks(dy, a, dt, B, C, chunk)[0]
+    nc = xc.shape[1]
+    last = csum[:, :, -1:]  # [Bz, nc, 1, H]
+    ej = torch.exp(last - csum)  # exp(csum_L - csum_j)
+    ei = torch.exp(csum)
+    # the chunks' own forward and reverse states, then the two passes
+    own_f = torch.einsum("bclhp,bclhn->bchpn", xc * (ej * dc)[..., None], Bc)
+    own_r = torch.einsum("bclhp,bclhn->bchpn", dyc * ei[..., None], Cc)
+    decay = torch.exp(last[:, :, 0])  # [Bz, nc, H]
+    h = x.new_zeros((bz, H, P, N), dtype=torch.float32) if init_state is None else init_state.float()
+    entering = []
+    for c in range(nc):
+        entering.append(h)
+        h = decay[:, c, :, None, None] * h + own_f[:, c]
+    g = x.new_zeros((bz, H, P, N), dtype=torch.float32) if dfinal is None else dfinal.float()
+    arriving = [None] * nc
+    for c in reversed(range(nc)):
+        arriving[c] = g
+        g = decay[:, c, :, None, None] * g + own_r[:, c]
+    Hc, Dc = torch.stack(entering, 1), torch.stack(arriving, 1)  # [Bz, nc, H, P, N]
+    ii = torch.arange(chunk, device=x.device)
+    causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]  # i, j
+    seg = csum[:, :, :, None, :] - csum[:, :, None, :, :]
+    E = torch.where(causal, torch.exp(torch.where(causal, seg, 0.0)), 0.0)  # [Bz, nc, i, j, H]
+    Gm = torch.einsum("bcihn,bcjhn->bcijh", Cc, Bc)
+    Xm = torch.einsum("bcihp,bcjhp->bcijh", dyc, xc)
+    dtj = dc[:, :, None, :, :]
+    m1, m2, w = Gm * E * dtj, Xm * E * dtj, Gm * Xm * E
+    u = torch.einsum("bcjhn,bchpn->bcjhp", Bc, Dc)  # D_c B_j
+    dx = torch.einsum("bcijh,bcihp->bcjhp", m1, dyc) + (dc * ej)[..., None] * u
+    dB = torch.einsum("bcijh,bcihn->bcjhn", m2, Cc) + (dc * ej)[..., None] * torch.einsum(
+        "bcjhp,bchpn->bcjhn", xc, Dc)
+    dC = torch.einsum("bcijh,bcjhn->bcihn", m2, Bc) + ei[..., None] * torch.einsum(
+        "bcihp,bchpn->bcihn", dyc, Hc)
+    xdb = (xc * u).sum(-1)  # x_j^T D_c B_j
+    ddt = w.sum(2) + ej * xdb
+    q = w * dtj
+    tj = dc * ej * xdb
+    rr = ei * (Cc * torch.einsum("bcihp,bchpn->bcihn", dyc, Hc)).sum(-1)
+    dcs = q.sum(3) - q.sum(2) + rr - tj
+    dcs[:, :, -1] += tj.sum(2) + decay * (Dc * Hc).sum((-1, -2))
+    da = torch.flip(torch.cumsum(torch.flip(dcs, [2]), 2), [2])
+
+    def unchunk(t):
+        return t.reshape((bz, nc * chunk) + t.shape[3:])[:, :S]
+
+    dB_g, dC_g = (unchunk(t).reshape(bz, S, G, reps, N).sum(3) for t in (dB, dC))
+    dinit = g if init_state is not None else None
+    return (unchunk(dx).to(x.dtype), unchunk(da), unchunk(ddt), dB_g.to(B.dtype),
+            dC_g.to(C.dtype), dinit)

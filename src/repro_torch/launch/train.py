@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train gnn --config sage-products \
         [--epochs 1] [--scale 0.25] [--seed 0] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.train lm --arch gemma-2b \
+        [--steps 50] [--batch 8] [--seq 128] [--seed 0] [--ckpt PATH] [--device cpu]
 
 Counterpart of ``repro/launch/train.py``. The GNN mode runs one of the
 paper's workloads (``repro_torch.configs.gnn.GNN_CONFIGS``: gcn, sage and
@@ -14,8 +16,12 @@ numpy draw (``GNNModel.init_numpy(seed)``), never from torch's RNG (the
 JAX trainer draws its own from ``jax.random``, which the port cannot
 repeat).
 
-The LM mode is not ported: it raises ``NotImplementedError`` (ROADMAP.md,
-Queue 1, the LM-training item).
+The LM mode trains an architecture of the pool at its reduced config
+(the reference's ``--reduced`` is a ``store_true`` flag that defaults to
+True, so it cannot be turned off; the port keeps that) on the port's
+``LMTrainer`` over the synthetic token stream, on the card unless
+``--device cpu``; configs fed embeddings exit as the reference's do. The
+parameters are drawn from a ``torch.Generator`` seeded with ``--seed``.
 """
 from __future__ import annotations
 
@@ -119,17 +125,33 @@ def run_gnn(args) -> dict:
             "sample_time_s": log.sample_time, "compute_time_s": log.compute_time}
 
 
-def run_lm(args):
-    """The LM mode: not ported, it raises."""
-    raise NotImplementedError(
-        "LM training is not ported yet (ROADMAP.md, Queue 1: LM training, with "
-        "lm_loss, LMTrainer and the token stream); serve an LM with "
-        "python -m repro_torch.launch.serve"
-    )
+def run_lm(args) -> dict:
+    """Train ``args.steps`` steps of ``args.arch`` (reduced), as the
+    reference's ``run_lm`` does: prints the first and last NLL, saves a
+    checkpoint to ``args.ckpt`` if given; returns ``{"steps", "losses",
+    "compute_time_s"}``."""
+    from repro_torch.configs import get_config
+    from repro_torch.train import LMTrainer
+
+    cfg = get_config(args.arch, reduced=args.reduced)
+    if cfg.input_mode == "embeddings":
+        raise SystemExit(
+            f"{cfg.name} consumes precomputed embeddings; use "
+            "python -m repro_torch.launch.serve (transformer decode)"
+        )
+    tr = LMTrainer(cfg, batch=args.batch, seq_len=args.seq, seed=args.seed, device=args.device)
+    log = tr.train(args.steps, log_every=args.log_every)
+    print(f"nll: {log.losses[0]:.4f} -> {log.losses[-1]:.4f}")
+    if args.ckpt:
+        tr.save(args.ckpt, step=args.steps)
+        print("checkpoint saved to", args.ckpt)
+    return {"steps": list(log.steps), "losses": list(log.losses),
+            "compute_time_s": log.compute_time}
 
 
 def parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(description="Train a GNN workload of the paper on the port.")
+    ap = argparse.ArgumentParser(description="Train a GNN workload of the paper, or an LM of "
+                                             "the pool, on the port.")
     sub = ap.add_subparsers(dest="mode", required=True)
     g = sub.add_parser("gnn")
     g.add_argument("--config", default="sage-products")
@@ -138,18 +160,22 @@ def parser() -> argparse.ArgumentParser:
     g.add_argument("--seed", type=int, default=0)
     g.add_argument("--log-every", type=int, default=10)
     g.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
-    sub.add_parser("lm", help="not ported: raises NotImplementedError")
+    lm = sub.add_parser("lm")
+    lm.add_argument("--arch", default="gemma-2b")
+    lm.add_argument("--reduced", action="store_true", default=True)  # as the reference's
+    lm.add_argument("--steps", type=int, default=50)
+    lm.add_argument("--batch", type=int, default=8)
+    lm.add_argument("--seq", type=int, default=128)
+    lm.add_argument("--seed", type=int, default=0)
+    lm.add_argument("--log-every", type=int, default=10)
+    lm.add_argument("--ckpt", default="")
+    lm.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     return ap
 
 
 def main(argv=None):
-    ap = parser()
-    args, rest = ap.parse_known_args(argv)
-    if args.mode == "lm":  # raises, whatever options of the reference follow
-        return run_lm(args)
-    if rest:
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
-    return run_gnn(args)
+    args = parser().parse_args(argv)
+    return run_lm(args) if args.mode == "lm" else run_gnn(args)
 
 
 if __name__ == "__main__":

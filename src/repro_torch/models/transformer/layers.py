@@ -3,9 +3,9 @@ sliding-window, KV cache), gated MLPs. Port of
 ``repro/models/transformer/layers.py``.
 
 Attention dispatch follows the tensors' device:
-  * CUDA — every full-sequence attention (prefill) goes through the
-    hand-written flash-attention kernel (``kernels.ops.mha_attention``),
-    MLA's too (q and k 192 wide, v 128);
+  * CUDA — every full-sequence attention (prefill, and training forward
+    and backward) goes through the hand-written flash-attention kernels
+    (``kernels.ops.mha_attention``), MLA's too (q and k 192 wide, v 128);
   * CPU — the plain paths of the JAX package: dense masked attention, or
     blockwise online-softmax attention past ``BLOCKWISE_THRESHOLD`` keys.
 Decode (one query against the cache) is plain tensor code on both, as the

@@ -1,6 +1,6 @@
 """Decoder backbone: embedding -> layers -> norm -> tied head. Port of
 ``repro/models/transformer/model.py`` for the dense, MoE and SSM families
-(attention or MLA mixers, gated or MoE MLPs, Mamba-2 blocks).
+(attention or MLA mixers, gated or MoE MLPs, Mamba-2 and RG-LRU blocks).
 
 Parameters are a plain dictionary: ``embed`` [Vp, d], ``final_norm`` [d],
 (``head`` [d, Vp] when untied) and ``layers``, one dictionary per layer in
@@ -9,21 +9,31 @@ model order with the JAX package's keys (``norm1``, ``mixer``, ``norm2``,
 leading ``[reps]`` axis (``stage_plan``); :func:`unstack_layers` maps that
 to the port's list. Caches are one dictionary per layer too.
 
-Dtypes: a tensor the JAX package only ever casts to the activation dtype
-before use (every matrix, the embedding, the norm weights) is stored in
-``cfg.dtype``, cast once at load; the same cast at every use gives the same
-bits. Mamba-2's ``conv``, ``A_log``, ``D`` and ``dt_bias``, which the JAX
-package applies in float32, stay float32.
+Dtypes: :func:`init_params` and :func:`load_jax_params` store a tensor
+the JAX package only ever casts to the activation dtype before use (every
+matrix, the embedding, the norm weights) in ``cfg.dtype``, cast once (the
+bits of the reference's cast at every use); leaves it applies in float32 (Mamba-2's and RG-LRU's conv
+taps, ``A_log``, ``D``, ``dt_bias``, RG-LRU's ``lam``) stay float32.
 
 Three entry points share one :func:`forward`: training (no cache),
 prefill (S > 1, cache) and decode (S == 1, cache). It returns the MoE
-auxiliary loss beside the logits, as the JAX forward does. RG-LRU raises
-``NotImplementedError`` (a later slice, ROADMAP queue 1).
+auxiliary loss beside the logits, as the JAX forward does. With
+``remat=True`` (training) each layer runs under
+``torch.utils.checkpoint``, the port of the reference's ``jax.checkpoint``
+of its scanned body: its activations are recomputed in the backward (the
+kernels' autograd Functions save their state again on that second run).
+:func:`lm_loss` is the reference's training loss.
+
+The forward casts every parameter to ``cfg.dtype`` at use, as the
+reference does, so it takes float32 parameters too: the LM trainer keeps
+float32 master weights, as the reference trainer does, and a bf16 config
+then computes in bf16 on them.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.transformer.config import ArchConfig
 from repro_torch.models.transformer.layers import (
@@ -51,12 +61,12 @@ __all__ = [
     "init_cache",
     "cache_len_for",
     "forward",
+    "lm_loss",
     "param_count",
 ]
 
 # leaves the JAX package applies in float32; every other leaf is stored in cfg.dtype
-_FLOAT32_LEAVES = frozenset({"conv", "A_log", "D", "dt_bias"})
-_RGLRU_TODO = "RG-LRU (RecurrentGemma) is not ported yet: ROADMAP queue 1, 'RG-LRU'"
+_FLOAT32_LEAVES = frozenset({"conv", "A_log", "D", "dt_bias", "lam"})
 
 
 def stage_plan(cfg: ArchConfig) -> list[tuple[tuple[str, ...], int]]:
@@ -85,11 +95,6 @@ def _store(tree, dtype: torch.dtype, name: str = ""):
     return tree.to(torch.float32 if name in _FLOAT32_LEAVES else dtype)
 
 
-def _supported(cfg: ArchConfig) -> None:
-    if "rglru" in cfg.pattern:
-        raise NotImplementedError(_RGLRU_TODO)
-
-
 def _init_layer(generator, cfg: ArchConfig, kind: str, device) -> Params:
     p: Params = {"norm1": torch.ones((cfg.d_model,), dtype=torch.float32, device=device)}
     if kind in ("attn", "local_attn"):
@@ -114,7 +119,6 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device="cuda") -> P
     in); embedding 0.02; norms 1), drawn from ``generator`` (which must live
     on ``device``) and stored as the module docstring says. The draws differ
     from ``jax.random``'s: parity tests load the JAX tree instead."""
-    _supported(cfg)
     dev = torch.device(device)
     dtype = getattr(torch, cfg.dtype)
     params: Params = {
@@ -155,7 +159,6 @@ def load_jax_params(tree, cfg: ArchConfig, device="cuda") -> Params:
     ``embed``, ``final_norm`` and ``head`` as they are, ``stages`` through
     :func:`unstack_layers` into ``layers``; every leaf cast as the module
     docstring says."""
-    _supported(cfg)
     dev = torch.device(device)
     dtype = getattr(torch, cfg.dtype)
 
@@ -215,7 +218,11 @@ def _init_layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int, devi
             "pos": 0,
         }
     if kind == "rglru":
-        raise NotImplementedError("RG-LRU caches are not ported yet: ROADMAP queue 1, 'RG-LRU'")
+        return {
+            "state": torch.zeros((batch, cfg.d_model), dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, 3, cfg.d_model), dtype=dtype, device=device),
+            "pos": 0,
+        }
     raise ValueError(kind)
 
 
@@ -274,6 +281,11 @@ def _layer_forward(lp: Params, cfg: ArchConfig, kind: str, x, positions, cache):
     return x, new_cache, aux
 
 
+def _remat_layer(lp: Params, cfg: ArchConfig, kind: str, x, positions):
+    x, _, aux = _layer_forward(lp, cfg, kind, x, positions, None)
+    return x, aux
+
+
 def forward(
     params: Params,
     cfg: ArchConfig,
@@ -282,14 +294,17 @@ def forward(
     pos: int = 0,
     *,
     last_only: bool = False,
+    remat: bool = False,
 ):
     """Returns (logits [B, S, Vp] float32, or [B, 1, Vp] with
     ``last_only``; aux, the float32 sum of the MoE layers' load-balance
     losses (0.0 without experts); the new cache, or None without one), as
     the JAX forward does. ``inputs`` is int tokens [B, S], or embeddings
     [B, S, d] for ``input_mode == "embeddings"``. Logits of the padded
-    vocabulary rows are -1e30."""
-    _supported(cfg)
+    vocabulary rows are -1e30. ``remat`` (no cache) recomputes each layer
+    in the backward (``torch.utils.checkpoint``)."""
+    if remat and cache is not None:
+        raise ValueError("remat is for training, without a cache")
     dtype = getattr(torch, cfg.dtype)
     if cfg.input_mode == "tokens":
         x = params["embed"][inputs].to(dtype)
@@ -300,8 +315,13 @@ def forward(
     new_caches = [] if cache is not None else None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for li, kind in enumerate(cfg.layer_kinds()):
-        x, nc, aux = _layer_forward(params["layers"][li], cfg, kind, x, positions,
-                                    None if cache is None else cache[li])
+        if remat:
+            x, aux = checkpoint(_remat_layer, params["layers"][li], cfg, kind, x, positions,
+                                use_reentrant=False)
+            nc = None
+        else:
+            x, nc, aux = _layer_forward(params["layers"][li], cfg, kind, x, positions,
+                                        None if cache is None else cache[li])
         if aux is not None:
             aux_total = aux_total + aux
         if new_caches is not None:
@@ -315,3 +335,44 @@ def forward(
         valid = torch.arange(cfg.padded_vocab_size, device=logits.device) < cfg.vocab_size
         logits = torch.where(valid, logits, -1e30)
     return logits, aux_total, new_caches
+
+
+class _LogitTerms(torch.autograd.Function):
+    """(logsumexp of the logits over the vocabulary, the targets' logits),
+    as ``torch.logsumexp`` and ``torch.gather`` give them, with the same
+    gradient, exp(logits - logsumexp) times its gradient plus the target
+    logit's gradient at its index, built in one logits-sized buffer: their
+    autograd holds three or four such temporaries, 4.2 GB each in float32
+    at 4,096 tokens of a 256,000-word vocabulary."""
+
+    @staticmethod
+    def forward(ctx, logits, targets):
+        logz = torch.logsumexp(logits, dim=-1)
+        ctx.save_for_backward(logits, logz, targets)
+        return logz, torch.gather(logits, -1, targets[..., None])[..., 0]
+
+    @staticmethod
+    def backward(ctx, g_logz, g_tgt):
+        logits, logz, targets = ctx.saved_tensors
+        grad = torch.sub(logits, logz[..., None]).exp_().mul_(g_logz[..., None])
+        return grad.scatter_add_(-1, targets[..., None], g_tgt[..., None]), None
+
+
+def lm_loss(
+    params: Params,
+    cfg: ArchConfig,
+    inputs: torch.Tensor,
+    targets: torch.Tensor,
+    *,
+    remat: bool = True,
+    z_loss: float = 1e-4,
+):
+    """The reference's training loss (``repro/models/transformer/model.py::
+    lm_loss``): the mean NLL of ``targets`` [B, S] under the forward's
+    logits (from ``logsumexp`` and the target logit), plus the MoE aux
+    loss, plus ``z_loss`` times the mean squared ``logsumexp``. Returns
+    (loss, (nll, aux))."""
+    logits, aux, _ = forward(params, cfg, inputs, remat=remat)
+    logz, tgt_logit = _LogitTerms.apply(logits, targets.long())
+    nll = (logz - tgt_logit).mean()
+    return nll + aux + z_loss * torch.square(logz).mean(), (nll, aux)

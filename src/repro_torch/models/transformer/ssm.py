@@ -1,11 +1,20 @@
-"""Mamba-2 (SSD) mixer. Port of ``repro/models/transformer/ssm.py``.
+"""State-space and linear-recurrence mixers: Mamba-2 (SSD) and RG-LRU
+(Griffin / RecurrentGemma). Port of ``repro/models/transformer/ssm.py``.
 
-The full-sequence path (training forward and prefill) runs the SSD scan
-through ``kernels.ops.ssd_scan``: the hand-written kernel on the card, the
-chunked plain version (``ssd_chunked_ref``, the port of
-``ssd_chunked_jnp``) on the CPU. A prefill starts from the cache's state.
-The one-token decode step is plain tensor code, as in the JAX package.
-RG-LRU (RecurrentGemma) is a later slice.
+Mamba-2's full-sequence path (training forward and prefill) runs the SSD
+scan through ``kernels.ops.ssd_scan``: the hand-written kernels on the card
+(forward, and backward under autograd), the chunked plain version
+(``ssd_chunked_ref``, the port of ``ssd_chunked_jnp``) on the CPU. A
+prefill starts from the cache's state. The one-token decode step is plain
+tensor code, as in the JAX package.
+
+RG-LRU is plain tensor code on both devices, as the JAX package has no
+kernel for it: a width-4 causal conv, then the gated first-order
+recurrence h_t = a_t h_{t-1} + b_t, which the JAX package runs with
+``jax.lax.associative_scan`` and the port with a doubling (Hillis-Steele)
+scan of the same combine, log2(S) steps of whole-sequence products (no
+cumulative product or division, which would underflow float32: log a_t
+reaches -8 softplus(lam) r_t, about -18.5 a step at the initial lam).
 """
 from __future__ import annotations
 
@@ -14,11 +23,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ops import ssd_scan
 from repro_torch.models.transformer.config import ArchConfig, SSMConfig
-from repro_torch.models.transformer.layers import Params, dense_init, mm
+from repro_torch.models.transformer.layers import Params, dense_init, gelu, mm
 
-__all__ = ["init_mamba2", "mamba2_forward", "init_rglru", "rglru_forward"]
-
-_RGLRU_TODO = "RG-LRU (RecurrentGemma) is not ported yet: ROADMAP queue 1, 'RG-LRU'"
+__all__ = ["init_mamba2", "mamba2_forward", "init_rglru", "rglru_forward", "linear_scan"]
 
 
 def _dims(cfg: ArchConfig):
@@ -108,9 +115,76 @@ def mamba2_forward(
     return out, new_cache
 
 
+# ---------------------------------------------------------------------------
+# RG-LRU block (RecurrentGemma / Griffin recurrent block)
+# ---------------------------------------------------------------------------
+
+_RGLRU_C = 8.0
+
+
 def init_rglru(generator: torch.Generator, cfg: ArchConfig, device=None) -> Params:
-    raise NotImplementedError(_RGLRU_TODO)
+    d = cfg.d_model
+    return {
+        "in_proj": dense_init(generator, (d, 2 * d), device=device),  # u branch + gate branch
+        "conv": dense_init(generator, (4, d), scale=0.2, device=device),
+        "w_ig": dense_init(generator, (d, d), device=device),  # input gate
+        "w_rg": dense_init(generator, (d, d), device=device),  # recurrence gate
+        "lam": torch.full((d,), 2.2, dtype=torch.float32, device=device),  # softplus^-1-ish init
+        "out_proj": dense_init(generator, (d, d), device=device),
+    }
 
 
-def rglru_forward(p: Params, cfg: ArchConfig, x, *, cache=None):
-    raise NotImplementedError(_RGLRU_TODO)
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t along dim 1 from h_{-1} = 0, for a, b [B, S,
+    ...]: a doubling scan of ``associative_scan``'s combine (a_l a_r,
+    a_r b_l + b_r), element t combined with element t - 2^k at step k. A
+    product that underflows to 0 there is harmless; differentiable."""
+    n = a.shape[1]
+    shift = 1
+    while shift < n:
+        b = torch.cat([b[:, :shift], a[:, shift:] * b[:, :-shift] + b[:, shift:]], dim=1)
+        a = torch.cat([a[:, :shift], a[:, :-shift] * a[:, shift:]], dim=1)
+        shift *= 2
+    return b
+
+
+def rglru_forward(
+    p: Params,
+    cfg: ArchConfig,
+    x: torch.Tensor,  # [B, S, d]
+    *,
+    cache: Params | None = None,  # {"state": [B, d] float32, "conv": [B, 3, d], "pos": int}
+):
+    """Returns (y [B, S, d], new cache or None). ``in_proj`` splits as
+    u | gate; u runs through the causal conv, then the input gate i and
+    the recurrence gate r (float32); log a = -8 softplus(lam) r, the input
+    b = sqrt(1 - a^2) i u; h_t = a_t h_{t-1} + b_t from the cache's state
+    (zeros without one), one step at S == 1 under a cache; out =
+    out_proj(h * gelu(gate))."""
+    b, S, d = x.shape
+    u, gate = torch.chunk(mm(x, p["in_proj"]), 2, dim=-1)
+    conv_state = cache["conv"] if cache is not None else None
+    u, new_conv = _causal_conv(u, p["conv"], conv_state)
+
+    i_g = torch.sigmoid(mm(u, p["w_ig"])).float()
+    r_g = torch.sigmoid(mm(u, p["w_rg"])).float()
+    log_a = -_RGLRU_C * F.softplus(p["lam"]) * r_g  # [B, S, d] <= 0
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), 1e-9, 1.0))
+    bterm = beta * (i_g * u.float())
+
+    if S == 1 and cache is not None:
+        state = a[:, 0] * cache["state"] + bterm[:, 0]
+        hs = state[:, None]
+    else:
+        if cache is not None:  # fold the initial state into the first input
+            bterm = torch.cat([bterm[:, :1] + a[:, :1] * cache["state"][:, None], bterm[:, 1:]],
+                              dim=1)
+        hs = linear_scan(a, bterm)
+        state = hs[:, -1]
+    y = hs.to(x.dtype) * gelu(gate)
+    out = mm(y, p["out_proj"]).to(x.dtype)
+    new_cache = (
+        {"state": state, "conv": new_conv, "pos": cache["pos"] + S} if cache is not None else None
+    )
+    return out, new_cache

@@ -1,10 +1,10 @@
-"""Training: the hand-written optimizers, checkpoints and the GNN trainer.
+"""Training: the hand-written optimizers, checkpoints, the GNN trainer
+(data-parallel training included) and the LM trainer.
 
-Counterpart of ``repro.train`` for the GNN side, data-parallel training
-included; the LM trainer comes in a later slice."""
+Counterpart of ``repro.train``."""
 from repro_torch.train.checkpoint import CheckpointError, load_checkpoint, save_checkpoint
 from repro_torch.train.data_parallel import DataParallelGNNTrainer, DPTrainLog, stack_batches
-from repro_torch.train.loop import GNNTrainer, TrainLog
+from repro_torch.train.loop import GNNTrainer, LMTrainer, TrainLog
 from repro_torch.train.optim import (
     AdamWConfig,
     adamw_init,
@@ -23,6 +23,7 @@ __all__ = [
     "save_checkpoint",
     "load_checkpoint",
     "GNNTrainer",
+    "LMTrainer",
     "TrainLog",
     "DataParallelGNNTrainer",
     "DPTrainLog",

@@ -1,4 +1,4 @@
-"""The GNN training loop.
+"""The training loops: GNN and causal LM.
 
 Counterpart of ``repro/train/loop.py::GNNTrainer``: the GLISP batch
 pipeline (``repro_torch.api.pipeline.BatchPipeline``) feeds padded
@@ -16,9 +16,23 @@ The initial parameters are the model's own (``GNNModel`` draws them with
 numpy, or :func:`~repro_torch.models.gnn.load_jax_params` loads them);
 the JAX trainer draws its own from ``jax.random``, which the port cannot
 repeat.
+
+``LMTrainer`` is the counterpart of ``repro/train/loop.py::LMTrainer``:
+causal-LM training on the synthetic token stream (``repro_torch.data.
+tokens``, the reference's batches bit for bit), each step ``lm_loss``
+(per-layer remat by default) then the same :func:`descend`. On the card
+attention and the SSD scan run forward and backward as the port's
+kernels. Its parameters are float32 master weights, as the reference
+trainer's are: the forward casts each to the config's dtype at use
+(``mm``, ``rms_norm``, the embedding and the head), so a bf16 config
+computes in bf16 while AdamW updates float32 weights with float32 moments.
+They are drawn from an explicit ``torch.Generator`` (or given: parity
+tests load the reference's through ``models.transformer.model.
+load_jax_params`` of a float32 config).
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from dataclasses import dataclass, field
@@ -29,7 +43,12 @@ import torch
 from repro_torch.api.pipeline import BatchPipeline
 from repro_torch.core.sampling.service import DEFAULT_DIRECTION
 from repro_torch.data.graph_loader import SeedBatchLoader
+from repro_torch.data.tokens import SyntheticTokenStream
+from repro_torch.device import resolve_device
 from repro_torch.models.gnn.models import GNNModel
+from repro_torch.models.transformer.config import ArchConfig
+from repro_torch.models.transformer.layers import Params
+from repro_torch.models.transformer.model import init_params, lm_loss
 from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.train.optim import (
     AdamWConfig,
@@ -39,7 +58,7 @@ from repro_torch.train.optim import (
     tree_map,
 )
 
-__all__ = ["GNNTrainer", "TrainLog"]
+__all__ = ["GNNTrainer", "LMTrainer", "TrainLog", "descend"]
 
 
 @dataclass
@@ -55,17 +74,14 @@ class TrainLog:
 def descend(params, loss_fn, opt_state, opt_cfg: AdamWConfig):
     """One optimizer step in place: clear the gradients of ``params`` (a
     tree of leaf tensors), ``loss_fn().backward()``, then AdamW into the
-    same tensors. Returns the loss (0-d, detached, not waited for) and the
-    new optimizer state."""
+    same tensors and moments. Returns the loss (0-d, detached, not waited
+    for) and the new optimizer state."""
     for p in tree_leaves(params):
         p.grad = None
     loss = loss_fn()
     loss.backward()
     grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, params)
-    new, opt_state, _ = adamw_update(params, grads, opt_state, opt_cfg)
-    with torch.no_grad():
-        for p, q in zip(tree_leaves(params), tree_leaves(new)):
-            p.copy_(q)
+    _, opt_state, _ = adamw_update(params, grads, opt_state, opt_cfg)
     return loss.detach(), opt_state
 
 
@@ -223,3 +239,65 @@ class GNNTrainer:
             logits = self.model.apply(batch)
             accs.append(float((logits.argmax(-1) == batch.labels.long()).float().mean()))
         return float(np.mean(accs)) if accs else 0.0
+
+
+class LMTrainer:
+    def __init__(
+        self,
+        cfg: ArchConfig,
+        batch: int,
+        seq_len: int,
+        opt: AdamWConfig | None = None,
+        seed: int = 0,
+        remat: bool = True,
+        *,
+        device="cuda",
+        generator: torch.Generator | None = None,
+        params: Params | None = None,
+    ):
+        """``generator`` draws the initial float32 parameters (default: one
+        on ``device`` seeded with ``seed``); ``params`` replaces them (a
+        tree from ``init_params`` or ``load_jax_params``, trained in
+        place)."""
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.remat = remat
+        self.stream = SyntheticTokenStream(cfg.vocab_size, batch, seq_len, seed)
+        self.opt_cfg = opt or AdamWConfig(lr=3e-4)
+        if params is None:
+            gen = generator or torch.Generator(self.device).manual_seed(seed)
+            params = init_params(dataclasses.replace(cfg, dtype="float32"), gen, self.device)
+        self.params = params
+        for p in tree_leaves(self.params):
+            p.requires_grad_(True)
+        self.opt_state = adamw_init(self.params)
+        self.log = TrainLog()
+
+    def train_step(self, inputs: torch.Tensor, targets: torch.Tensor):
+        """One step on a batch on the trainer's device: ``lm_loss``, its
+        backward, AdamW. Returns (loss, nll), 0-d tensors not waited for."""
+        out = {}
+
+        def loss_fn():
+            loss, (nll, _) = lm_loss(self.params, self.cfg, inputs, targets, remat=self.remat)
+            out["nll"] = nll.detach()
+            return loss
+
+        loss, self.opt_state = descend(self.params, loss_fn, self.opt_state, self.opt_cfg)
+        return loss, out["nll"]
+
+    def train(self, steps: int, log_every: int = 10):
+        for s in range(steps):
+            inp, tgt = self.stream.next_batch()
+            t0 = time.perf_counter()
+            _, nll = self.train_step(torch.as_tensor(inp, device=self.device).long(),
+                                     torch.as_tensor(tgt, device=self.device).long())
+            nll = float(nll)
+            self.log.compute_time += time.perf_counter() - t0
+            if s % log_every == 0 or s == steps - 1:
+                self.log.steps.append(s)
+                self.log.losses.append(nll)
+        return self.log
+
+    def save(self, path: str, step: int = 0) -> str:
+        return save_checkpoint(path, {"params": self.params, "opt": self.opt_state}, step)

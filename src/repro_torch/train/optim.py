@@ -5,8 +5,12 @@ Counterpart of ``repro/train/optim.py:19-96``, on trees of tensors (nested
 dicts and lists, such as ``GNNModel.param_tree()``): the same formulas in
 float32, the learning-rate schedule computed in float32 tensors as ``jnp``
 computes it, and leaves visited in ``jax.tree.leaves`` order (dict keys
-sorted). The updates are functional: they return new tensors and leave
-their inputs as they are.
+sorted). ``sgd_update`` is functional: it returns new tensors and leaves
+its inputs as they are. ``adamw_update`` writes the reference's values
+into the parameters and the moments in place, leaf by leaf and in slices
+of ``_SLICE`` elements (the formulas are elementwise), so that a step of a
+multi-GB model holds a few slices of temporaries and not a second copy of
+its moments or of its largest leaf.
 """
 from __future__ import annotations
 
@@ -25,6 +29,8 @@ __all__ = [
     "tree_leaves",
     "tree_map",
 ]
+
+_SLICE = 1 << 24  # elements adamw_update updates at a time
 
 
 @dataclass(frozen=True)
@@ -70,10 +76,16 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_frac + (1 - cfg.min_lr_frac) * cos)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def _clip_scale(grads, max_norm: float):
     gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
-    return tree_map(lambda g: g * scale, grads), gn
+    return torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0), gn
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled to a global norm of at most ``max_norm``, in float32 as
+    ``jnp`` promotes a bf16 leaf times a float32 scale; the norm)."""
+    scale, gn = _clip_scale(grads, max_norm)
+    return tree_map(lambda g: g.float() * scale, grads), gn
 
 
 def adamw_init(params):
@@ -87,13 +99,11 @@ def adamw_init(params):
 
 @torch.no_grad()
 def adamw_update(params, grads, state, cfg: AdamWConfig):
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    """One AdamW step in place: the params and the state's moments are
+    overwritten and returned as (params, new state, {"lr", "grad_norm"})."""
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
-
-    mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(), state["mu"], grads)
-    nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.float()), state["nu"], grads)
     bc1 = 1 - b1 ** step.float()
     bc2 = 1 - b2 ** step.float()
 
@@ -104,8 +114,18 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
             p.float() - lr * (mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p)
         ).to(p.dtype)
 
-    new_params = tree_map(upd, params, mu, nu)
-    return new_params, {"mu": mu, "nu": nu, "step": step}, {"lr": lr, "grad_norm": gnorm}
+    scale, gnorm = _clip_scale(grads, cfg.grad_clip)
+    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["mu"]),
+                          tree_leaves(state["nu"])):
+        p, m, v = p.view(-1), m.view(-1), v.view(-1)  # views: written in place
+        g = g.reshape(-1)
+        for lo in range(0, p.numel(), _SLICE):
+            ps, ms, vs = (t[lo:lo + _SLICE] for t in (p, m, v))
+            gs = g[lo:lo + _SLICE].float() * scale
+            ms.mul_(b1).add_((1 - b1) * gs)
+            vs.mul_(b2).add_((1 - b2) * torch.square(gs))
+            ps.copy_(upd(ps, ms, vs))
+    return params, {**state, "step": step}, {"lr": lr, "grad_norm": gnorm}
 
 
 @torch.no_grad()

@@ -1161,27 +1161,21 @@ def test_dense_forms_capture_in_a_cuda_graph(cuda):
 
 def _guarded_calls():
     """Every kernel wrapper without a backward, as (name, call on inputs
-    that require grad)."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ssd_scan import ssd_scan_fused
-
+    that require grad). Flash attention and the SSD scan have theirs
+    (the backward-kernel tests below)."""
     feats, msg, idx, seg = _dense_inputs(3000, 200, 300, 32, 9, torch.float32)
     s_seg = torch.sort(seg).values
-    q, k, v = _attn_inputs(1, 64, 64, 2, 1, 64, torch.float32, 9)
-    x, dt, A, B, C, _ = _ssd_inputs(1, 32, 2, 32, 1, 32, torch.float32, 9, False)
     g = lambda t: t.clone().requires_grad_(True)  # noqa: E731
     return [
         ("segment_spmm_ragged", lambda: fused_gnn.segment_spmm_ragged(g(msg), s_seg, 300)),
         ("segment_sum_and_count", lambda: fused_gnn.segment_sum_and_count(g(msg), s_seg, 300)),
         ("segment_max", lambda: fused_gnn.segment_max(g(msg[:, 0].contiguous()), seg, 300)),
-        ("flash_attention", lambda: flash_attention(g(q), k, v)),
-        ("ssd_scan_fused", lambda: ssd_scan_fused(g(x), dt * A, dt, B, C)),
         ("segment_spmm", lambda: fused_gnn.segment_spmm(g(msg), seg, 300)),
         ("gather_spmm", lambda: fused_gnn.gather_spmm(g(feats), idx, seg, 300)),
     ]
 
 
-@pytest.mark.parametrize("which", range(7))
+@pytest.mark.parametrize("which", range(5))
 def test_wrappers_without_a_backward_raise_under_autograd(cuda, which):
     name, call = _guarded_calls()[which]
     with pytest.raises(RuntimeError, match=name):
@@ -1377,3 +1371,146 @@ def test_both_builds_of_the_sum_kernel_give_the_same_bits(cuda, side, dtype):
     assert _same_bits(out, _model(msg, seg, n))
     fused_gnn.launch_gather_sum(feats, idx, seg, index, out)
     assert _same_bits(out, _model(feats, seg, n, idx))
+
+
+# The backward kernels of flash attention and the SSD scan
+# (csrc/flash_attention_backward.cu, csrc/ssd_scan_backward.cu), held
+# against torch.autograd of the plain versions on the same inputs. float32:
+# rtol 1e-4 / atol 1e-4 for attention (dK and dV sum up to Sq x H / Hkv
+# terms in another order), rtol 1e-3 / atol 1e-3 for the SSD (da is a
+# difference of sums of up to S P N terms). bf16 SSD: the kernel computes
+# in float32 from the bf16 inputs and rounds dx, dB and dC once, so they
+# are held against autograd of the plain version on the inputs upcast to
+# float32 at rtol 1e-2 and atol 1e-3 of the tensor's largest element (one
+# bf16 rounding); da, ddt and dinit, float32 outputs, at the float32
+# tolerance. (Autograd of the plain version on the bf16 tensors rounds
+# each head's dB and dC to bf16 before the group sum, 10x further off.)
+# bf16 attention: the kernel reads the bf16 output o for
+# D = rowsum(dO o) where autograd of the plain version has it unrounded, so
+# a key's dK, a sum of many terms that cancel, moves by ~1e-2; there both
+# are held against autograd of the plain version on the inputs upcast to
+# float32, and the kernel's largest error may be at most
+# ATTN_BF16_GRAD_RATIO times the plain version's own (the repository's
+# bf16 rule, as chip_smoke.py holds the LM logits).
+_GRAD_TOL = {"attention": {torch.float32: (1e-4, 1e-4)}, "ssd": {torch.float32: (1e-3, 1e-3)}}
+ATTN_BF16_GRAD_RATIO = 2.0
+
+
+def _grad_close(name, got, want, tol):
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.detach().float().cpu().numpy(),
+                               want.detach().float().cpu().numpy(),
+                               rtol=tol[0], atol=tol[1], err_msg=name)
+
+
+# (B, Sq, Skv, H, Hkv, D, Dv, causal, window, kv_offset): MQA 8:1 at D 256
+# (gemma-2b), 10:1 with a window (recurrentgemma-2b's local attention),
+# MLA's (192, 128), GQA with a window, queries after a cache, every other
+# width, no mask
+ATTN_BWD_SWEEP = [
+    (2, 256, 256, 8, 1, 256, 256, True, 0, 0),
+    (1, 300, 300, 10, 1, 256, 256, True, 128, 0),
+    (1, 200, 200, 16, 16, 192, 128, True, 0, 0),
+    (2, 130, 130, 8, 2, 128, 128, True, 37, 0),
+    (1, 33, 200, 4, 4, 64, 64, True, 0, 167),
+    (1, 100, 100, 4, 2, 96, 64, True, 0, 0),
+    (1, 70, 70, 4, 4, 32, 32, False, 0, 0),
+]
+
+
+def _attn_grad_inputs(b, sq, skv, h, hkv, d, dv, dtype, seed):
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.as_tensor(rng.standard_normal(s).astype(np.float32),  # noqa: E731
+                                   device="cuda").to(dtype)
+    return t(b, sq, h, d), t(b, skv, hkv, d), t(b, skv, hkv, dv), t(b, sq, h, dv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTN_BWD_SWEEP)
+def test_flash_attention_backward_matches_autograd(cuda, case, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_backward_ref, attention_lse_ref
+
+    b, sq, skv, h, hkv, d, dv, causal, window, off = case
+    q, k, v, dout = _attn_grad_inputs(b, sq, skv, h, hkv, d, dv, dtype, sq + d)
+    kw = dict(causal=causal, window=window, kv_offset=off)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention(*leaves, **kw)
+    out.backward(dout)
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert fa.LAUNCHES["flash_attention_backward"] == before["flash_attention_backward"] + 1
+    want = attention_backward_ref(q, k, v, dout, **kw)
+    if dtype == torch.float32:
+        for name, leaf, w in zip(("dq", "dk", "dv"), leaves, want):
+            assert leaf.grad.dtype == dtype and leaf.grad.shape == w.shape
+            _grad_close(f"{name} {case} {dtype}", leaf.grad, w, _GRAD_TOL["attention"][dtype])
+    else:
+        up = attention_backward_ref(q.float(), k.float(), v.float(), dout.float(), **kw)
+        for name, leaf, w, u in zip(("dq", "dk", "dv"), leaves, want, up):
+            assert leaf.grad.dtype == dtype and leaf.grad.shape == w.shape
+            got_err = float((leaf.grad.float() - u).abs().max())
+            plain_err = float((w.float() - u).abs().max())
+            assert got_err <= ATTN_BF16_GRAD_RATIO * plain_err, (name, case, got_err, plain_err)
+    # the forward's log-sum-exp, which the backward reads
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device="cuda")
+    fa.launch_flash_attention(q, k, v, torch.empty_like(out), lse, **kw)
+    _grad_close(f"lse {case} {dtype}", lse, attention_lse_ref(q, k, **kw),
+                (1e-5, 1e-4) if dtype == torch.float32 else (1e-3, 1e-3))
+    # deterministic: the same bits again
+    again = fa.flash_attention_backward(q, k, v, out.detach(), dout, lse, **kw)
+    assert all(torch.equal(a, g) for a, g in zip(
+        again, fa.flash_attention_backward(q, k, v, out.detach(), dout, lse, **kw)))
+
+
+# (B, S, H, P, G, N, init, final grad): mamba2-130m's heads at a ragged S,
+# G > 1, an initial state, every P and N
+SSD_BWD_SWEEP = [
+    (2, 256, 24, 64, 1, 128, False, True),
+    (1, 200, 24, 64, 1, 128, True, True),
+    (2, 100, 8, 32, 2, 64, True, False),
+    (1, 64, 4, 16, 4, 32, False, True),
+    (1, 1, 2, 64, 1, 128, True, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_BWD_SWEEP)
+def test_ssd_scan_backward_matches_autograd(cuda, case, dtype):
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.kernels.ref import ssd_backward_ref
+
+    b, s, h, p, g, n, init, final_grad = case
+    x, dt, A, B, C, st = _ssd_inputs(b, s, h, p, g, n, dtype, s + p, init)
+    a = dt * A
+    rng = np.random.default_rng(s)
+    dy = torch.as_tensor(rng.standard_normal((b, s, h, p)).astype(np.float32),
+                         device="cuda").to(dtype)
+    dfinal = (torch.as_tensor(rng.standard_normal((b, h, p, n)).astype(np.float32),
+                              device="cuda") if final_grad else None)
+    leaves = [t.clone().requires_grad_(True) for t in (x, a, dt, B, C)]
+    init_leaf = None if st is None else st.clone().requires_grad_(True)
+    before = dict(sk.LAUNCHES)
+    y, final = sk.ssd_scan_fused(*leaves, init_state=init_leaf)
+    loss = (y.float() * dy.float()).sum()
+    if dfinal is not None:
+        loss = loss + (final * dfinal).sum()
+    loss.backward()
+    assert sk.LAUNCHES["ssd_scan"] == before["ssd_scan"] + 1
+    assert sk.LAUNCHES["ssd_scan_backward"] == before["ssd_scan_backward"] + 1
+    want = ssd_backward_ref(x.float(), a, dt, B.float(), C.float(), dy.float(), dfinal,
+                            init_state=st)
+    got = [t.grad for t in leaves] + [None if init_leaf is None else init_leaf.grad]
+    for name, gg, w in zip(("dx", "da", "ddt", "dB", "dC", "dinit"), got, want):
+        if w is None:
+            continue
+        assert gg.dtype == (dtype if name in ("dx", "dB", "dC") else torch.float32), name
+        if dtype == torch.bfloat16 and name in ("dx", "dB", "dC"):
+            tol = (1e-2, 1e-3 * float(w.abs().max()))
+        else:
+            tol = _GRAD_TOL["ssd"][torch.float32]
+        _grad_close(f"{name} {case} {dtype}", gg, w, tol)
+    # deterministic: the same bits again
+    one = sk.ssd_scan_backward(x, a, dt, B, C, dy, dfinal, init_state=st)
+    two = sk.ssd_scan_backward(x, a, dt, B, C, dy, dfinal, init_state=st)
+    assert all((u is None and w is None) or torch.equal(u, w) for u, w in zip(one, two))

@@ -22,6 +22,8 @@ MODULES = [
     "repro_torch.core.partition",
     "repro_torch.core.sampling",
     "repro_torch.core.storage",
+    "repro_torch.data",
+    "repro_torch.data.tokens",
     "repro_torch.dist",
     "repro_torch.dist.client",
     "repro_torch.dist.transport",
@@ -43,6 +45,7 @@ MODULES = [
     "repro_torch.serve",
     "repro_torch.train",
     "repro_torch.train.data_parallel",
+    "repro_torch.train.loop",
 ] + [f"repro_torch.configs.{p.stem}" for p in sorted((PORT / "configs").glob("[!_]*.py"))]
 
 

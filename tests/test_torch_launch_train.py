@@ -180,10 +180,27 @@ def test_the_card_is_the_default_device():
             torch_launch.main(["gnn", "--config", "gcn-products", "--scale", "0.01"])
 
 
-def test_lm_mode_raises_and_names_the_roadmap_item():
-    for argv in (["lm"], ["lm", "--arch", "gemma-2b", "--steps", "5"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1: LM training"):
-            torch_launch.main(argv)
+def test_lm_mode_raises_and_names_the_roadmap_item(capsys):
+    """The LM mode, which raised before LM training was ported, now trains
+    a reduced config for a few steps; its flags are the reference's, the
+    ``--reduced`` that cannot be turned off included, and configs fed
+    embeddings exit as there."""
+    ref = jax_launch.main.__code__  # the reference's parser is built inside main
+    assert "--reduced" in ref.co_consts and "--ckpt" in ref.co_consts
+    args = torch_launch.parser().parse_args(["lm"])
+    assert (args.arch, args.reduced, args.steps, args.batch, args.seq, args.seed,
+            args.log_every, args.ckpt, args.device) == (
+        "gemma-2b", True, 50, 8, 128, 0, 10, "", "cuda")
+    assert torch_launch.parser().parse_args(["lm", "--reduced"]).reduced
+    got = torch_launch.main(["lm", "--arch", "mamba2-130m", "--steps", "3", "--batch", "2",
+                             "--seq", "16", "--log-every", "1", "--device", "cpu"])
+    assert got["steps"] == [0, 1, 2] and np.all(np.isfinite(got["losses"]))
+    assert "nll: " in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="embeddings"):
+        torch_launch.main(["lm", "--arch", "musicgen-medium", "--device", "cpu"])
+    if not torch.cuda.is_available():  # the card is the default device
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            torch_launch.main(["lm", "--steps", "1"])
 
 
 def test_the_module_runs_as_a_script_without_jax():

@@ -420,8 +420,14 @@ def test_specs_and_what_is_not_ported():
     with pytest.raises(NotImplementedError):
         specs.resolve_config(gemma, "prefill_32k", model_axis=4)
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.init_params(get_config("recurrentgemma-2b", reduced=True), gen, device="cpu")
+    # RG-LRU builds (it raised before it was ported), with the JAX tree's size
+    for reduced in (True, False):
+        cfg = get_config("recurrentgemma-2b", reduced=reduced)
+        jcfg = jax_get_config("recurrentgemma-2b", reduced=reduced)
+        params = model.init_params(cfg, gen, device="cpu" if reduced else "meta")
+        shapes = jax.eval_shape(lambda c=jcfg: jax_model.init_params(c, jax.random.PRNGKey(0)))
+        assert model.param_count(params) == jax_model.param_count(shapes)
+        assert len(model.init_cache(cfg, 1, 8, device="meta")) == cfg.num_layers
     for arch in ("mixtral-8x7b", "deepseek-v2-lite-16b"):  # the MoE family builds
         cfg = get_config(arch, reduced=True)
         params = model.init_params(cfg, gen, device="cpu")
