@@ -2239,12 +2239,12 @@ def compare_lm_kernels() -> None:
 
 
 # The backward kernels against autograd of the plain versions, on the card.
-# float32: ATTN_TOL / SSD_TOL. bf16 attention: the kernel reads the bf16
-# output o for D = rowsum(dO o), which autograd of the plain version has
-# unrounded, so a sum of many terms that cancel moves by ~1e-2; both are
-# held against autograd of the plain version on the inputs upcast to
-# float32, the kernel's largest error at most ATTN_BF16_GRAD_RATIO times
-# the plain version's own. bf16 SSD: dx, dB and dC (rounded once from
+# float32: ATTN_TOL / SSD_TOL. bf16 attention: the kernel rounds P to bf16
+# and splits dS into two bf16 parts for its tensor-core products, and forms
+# D = rowsum(dO o) from the forward's float32 output (as training hands it
+# over); both are held against autograd of the plain version on the inputs
+# upcast to float32, the kernel's largest error at most
+# ATTN_BF16_GRAD_RATIO times the plain version's own. bf16 SSD: dx, dB and dC (rounded once from
 # float32) against the upcast run at rtol 1e-2, atol 1e-3 of the tensor's
 # largest element. The SSD's float32 gradients (and bf16's float32 da and
 # ddt) at SSD_GRAD_TOL: da is a difference of sums of up to S P N terms.
@@ -2286,9 +2286,12 @@ def compare_lm_backward_kernels() -> None:
                      f"window={window} kv_offset={off} {dtype}")
             lse = torch.empty((b, h, sq), dtype=torch.float32, device="cuda")
             out = torch.empty((b, sq, h, dv), dtype=dtype, device="cuda")
-            fa.launch_flash_attention(q, k, v, out, lse, **kw)
-            got = fa.flash_attention_backward(q, k, v, out, dout, lse, **kw)
-            again = fa.flash_attention_backward(q, k, v, out, dout, lse, **kw)
+            # as training calls it: bf16 hands the backward its float32 output
+            o32 = torch.empty(out.shape, dtype=torch.float32, device="cuda")
+            fa.launch_flash_attention(q, k, v, out, lse, o32, **kw)
+            o = out if dtype == torch.float32 else o32
+            got = fa.flash_attention_backward(q, k, v, o, dout, lse, **kw)
+            again = fa.flash_attention_backward(q, k, v, o, dout, lse, **kw)
             if not all(torch.equal(x, y) for x, y in zip(got, again)):
                 fail(f"flash_attention_backward {label}: two runs differ")
             want = attention_backward_ref(q, k, v, dout, **kw)
@@ -2309,7 +2312,7 @@ def compare_lm_backward_kernels() -> None:
                         f"(limit {ATTN_BF16_GRAD_RATIO}); share of ATTN_TOL: kernel "
                         f"{tol_share(g, u, ATTN_TOL[dtype]):.3f}, plain "
                         f"{tol_share(w, u, ATTN_TOL[dtype]):.3f}")
-            del q, k, v, dout, out, got, again, want
+            del q, k, v, dout, out, o32, o, got, again, want
         for b, s, h, p, g, n, init in SSD_BWD_CASES:
             x, dt, A, B, C, st = ssd_inputs(b, s, h, p, g, n, dtype, s + p + 1, init)
             a = dt * A[None, None, :]
@@ -2656,6 +2659,9 @@ LM_TRAIN = {
 # layers and back; a leaf's own scale, since embedding and norm gradients
 # are 1e-6-1e-2)
 LM_GRAD_SHARE = 1e-3
+# Steady step walls (ms) with the backward kernels on the CUDA cores
+# (PERF.md §5; NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+LM_TRAIN_SIMT_STEP_MS = {"gemma-2b": 490.0, "mamba2-130m": 280.1, "recurrentgemma-2b": 805.3}
 
 
 def loss_and_grads(params, cfg, inp, tgt) -> tuple:
@@ -2815,6 +2821,7 @@ def train_lm(arch: str, captured: dict) -> dict:
         "wall_s": wall_s,
         "step_wall_ms": [float(g) for g in gaps],
         "step_wall_ms_steady_median": steady_ms,
+        "step_wall_ms_simt_backward": LM_TRAIN_SIMT_STEP_MS.get(arch),
         "tokens_per_s": batch * seq / steady_ms * 1e3,
         "step_device_ms": rec.device_ms(),
         "losses": losses,
@@ -2926,12 +2933,14 @@ def time_flash(call, launches: int, name: str = "flash_attention") -> dict:
 
 def time_flash_backward(call, launches: int) -> dict:
     """The flash backward kernels at the first training call (gemma-2b:
-    B 2, S 2048, 8 query heads over one KV head of 256). Bound:
-    operations, 2.5 times the forward's causal products (2 (D + Dv) flops
-    per unmasked pair) at 989 TFLOP/s, against q, k, v, o, dO and the
-    log-sum-exp read once and dq, dk, dv written once at 3.35 TB/s. The
-    yardstick: the backward of ``scaled_dot_product_attention`` by
-    autograd (its forward run once, the graph kept)."""
+    B 2, S 2048, 8 query heads over one KV head of 256; o the forward's
+    float32 output, as training hands it over). Bound: operations, 2.5
+    times the forward's causal products (2 (D + Dv) flops per unmasked
+    pair) at 989 TFLOP/s, against q, k, v, o, dO and the log-sum-exp read
+    once and dq, dk, dv written once at 3.35 TB/s. The yardstick: the
+    backward of ``scaled_dot_product_attention`` by autograd (its forward
+    run once, the graph kept). ``phase_kernel_ms``: the call by kernel,
+    from a fresh process (``fresh_phases``)."""
     import functools
 
     import torch.nn.functional as F
@@ -2945,6 +2954,8 @@ def time_flash_backward(call, launches: int) -> dict:
     got = fa.flash_attention_backward(q, k, v, o, dout, lse, **kw)
     want = attention_backward_ref(q, k, v, dout, **kw)
     up = attention_backward_ref(q.float(), k.float(), v.float(), dout.float(), **kw)
+    ratios = {name: max_err(g, u) / max(max_err(w, u), 1e-30)
+              for name, g, w, u in zip(("dq", "dk", "dv"), got, want, up)}
     err = max(max_err(g, u) for g, u in zip(got, up))
     plain_err = max(max_err(w, u) for w, u in zip(want, up))
     if err > ATTN_BF16_GRAD_RATIO * plain_err:
@@ -2959,7 +2970,8 @@ def time_flash_backward(call, launches: int) -> dict:
     hi = np.minimum(skv, q_pos + 1) if kw["causal"] else np.full(s, skv)
     pairs = b * h * int(np.maximum(hi - lo, 0).sum())
     esize = q.element_size()
-    nbytes = (2 * (q.numel() + k.numel() + v.numel()) + 2 * o.numel()) * esize + lse.numel() * 4
+    nbytes = ((2 * (q.numel() + k.numel() + v.numel()) + dout.numel()) * esize
+              + o.numel() * o.element_size() + lse.numel() * 4)
     bound, by = bound_ms(nbytes, 2.5 * 2 * (d + dv) * pairs, BF16_FLOPS)
     ms = graph_ms(rotating(functools.partial(fa.flash_attention_backward, **kw),
                            q, k, v, o, dout, lse), iters=3)
@@ -2981,6 +2993,9 @@ def time_flash_backward(call, launches: int) -> dict:
         "replaces": "src/repro/kernels/flash_attention.py:91",
         "launches": launches,
         "max_abs_err": err,
+        # each gradient's error from the float32 run over the plain version's
+        # (D from the bf16 output had dq 1.44, dk 1.71; PERF.md §7)
+        "err_ratio_to_plain": ratios,
         "ms": ms,
         "kernel_ms": ms,
         "eager_ms": time_ms(rotating(functools.partial(fa.flash_attention_backward, **kw),
@@ -2992,11 +3007,9 @@ def time_flash_backward(call, launches: int) -> dict:
         "library_ms": library,
         "library_note": note,
         "bound_share": bound / ms,
-        "phase_kernel_ms": kernels_ms(
-            lambda: fa.flash_attention_backward(q, k, v, o, dout, lse, **kw), "flash_bwd_kernel_",
-            calls=3),
+        **fresh_phases("flash-phases"),
         "shape": {"B": b, "S": s, "H": h, "Hkv": hkv, "D": d, "Dv": dv, "pairs": pairs,
-                  "window": window, "dtype": str(q.dtype)},
+                  "window": window, "dtype": str(q.dtype), "o_dtype": str(o.dtype)},
     }
 
 
@@ -3007,7 +3020,8 @@ def time_ssd_backward(call, launches: int) -> dict:
     given) read once, dx, dB, dC, da, ddt (and dinit) written once at 3.35
     TB/s, against the recurrence's backward, twice the forward's 6 P N
     flops per (step, head), at 989 TFLOP/s. No single PyTorch call
-    computes it."""
+    computes it. ``phase_kernel_ms``: the call by kernel with the
+    wrapper's copies, from a fresh process (``fresh_phases``)."""
     import functools
 
     from repro_torch.kernels import ssd_scan as sk
@@ -3052,8 +3066,7 @@ def time_ssd_backward(call, launches: int) -> dict:
         "bound_by": by,
         "library_ms": None,
         "bound_share": bound / ms,
-        "phase_kernel_ms": kernels_ms(lambda: fn(x, a, dt, B, C, dy, dfinal), "ssd_bwd_kernel_",
-                                      calls=5),
+        **fresh_phases("ssd"),
         "shape": {"B": b, "S": s, "H": h, "P": p, "G": g, "N": n, "dtype": str(x.dtype),
                   "init_state": init is not None, "final_state_grad": dfinal is not None},
     }
@@ -3077,6 +3090,23 @@ def kernels_ms(fn, match: str, calls: int = 20) -> dict | str:
             name = evt.name.split(match, 1)[1].split("<")[0].split("(")[0].strip("_") or match
             out[name] = out.get(name, 0.0) + evt.time_range.elapsed_us() / 1e3 / calls
     return out or "not measured (the trace held no device events)"
+
+
+def fresh_phases(only: str) -> dict:
+    """A backward call's device time by kernel at the training call's shape,
+    traced by ``tools/bwd_probe.py --only <only>`` in a fresh process,
+    beside that process's graph-replay ms: a trace of a few milliseconds
+    taken this late in this script loses device events (PERF.md §6)."""
+    out = WORKDIR / f"bwd_probe_{only}.json"
+    res = subprocess.run([sys.executable, str(ROOT / "tools" / "bwd_probe.py"), "--only", only,
+                          "--out", str(out)], capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        fail(f"tools/bwd_probe.py --only {only} failed:\n{res.stderr[-3000:]}")
+    got = json.loads(out.read_text())["ssd_backward" if only == "ssd" else "flash_backward"]
+    prof = got["profile_rotated"]
+    return {"phase_kernel_ms": prof["kernels_ms"], "phase_sum_ms": prof["kernels_sum_ms"],
+            "phase_graph_ms": got["graph_ms_rotated"],
+            "phase_source": f"tools/bwd_probe.py --only {only}, a fresh process"}
 
 
 def time_ssd(call, launches: int) -> dict:
@@ -3310,7 +3340,8 @@ def main() -> int:
             "f32_routing_flips_per_layer", "bf16_kernels_err_vs_f32",
             "bf16_plain_err_vs_f32")} for k, v in lm.items()},
         "lm_train": {k: {key: v[key] for key in (
-            "step_wall_ms_steady_median", "tokens_per_s", "losses", "launches_per_step",
+            "step_wall_ms_steady_median", "step_wall_ms_simt_backward", "tokens_per_s",
+            "losses", "launches_per_step",
             "f32_depth", "f32_worst_grad_share", "bf16_step_bitwise_run_to_run",
             "bf16_grad_leaves_not_bitwise", "peak_memory_gb")} for k, v in lm_train.items()},
         "total_s": time.perf_counter() - t_start,

@@ -64,7 +64,7 @@ SIGNATURES = {
         ),
     },
     "flash_attention": {
-        "flash_attention": (_p, _p, _p, _p, _p, _c, _c, _c, _c, _c, _c, _c, _c, _c, _c, _c, _p),
+        "flash_attention": (_p,) * 6 + (_c,) * 11 + (_p,),
     },
     "flash_attention_backward": {
         "flash_attention_backward": (_p,) * 12 + (_c,) * 11 + (_p,),

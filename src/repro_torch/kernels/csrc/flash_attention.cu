@@ -26,8 +26,10 @@
 //
 // Training: given an `lse` pointer, both routes also write each query
 // row's log-sum-exp of its scaled, masked scores (float32 [B, H, Sq],
-// natural log), from which flash_attention_backward.cu recomputes P; a
-// serving call passes null and writes nothing more.
+// natural log), from which flash_attention_backward.cu recomputes P; and,
+// given `out32`, the bf16 route also writes its output unrounded (float32
+// [B, Sq, H, DV], `acc / l`), from which the backward forms D = rowsum(dO
+// o). A serving call passes null for both and writes nothing more.
 //
 // Route: a static choice by dtype, not a fallback; a failed build or
 // launch raises in the wrapper.
@@ -539,9 +541,10 @@ __global__ void __launch_bounds__(Layout<DQK, DV>::kThreads, 1)
     flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                                  const __grid_constant__ CUtensorMap tm_k,
                                  const __grid_constant__ CUtensorMap tm_v,
-                                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int B,
-                                 int Sq, int Skv, int H, int Hkv, int causal, int window,
-                                 int kv_offset, float scale_log2) {
+                                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                                 float* __restrict__ out32, int B, int Sq, int Skv, int H,
+                                 int Hkv, int causal, int window, int kv_offset,
+                                 float scale_log2) {
   using L = Layout<DQK, DV>;
   using CQ = Cols<DQK>;
   using CV = Cols<DV>;
@@ -653,6 +656,15 @@ __global__ void __launch_bounds__(Layout<DQK, DV>::kThreads, 1)
           *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
               __floats2bfloat162_rn(o[4 * j + 2 * rr] * inv, o[4 * j + 2 * rr + 1] * inv);
         }
+        if (out32 != nullptr) {  // training: the same values unrounded
+          float* orow32 = out32 + ((static_cast<long>(w.b) * Sq + w.q0 + row) * H + w.h) *
+                                      static_cast<long>(DV) +
+                          2 * t;
+#pragma unroll
+          for (int j = 0; j < DV / 8; ++j)
+            *reinterpret_cast<float2*>(orow32 + 8 * j) =
+                make_float2(o[4 * j + 2 * rr] * inv, o[4 * j + 2 * rr + 1] * inv);
+        }
       }
     }
   } else {
@@ -743,13 +755,19 @@ int encode(CUtensorMap* map, const void* ptr, int D, int heads, int rows, int ba
 }
 
 template <int DQK, int DV>
-int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
-           int Skv, int H, int Hkv, int causal, int window, int kv_offset, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, float* out32,
+           int B, int Sq, int Skv, int H, int Hkv, int causal, int window, int kv_offset,
+           cudaStream_t stream) {
   using L = Layout<DQK, DV>;
   if (Skv == 0) {  // no keys: every row is 0 / max(0, 1e-30), as the float32 kernel gives
     if (lse != nullptr) {
       const cudaError_t e =
           cudaMemsetAsync(lse, 0, static_cast<size_t>(B) * H * Sq * sizeof(float), stream);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    if (out32 != nullptr) {
+      const cudaError_t e =
+          cudaMemsetAsync(out32, 0, static_cast<size_t>(B) * Sq * H * DV * sizeof(float), stream);
       if (e != cudaSuccess) return static_cast<int>(e);
     }
     return static_cast<int>(cudaMemsetAsync(
@@ -786,20 +804,21 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
   const long tiles = static_cast<long>(q_tiles) * H * B;
   const int grid = static_cast<int>(tiles < sm_count ? tiles : sm_count);
   flash_attention_kernel_wgmma<DQK, DV><<<grid, L::kThreads, L::kSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, B, Sq, Skv, H, Hkv, causal, window,
-      kv_offset, kLog2e / sqrtf(static_cast<float>(DQK)));
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, out32, B, Sq, Skv, H, Hkv, causal,
+      window, kv_offset, kLog2e / sqrtf(static_cast<float>(DQK)));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace ws
 
 // dtype 0 float32, 1 bfloat16: the route is a static choice by dtype
+// (out32 is the bf16 route's: a float32 output is already unrounded)
 int dispatch(int dtype, int D, int Dv, const void* q, const void* k, const void* v, void* out,
-             float* lse, int B, int Sq, int Skv, int H, int Hkv, int causal, int window,
-             int kv_offset, cudaStream_t stream) {
+             float* lse, float* out32, int B, int Sq, int Skv, int H, int Hkv, int causal,
+             int window, int kv_offset, cudaStream_t stream) {
 #define REPRO_FLASH(DQK, DV)                                                                 \
-  (dtype == 1 ? ws::launch<DQK, DV>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, causal, window,  \
-                                    kv_offset, stream)                                       \
+  (dtype == 1 ? ws::launch<DQK, DV>(q, k, v, out, lse, out32, B, Sq, Skv, H, Hkv, causal,   \
+                                    window, kv_offset, stream)                               \
               : f32::launch<float, DQK, DV>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, causal,   \
                                             window, kv_offset, stream))
   if (D == 64 && Dv == 64) return REPRO_FLASH(64, 64);
@@ -820,14 +839,16 @@ int dispatch(int dtype, int D, int Dv, const void* q, const void* k, const void*
 // (96, 64), (32, 32)}; Hkv divides H. lse [B, H, Sq] float32 or null: each
 // row's log-sum-exp of its scaled, masked scores (natural log), which the
 // backward (flash_attention_backward.cu) recomputes P from; written only
-// when given. Returns cudaGetLastError() after the launch
+// when given. out32 [B, Sq, H, Dv] float32 or null: bf16 only (ignored for
+// float32), the output before its rounding, for the backward's D. Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for widths or a dtype it does not take; 10000 +
 // the CUresult where a bf16 tensor map cannot be encoded).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,
-                               float* lse, int B, int Sq, int Skv, int H, int Hkv, int D, int Dv,
-                               int dtype, int causal, int window, int kv_offset, void* stream) {
+                               float* lse, float* out32, int B, int Sq, int Skv, int H, int Hkv,
+                               int D, int Dv, int dtype, int causal, int window, int kv_offset,
+                               void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return 0;
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(dtype, D, Dv, q, k, v, out, lse, B, Sq, Skv, H, Hkv, causal, window, kv_offset,
-                  static_cast<cudaStream_t>(stream));
+  return dispatch(dtype, D, Dv, q, k, v, out, lse, out32, B, Sq, Skv, H, Hkv, causal, window,
+                  kv_offset, static_cast<cudaStream_t>(stream));
 }

@@ -12,10 +12,11 @@ Dispatch follows the tensors' device: CPU tensors go to the plain version
 (``ref.attention_ref``, differentiable); CUDA tensors launch the kernel or
 raise. Under autograd (grad mode on, an input requiring grad) the CUDA
 call goes through an autograd Function: the forward kernel also writes
-each row's log-sum-exp, which the Function saves beside q, k, v and the
-output, and the backward is :func:`flash_attention_backward`, a kernel of
-its own (dQ, dK, dV; no TPU counterpart: the JAX package trains through
-the plain attention, whose gradients these are). Under
+each row's log-sum-exp and, in bf16, its output unrounded (float32), which
+the Function saves beside q, k and v, and the backward is
+:func:`flash_attention_backward`, a kernel of its own (dQ, dK, dV; no TPU
+counterpart: the JAX package trains through the plain attention, whose
+gradients these are), which forms D = rowsum(dO o) from that float32 o. Under
 ``torch.utils.checkpoint`` the forward runs again before the backward and
 saves its state anew. Each forward launch adds one to
 ``LAUNCHES["flash_attention"]``, each backward launch one to
@@ -29,7 +30,9 @@ three consumer warpgroups, a persistent grid); float32 runs the scalar
 kernel in the ``mma.sync`` accumulator layout, so it stays float32. The
 bfloat16 kernel encodes its TMA tensor maps on the host at every launch
 (host work only, so a launch can be captured in a CUDA graph). The
-backward runs one SIMT design for both dtypes, accumulating in float32.
+backward's route is static by dtype too: bfloat16 runs its products on
+the tensor cores (``mma.sync``; dS as a high/low bf16 split), float32 the
+scalar kernels; both accumulate in float32.
 """
 from __future__ import annotations
 
@@ -77,10 +80,12 @@ def _check_cuda_args(q, k, v) -> None:
         raise ValueError(f"sizes out of the kernel's range: q {tuple(q.shape)} k {tuple(k.shape)}")
 
 
-def launch_flash_attention(q, k, v, out, lse=None, *, causal: bool, window: int,
+def launch_flash_attention(q, k, v, out, lse=None, out32=None, *, causal: bool, window: int,
                            kv_offset: int) -> None:
     """Launch the kernel on checked CUDA tensors (``lse``: float32 [B, H,
-    Sq], or None not to write it); counts nothing."""
+    Sq], or None not to write it; ``out32``: float32 like ``out``, the bf16
+    output before its rounding, or None; a float32 call ignores it);
+    counts nothing."""
     b, sq, h, d = q.shape
     code = library("flash_attention").flash_attention(
         q.data_ptr(),
@@ -88,6 +93,7 @@ def launch_flash_attention(q, k, v, out, lse=None, *, causal: bool, window: int,
         v.data_ptr(),
         out.data_ptr(),
         None if lse is None else lse.data_ptr(),
+        None if out32 is None else out32.data_ptr(),
         b,
         sq,
         k.shape[1],
@@ -106,10 +112,10 @@ def launch_flash_attention(q, k, v, out, lse=None, *, causal: bool, window: int,
 
 def launch_flash_attention_backward(q, k, v, o, dout, lse, dq, dk, dv, *, causal: bool,
                                     window: int, kv_offset: int) -> None:
-    """Launch the backward kernels on checked CUDA tensors, with their
-    float32 scratch allocated here (D = rowsum(dO o) [B, H, Sq], and dK, dV
-    per query head [B, H, Skv, D / Dv] before the group sum); counts
-    nothing."""
+    """Launch the backward kernels on checked CUDA tensors (``o`` float32),
+    with their float32 scratch allocated here (D = rowsum(dO o) [B, H, Sq],
+    and dK, dV per query head [B, H, Skv, D / Dv] before the group sum);
+    counts nothing."""
     b, sq, h, d = q.shape
     skv, hkv, dv_w = k.shape[1], k.shape[2], v.shape[3]
     f32 = dict(dtype=torch.float32, device=q.device)
@@ -125,31 +131,35 @@ def launch_flash_attention_backward(q, k, v, o, dout, lse, dq, dk, dv, *, causal
     check(code, "flash_attention_backward")
 
 
-def _forward(q, k, v, lse, mask: dict) -> torch.Tensor:
+def _forward(q, k, v, lse, mask: dict, out32=None) -> torch.Tensor:
     out = q.new_empty(q.shape[:3] + (v.shape[3],))
     with torch.cuda.device(q.device):
-        launch_flash_attention(q, k, v, out, lse, **mask)
+        launch_flash_attention(q, k, v, out, lse, out32, **mask)
     LAUNCHES["flash_attention"] += 1
     return out
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel with its log-sum-exp, and the backward kernel."""
+    """The forward kernel with its log-sum-exp (and, in bf16, its float32
+    output), and the backward kernel."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, kv_offset):
         mask = dict(causal=causal, window=window, kv_offset=kv_offset)
         b, sq, h, _ = q.shape
         lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-        out = _forward(q, k, v, lse, mask)
-        ctx.save_for_backward(q, k, v, out, lse)
+        out32 = None
+        if q.dtype != torch.float32:
+            out32 = torch.empty((b, sq, h, v.shape[3]), dtype=torch.float32, device=q.device)
+        out = _forward(q, k, v, lse, mask, out32)
+        ctx.save_for_backward(q, k, v, out if out32 is None else out32, lse)
         ctx.mask = mask
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        return (*flash_attention_backward(q, k, v, out, dout, lse, **ctx.mask), None, None, None)
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*flash_attention_backward(q, k, v, o, dout, lse, **ctx.mask), None, None, None)
 
 
 def flash_attention(
@@ -191,19 +201,24 @@ def flash_attention_backward(
     """(dq, dk, dv), each in its input's dtype and shape, of
     :func:`flash_attention`'s output o for its gradient ``dout``, with
     ``lse`` [B, H, Sq] float32 the forward kernel's log-sum-exp: the
-    backward kernels, deterministic (no atomics). CUDA tensors only: on
-    the CPU autograd differentiates the plain forward, and the plain twin
-    is ``ref.attention_backward_ref``."""
+    backward kernels, deterministic (no atomics). ``o`` is float32: for
+    bf16 the forward's unrounded output (``launch_flash_attention``'s
+    ``out32``, which training saves), since D = rowsum(dO o) from the
+    rounded output is off by an error that dQ carries over a whole row.
+    CUDA tensors only: on the CPU autograd differentiates the plain
+    forward; the plain twins are ``ref.attention_backward_ref`` and, for
+    the bf16 kernels' roundings, ``ref.attention_backward_bf16_ref``."""
     mask = dict(causal=causal, window=window, kv_offset=kv_offset)
     if on_cpu(q, k, v, o, dout, lse):
         raise ValueError("flash_attention_backward runs on the card; on the CPU autograd "
                          "differentiates the plain forward")
     _check_cuda_args(q, k, v)
     dout = dout.contiguous()
-    if (o.shape != dout.shape or o.shape != q.shape[:3] + (v.shape[3],) or o.dtype != q.dtype
-            or dout.dtype != q.dtype or not o.is_contiguous()):
-        raise ValueError(f"o and dout must be {q.dtype} {q.shape[:3] + (v.shape[3],)}, got "
-                         f"{o.dtype} {tuple(o.shape)} and {dout.dtype} {tuple(dout.shape)}")
+    if (o.shape != dout.shape or o.shape != q.shape[:3] + (v.shape[3],)
+            or o.dtype != torch.float32 or dout.dtype != q.dtype or not o.is_contiguous()):
+        raise ValueError(f"o (contiguous float32) and dout ({q.dtype}) must be "
+                         f"{q.shape[:3] + (v.shape[3],)}, got {o.dtype} {tuple(o.shape)} and "
+                         f"{dout.dtype} {tuple(dout.shape)}")
     if lse.shape != (q.shape[0], q.shape[2], q.shape[1]) or lse.dtype != torch.float32 \
             or not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous float32 [B, H, Sq], got {lse.dtype} "

@@ -37,6 +37,8 @@ __all__ = [
     "attention_ref",
     "attention_lse_ref",
     "attention_backward_ref",
+    "bf16_operand",
+    "attention_backward_bf16_ref",
     "flash_attention_ref",
     "ssd_scan_ref",
     "ssd_chunked_ref",
@@ -300,6 +302,60 @@ def attention_backward_ref(q, k, v, dout, *, causal: bool = True, window: int = 
         return torch.autograd.grad(out, leaves, dout)
 
 
+def bf16_operand(t: torch.Tensor, parts: int) -> torch.Tensor:
+    """A float32 tensor as a bf16 tensor-core operand, back in float32: the
+    sum of ``parts`` bf16 tensors, each the bf16 of what the ones before it
+    leave (one product each): 1 rounds once, 2 keeps about 16 bits, 3
+    float32's 24."""
+    out = torch.zeros_like(t)
+    for _ in range(parts):
+        out = out + (t - out).bfloat16().float()
+    return out
+
+
+# Which operands of the bf16 flash backward kernel are split into a high
+# and a low bf16 part (csrc/flash_attention_backward.cu, kSplitP / kSplitDS)
+FLASH_BWD_SPLIT_P = False
+FLASH_BWD_SPLIT_DS = True
+
+
+def attention_backward_bf16_ref(q, k, v, dout, *, causal: bool = True, window: int = 0,
+                                kv_offset: int = 0, split_p: bool = FLASH_BWD_SPLIT_P,
+                                split_ds: bool = FLASH_BWD_SPLIT_DS):
+    """(dq, dk, dv) as the bf16 tensor-core backward kernel forms them, in
+    plain PyTorch: S, dP, D = rowsum(dO o) with o the float32 output (as
+    the forward hands it to training) and every sum in float32, but P
+    rounded to bf16 as the A operand of dV = P^T dO and dS as that of dK =
+    dS^T q and dQ = dS k (each a high/low split instead where ``split_p``
+    / ``split_ds``); each gradient rounded once to its input's dtype, dK
+    and dV after the sum over a KV head's query heads."""
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    grp = h // hkv
+    qf = q.reshape(b, sq, hkv, grp, d).float()
+    kf, vf = k.float(), v.float()
+    dof = dout.reshape(b, sq, hkv, grp, v.shape[-1]).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) / d**0.5
+    q_pos = kv_offset + torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    s = torch.where(mask, s, -1e30)
+    p = torch.where(mask, torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True)), 0.0)
+    o32 = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
+    delta = (dof * o32).sum(-1)  # [b, q, h, g]
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    pr, dsr = bf16_operand(p, 1 + split_p), bf16_operand(ds, 1 + split_ds)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", pr, dof)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", dsr, qf) / d**0.5
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", dsr, kf) / d**0.5
+    return dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def ssd_scan_ref(
     x: torch.Tensor,  # [S, H, P]
     dt: torch.Tensor,  # [S, H]
@@ -469,12 +525,16 @@ def ssd_backward_ref(x, a, dt, B, C, dy, dfinal=None, *, chunk: int = 128, init_
     return (*got[:5], got[5] if init is not None else None)
 
 
-def ssd_chunk_grads_ref(x, a, dt, B, C, dy, dfinal=None, *, chunk: int = 64, init_state=None):
+def ssd_chunk_grads_ref(x, a, dt, B, C, dy, dfinal=None, *, chunk: int = 64, init_state=None,
+                        split: bool = False):
     """The SSD backward kernels' algorithm (``csrc/ssd_scan_backward.cu``)
     in plain PyTorch, float32: the states entering each chunk (H_c) and the
     gradients arriving at each chunk's end (D_c) by two state passes, then
-    each chunk's gradients from its quadratic form. Returns what
-    :func:`ssd_backward_ref` returns."""
+    each chunk's gradients from its quadratic form. With ``split``, the
+    bf16 kernels' operands (:func:`bf16_operand`): x w and dy e for the
+    chunk states, H_c and D_c in three bf16 parts, m1 = G E dt and m2 =
+    X E dt in two; x, dy, B and C enter as given (the kernels' bf16
+    inputs). Returns what :func:`ssd_backward_ref` returns."""
     bz, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     reps = H // G
@@ -484,9 +544,12 @@ def ssd_chunk_grads_ref(x, a, dt, B, C, dy, dfinal=None, *, chunk: int = 64, ini
     last = csum[:, :, -1:]  # [Bz, nc, 1, H]
     ej = torch.exp(last - csum)  # exp(csum_L - csum_j)
     ei = torch.exp(csum)
+    def op(t, parts):  # a product's float32 operand as the bf16 kernels take it
+        return bf16_operand(t, parts) if split else t
+
     # the chunks' own forward and reverse states, then the two passes
-    own_f = torch.einsum("bclhp,bclhn->bchpn", xc * (ej * dc)[..., None], Bc)
-    own_r = torch.einsum("bclhp,bclhn->bchpn", dyc * ei[..., None], Cc)
+    own_f = torch.einsum("bclhp,bclhn->bchpn", op(xc * (ej * dc)[..., None], 3), Bc)
+    own_r = torch.einsum("bclhp,bclhn->bchpn", op(dyc * ei[..., None], 3), Cc)
     decay = torch.exp(last[:, :, 0])  # [Bz, nc, H]
     h = x.new_zeros((bz, H, P, N), dtype=torch.float32) if init_state is None else init_state.float()
     entering = []
@@ -499,6 +562,7 @@ def ssd_chunk_grads_ref(x, a, dt, B, C, dy, dfinal=None, *, chunk: int = 64, ini
         arriving[c] = g
         g = decay[:, c, :, None, None] * g + own_r[:, c]
     Hc, Dc = torch.stack(entering, 1), torch.stack(arriving, 1)  # [Bz, nc, H, P, N]
+    Hs, Ds = op(Hc, 3), op(Dc, 3)  # as the products take them
     ii = torch.arange(chunk, device=x.device)
     causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]  # i, j
     seg = csum[:, :, :, None, :] - csum[:, :, None, :, :]
@@ -506,18 +570,18 @@ def ssd_chunk_grads_ref(x, a, dt, B, C, dy, dfinal=None, *, chunk: int = 64, ini
     Gm = torch.einsum("bcihn,bcjhn->bcijh", Cc, Bc)
     Xm = torch.einsum("bcihp,bcjhp->bcijh", dyc, xc)
     dtj = dc[:, :, None, :, :]
-    m1, m2, w = Gm * E * dtj, Xm * E * dtj, Gm * Xm * E
-    u = torch.einsum("bcjhn,bchpn->bcjhp", Bc, Dc)  # D_c B_j
+    m1, m2, w = op(Gm * E * dtj, 2), op(Xm * E * dtj, 2), Gm * Xm * E
+    u = torch.einsum("bcjhn,bchpn->bcjhp", Bc, Ds)  # D_c B_j
     dx = torch.einsum("bcijh,bcihp->bcjhp", m1, dyc) + (dc * ej)[..., None] * u
     dB = torch.einsum("bcijh,bcihn->bcjhn", m2, Cc) + (dc * ej)[..., None] * torch.einsum(
-        "bcjhp,bchpn->bcjhn", xc, Dc)
+        "bcjhp,bchpn->bcjhn", xc, Ds)
     dC = torch.einsum("bcijh,bcjhn->bcihn", m2, Bc) + ei[..., None] * torch.einsum(
-        "bcihp,bchpn->bcihn", dyc, Hc)
+        "bcihp,bchpn->bcihn", dyc, Hs)
     xdb = (xc * u).sum(-1)  # x_j^T D_c B_j
     ddt = w.sum(2) + ej * xdb
     q = w * dtj
     tj = dc * ej * xdb
-    rr = ei * (Cc * torch.einsum("bcihp,bchpn->bcihn", dyc, Hc)).sum(-1)
+    rr = ei * (Cc * torch.einsum("bcihp,bchpn->bcihn", dyc, Hs)).sum(-1)
     dcs = q.sum(3) - q.sum(2) + rr - tj
     dcs[:, :, -1] += tj.sum(2) + decay * (Dc * Hc).sum((-1, -2))
     da = torch.flip(torch.cumsum(torch.flip(dcs, [2]), 2), [2])

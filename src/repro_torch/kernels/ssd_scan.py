@@ -15,7 +15,8 @@ allocates, and adds one to ``LAUNCHES["ssd_scan"]``.
 
 Under autograd (grad mode on, an input requiring grad) the CUDA call goes
 through an autograd Function that saves its inputs; its backward is
-:func:`ssd_scan_backward`, four kernels of their own (dx, da, the direct
+:func:`ssd_scan_backward`, kernels of their own (bf16 on the tensor
+cores, float32 on the CUDA cores; dx, da, the direct
 part of ddt, dB, dC and the initial state's gradient; no TPU counterpart:
 the JAX package trains through ``ssd_chunked_jnp``, whose gradients these
 are), which recompute the chunk states from the inputs and add one to
@@ -118,8 +119,9 @@ def launch_ssd_scan_backward(x, a, dt, B, C, init_state, dy, dfinal, dx, da, ddt
     """Launch the backward kernels on checked, contiguous CUDA tensors
     (``init_state``, ``dfinal`` and ``dinit`` may be None), with their
     float32 scratch allocated here (the chunk states forward and reverse
-    [Bz, H, nc, P, N], the decays [Bz, H, nc], dB and dC per head [Bz, S,
-    H, N]); counts nothing."""
+    [Bz, H, nc, P, N], the decays [Bz, H, nc]; for float32 also dB and dC
+    per head [Bz, S, H, N], which the bf16 kernels sum over a group's
+    heads themselves); counts nothing."""
     bz, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     lib = library("ssd_scan_backward")
@@ -128,8 +130,10 @@ def launch_ssd_scan_backward(x, a, dt, B, C, init_state, dy, dfinal, dx, da, ddt
     fstates = torch.empty((bz, h, nc, p, n), **f32)
     rstates = torch.empty((bz, h, nc, p, n), **f32)
     decay = torch.empty((bz, h, nc), **f32)
-    db_h = torch.empty((bz, s, h, n), **f32)
-    dc_h = torch.empty((bz, s, h, n), **f32)
+    db_h = dc_h = None
+    if x.dtype == torch.float32:
+        db_h = torch.empty((bz, s, h, n), **f32)
+        dc_h = torch.empty((bz, s, h, n), **f32)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -138,7 +142,7 @@ def launch_ssd_scan_backward(x, a, dt, B, C, init_state, dy, dfinal, dx, da, ddt
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(), ptr(init_state),
         dy.data_ptr(), ptr(dfinal), dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), dB.data_ptr(),
         dC.data_ptr(), ptr(dinit), fstates.data_ptr(), rstates.data_ptr(), decay.data_ptr(),
-        db_h.data_ptr(), dc_h.data_ptr(), bz, s, h, g, p, n, _DTYPE_CODE[x.dtype],
+        ptr(db_h), ptr(dc_h), bz, s, h, g, p, n, _DTYPE_CODE[x.dtype],
         torch.cuda.current_stream().cuda_stream,
     )
     check(err, "ssd_scan_backward")

@@ -1385,13 +1385,14 @@ def test_both_builds_of_the_sum_kernel_give_the_same_bits(cuda, side, dtype):
 # bf16 rounding); da, ddt and dinit, float32 outputs, at the float32
 # tolerance. (Autograd of the plain version on the bf16 tensors rounds
 # each head's dB and dC to bf16 before the group sum, 10x further off.)
-# bf16 attention: the kernel reads the bf16 output o for
-# D = rowsum(dO o) where autograd of the plain version has it unrounded, so
-# a key's dK, a sum of many terms that cancel, moves by ~1e-2; there both
-# are held against autograd of the plain version on the inputs upcast to
-# float32, and the kernel's largest error may be at most
-# ATTN_BF16_GRAD_RATIO times the plain version's own (the repository's
-# bf16 rule, as chip_smoke.py holds the LM logits).
+# bf16 attention: the kernel rounds P (and dS, as a high/low split) to
+# bf16 for its tensor-core products, where autograd of the plain version
+# keeps them float32; both are held against autograd of the plain version
+# on the inputs upcast to float32, and the kernel's largest error may be at
+# most ATTN_BF16_GRAD_RATIO times the plain version's own (the
+# repository's bf16 rule, as chip_smoke.py holds the LM logits). Under
+# autograd the forward hands the backward its float32 output for D =
+# rowsum(dO o), as training does.
 _GRAD_TOL = {"attention": {torch.float32: (1e-4, 1e-4)}, "ssd": {torch.float32: (1e-3, 1e-3)}}
 ATTN_BF16_GRAD_RATIO = 2.0
 
@@ -1415,6 +1416,13 @@ ATTN_BWD_SWEEP = [
     (1, 33, 200, 4, 4, 64, 64, True, 0, 167),
     (1, 100, 100, 4, 2, 96, 64, True, 0, 0),
     (1, 70, 70, 4, 4, 32, 32, False, 0, 0),
+    # the tensor-core kernels' 64-row tiles: S one past a tile, a window
+    # that cuts a tile, a kv_offset off the tile grid, S = 1
+    (1, 129, 129, 8, 1, 256, 256, True, 0, 0),
+    (2, 191, 191, 10, 1, 256, 256, True, 70, 0),
+    (1, 65, 257, 4, 2, 192, 128, True, 50, 192),
+    (1, 1, 2, 8, 1, 256, 256, True, 0, 1),
+    (2, 1, 77, 4, 2, 128, 128, True, 0, 76),
 ]
 
 
@@ -1452,15 +1460,17 @@ def test_flash_attention_backward_matches_autograd(cuda, case, dtype):
             got_err = float((leaf.grad.float() - u).abs().max())
             plain_err = float((w.float() - u).abs().max())
             assert got_err <= ATTN_BF16_GRAD_RATIO * plain_err, (name, case, got_err, plain_err)
-    # the forward's log-sum-exp, which the backward reads
+    # the forward's log-sum-exp and float32 output, which the backward reads
     lse = torch.empty((b, h, sq), dtype=torch.float32, device="cuda")
-    fa.launch_flash_attention(q, k, v, torch.empty_like(out), lse, **kw)
+    o32 = torch.empty(out.shape, dtype=torch.float32, device="cuda")
+    fa.launch_flash_attention(q, k, v, torch.empty_like(out), lse, o32, **kw)
     _grad_close(f"lse {case} {dtype}", lse, attention_lse_ref(q, k, **kw),
                 (1e-5, 1e-4) if dtype == torch.float32 else (1e-3, 1e-3))
+    o = out.detach() if dtype == torch.float32 else o32
     # deterministic: the same bits again
-    again = fa.flash_attention_backward(q, k, v, out.detach(), dout, lse, **kw)
+    again = fa.flash_attention_backward(q, k, v, o, dout, lse, **kw)
     assert all(torch.equal(a, g) for a, g in zip(
-        again, fa.flash_attention_backward(q, k, v, out.detach(), dout, lse, **kw)))
+        again, fa.flash_attention_backward(q, k, v, o, dout, lse, **kw)))
 
 
 # (B, S, H, P, G, N, init, final grad): mamba2-130m's heads at a ragged S,
@@ -1471,6 +1481,10 @@ SSD_BWD_SWEEP = [
     (2, 100, 8, 32, 2, 64, True, False),
     (1, 64, 4, 16, 4, 32, False, True),
     (1, 1, 2, 64, 1, 128, True, True),
+    # the chunk edges of the tensor-core kernels' 64-step chunks
+    (1, 65, 24, 64, 1, 128, True, True),
+    (2, 127, 8, 32, 2, 64, False, True),
+    (1, 63, 4, 16, 1, 32, True, False),
 ]
 
 
@@ -1514,3 +1528,37 @@ def test_ssd_scan_backward_matches_autograd(cuda, case, dtype):
     one = sk.ssd_scan_backward(x, a, dt, B, C, dy, dfinal, init_state=st)
     two = sk.ssd_scan_backward(x, a, dt, B, C, dy, dfinal, init_state=st)
     assert all((u is None and w is None) or torch.equal(u, w) for u, w in zip(one, two))
+
+
+def _kernel_names(fn) -> set:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_route_by_dtype(cuda, dtype):
+    """bf16 runs the tensor-core kernels (``*_mma_*``), float32 the scalar
+    ones: the symbols the card ran, a static choice, not a fallback."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sk
+
+    q, k, v, dout = _attn_grad_inputs(1, 130, 130, 4, 2, 128, 128, dtype, 0)
+    lse = torch.empty((1, 4, 130), dtype=torch.float32, device="cuda")
+    out = torch.empty_like(dout)
+    o32 = torch.empty(out.shape, dtype=torch.float32, device="cuda")
+    fa.launch_flash_attention(q, k, v, out, lse, o32, causal=True, window=0, kv_offset=0)
+    o = out if dtype == torch.float32 else o32
+    flash = _kernel_names(lambda: fa.flash_attention_backward(q, k, v, o, dout, lse))
+    x, dt, A, B, C, _ = _ssd_inputs(1, 100, 4, 64, 1, 128, dtype, 0, False)
+    ssd = _kernel_names(lambda: sk.ssd_scan_backward(x, dt * A, dt, B, C, torch.ones_like(x)))
+    tc = dtype == torch.bfloat16
+    for names, kernels in ((flash, ("dkv", "dq")), (ssd, ("chunk_state", "chunk_grad"))):
+        prefix = "flash_bwd_kernel_" if names is flash else "ssd_bwd_kernel_"
+        for kern in kernels:
+            assert any(prefix + "mma_" + kern in n for n in names) == tc, (kern, names)
+            assert any(prefix + kern + "<" in n for n in names) != tc, (kern, names)
