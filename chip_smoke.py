@@ -135,9 +135,16 @@ against ``kernel_ms``; for ``segment_spmm``, ``index_add_`` starts from
 the ids, so the two are one time).
 ``--save-calls PATH`` also saves the sampled paths' largest calls for
 ``tools/time_sampled_rows.py``, which times them on another tree's kernels.
-Bounds: bytes at 3.35 TB/s against operations at 67 TFLOP/s (float32, the
-GNN kernels) or 989 TFLOP/s (bf16 tensor cores, the LM kernels; causal
-attention counts the unmasked half of the square). The flash kernel's
+Bounds come from ``repro_torch.launch.roofline`` alone: each row's
+``kernel_roofline(op, shape, ms, dtype, hw)`` (``roofline_op`` names the
+op), with ``hw = hardware(torch.cuda.get_device_name(0))``, which fails
+the run on a card the roofline does not know: bytes at the card's memory
+rate against operations at its float32 peak (the GNN kernels) or its bf16
+tensor-core peak (the LM kernels; causal attention counts the unmasked
+pairs). Every LM serving and training phase prints its ``roofline(...)``
+line: ``mfu`` and ``hbm_share`` of the prefill, of decode and of the
+steady training step, with ``step_time_bound_s`` and ``dominant``. A
+share of a peak or a bound over 1 fails the run. The flash kernel's
 library yardstick is ``scaled_dot_product_attention``, the segment max's
 ``scatter_reduce(..., "amax")``, the dense sums' ``index_add_`` and
 ``torch.sparse.mm``, the sort's ``torch.sort(stable=True)``, all timed
@@ -184,9 +191,6 @@ import torch
 ROOT = Path(__file__).resolve().parent
 WORKDIR = ROOT / "build" / "chip_smoke"
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
-BF16_FLOPS = 989e12  # H100 SXM bf16 dense on the tensor cores
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
 
 
@@ -330,10 +334,44 @@ def graph_ms(fn, iters: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(stop) / (replays * iters)
 
 
-def bound_ms(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def check_shares(what: str, shares: dict) -> None:
+    """Fails on a share of a peak or a bound outside (0, 1]: no card beats
+    its peak, so a share over 1 means a count is wrong."""
+    for name, share in shares.items():
+        if not 0.0 < share <= 1.0:
+            fail(f"{what}: {name} {share} is outside (0, 1]; a count is wrong")
+
+
+def bound_fields(hw: dict, op: str, shape: dict, ms: float, dtype: str = "f32") -> dict:
+    """A kernel row's bound, from ``repro_torch.launch.roofline``'s
+    ``kernel_roofline(op, shape)`` on the card ``hw`` at the row's ``ms``:
+    ``bound_ms``, ``bound_by`` (bytes or operations) and ``bound_share``
+    (bound / ms, at most 1). ``dtype`` names the type of the operations:
+    float32 for the GNN kernels (they add in float32 whatever they read),
+    bf16 for the LM kernels on the tensor cores."""
+    from repro_torch.launch.roofline import kernel_roofline
+
+    r = kernel_roofline(op, shape, ms / 1e3, dtype, hw)
+    check_shares(f"kernel {op} at {shape}", {"bound_share": r["frac_of_bound"]})
+    return {"roofline_op": op, "bound_ms": r["bound_s"] * 1e3,
+            "bound_by": "operations" if r["bound"] == "compute" else "bytes",
+            "bound_share": r["frac_of_bound"], "bound_flops": r["flops"],
+            "bound_bytes": r["hbm_bytes"]}
+
+
+def step_roofline(what: str, cfg, shape: dict, wall_ms: float, hw: dict,
+                  weight_bytes: int) -> dict:
+    """An LM step's ``mfu``, ``hbm_share``, ``step_time_bound_s`` and
+    ``dominant`` from ``repro_torch.launch.roofline.roofline`` at its
+    measured wall, printed on the phase's line; a share over 1 fails."""
+    from repro_torch.launch.roofline import roofline
+
+    r = roofline(cfg, shape, hw=hw, wall_s=wall_ms / 1e3, weight_bytes=weight_bytes)
+    out = {k: r[k] for k in ("mfu", "hbm_share", "step_time_bound_s", "dominant")}
+    log(f"  {what} roofline ({shape}, {weight_bytes}-byte weights, wall {wall_ms:.2f} ms): "
+        + json.dumps(out))
+    check_shares(what, {"mfu": out["mfu"], "hbm_share": out["hbm_share"]})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -791,9 +829,9 @@ def segment_max_path(g) -> tuple[dict, tuple]:
     return info, (x, seg, n)
 
 
-def time_segment_max(args, launches: int) -> dict:
-    """Kernel 5 at the path's float32 call. Bound: x and the ids read
-    once, the output written once (the comparisons are free beside them).
+def time_segment_max(args, launches: int, hw: dict) -> dict:
+    """Kernel 5 at the path's float32 call. Bound (``segment_max``): x and
+    the ids read once, the output written once.
     Library yardstick: ``scatter_reduce(..., "amax")`` of the valid edges
     into a -inf row (which gives +-inf and NaN where the op gives 0.0;
     this data has neither)."""
@@ -812,8 +850,7 @@ def time_segment_max(args, launches: int) -> dict:
     check_bitwise("scatter_reduce amax on the same call (empty rows to 0.0)",
                   torch.where(torch.isfinite(lib), lib, 0.0), got)
     keys = fused_gnn.segment_max_keys(n, x.device)
-    esize = x.element_size()
-    bound, by = bound_ms(e * (4 + esize) + n * esize, e)
+    ms = graph_ms(rotating(fused_gnn.segment_max, x, seg, n))
     return {
         "name": "segment_max",
         "route": "cuda",
@@ -821,13 +858,13 @@ def time_segment_max(args, launches: int) -> dict:
         "replaces": "src/repro/kernels/fused_gnn.py:348",
         "launches": launches,
         "max_abs_err": err,
-        "ms": graph_ms(rotating(fused_gnn.segment_max, x, seg, n)),
+        "ms": ms,
         "kernel_ms": graph_ms(rotating(fused_gnn.launch_segment_max, x, seg, keys,
                                        torch.empty_like(got))),
         "eager_ms": time_ms(rotating(fused_gnn.segment_max, x, seg, n)),
         "plain_ms": time_ms(rotating(segment_max_ref, x, seg, n)),
-        "bound_ms": bound,
-        "bound_by": by,
+        **bound_fields(hw, "segment_max",
+                       {"edges": e, "segments": n, "dtype_bytes": x.element_size()}, ms),
         "library_ms": time_ms(rotating(lambda v, i: base.scatter_reduce(0, i, v, "amax"),
                                        xs, sl)),
         "shape": {"E": e, "valid_edges": int(ok.sum()), "n": n, "dtype": str(x.dtype)},
@@ -1756,7 +1793,7 @@ def rotating(fn, *args):
     return lambda: fn(*next(it))
 
 
-def time_segment_sum(args, launches: int) -> dict:
+def time_segment_sum(args, launches: int, hw: dict) -> dict:
     from repro_torch.kernels import fused_gnn
     from repro_torch.kernels.ref import segment_spmm_ref
 
@@ -1774,8 +1811,7 @@ def time_segment_sum(args, launches: int) -> dict:
     lib = torch.segment_reduce(data, "sum", offsets=offsets, axis=0)
     check_close("torch.segment_reduce on the same batch", lib, got)
     out = torch.empty_like(got)
-    nbytes = valid * d * msg.element_size() + e * 4 + n * d * msg.element_size()
-    bound, by = bound_ms(nbytes, valid * d)
+    ms = graph_ms(rotating(fused_gnn.segment_spmm_ragged, msg, seg, n))
     return {
         "name": "segment_spmm_ragged",
         "route": "cuda",
@@ -1783,12 +1819,13 @@ def time_segment_sum(args, launches: int) -> dict:
         "replaces": "src/repro/kernels/fused_gnn.py:220",
         "launches": launches,
         "max_abs_err": err,
-        "ms": graph_ms(rotating(fused_gnn.segment_spmm_ragged, msg, seg, n)),
+        "ms": ms,
         "kernel_ms": graph_ms(rotating(fused_gnn.launch_segment_sum, msg, seg, index, out)),
         "eager_ms": time_ms(rotating(fused_gnn.segment_spmm_ragged, msg, seg, n)),
         "plain_ms": time_ms(rotating(segment_spmm_ref, msg, seg, n)),
-        "bound_ms": bound,
-        "bound_by": by,
+        **bound_fields(hw, "segment_spmm_ragged",
+                       {"edges": e, "segments": n, "dim": d, "valid_edges": valid,
+                        "dtype_bytes": msg.element_size()}, ms),
         "library_ms": time_ms(rotating(
             lambda x, o: torch.segment_reduce(x, "sum", offsets=o, axis=0), data, offsets
         )),
@@ -1796,7 +1833,7 @@ def time_segment_sum(args, launches: int) -> dict:
     }
 
 
-def time_gat(args, launches: int) -> dict:
+def time_gat(args, launches: int, hw: dict) -> dict:
     from repro_torch.kernels import fused_gnn
 
     logits, msg, seg, n = args
@@ -1810,9 +1847,7 @@ def time_gat(args, launches: int) -> dict:
     err = check_close(f"gat_softmax_aggregate on the path's largest batch E={e} H={h} dh={dh}",
                       got, plain_gat(logits, msg, seg, n))
     out = torch.empty_like(got)
-    esize = msg.element_size()
-    nbytes = valid * h * dh * esize + valid * h * 4 + e * 4 + n * h * dh * esize
-    bound, by = bound_ms(nbytes, valid * h * (2 * dh + 3))
+    ms = graph_ms(rotating(fused_gnn.gat_softmax_aggregate, logits, msg, seg, n))
     return {
         "name": "gat_softmax_aggregate",
         "route": "cuda",
@@ -1820,14 +1855,15 @@ def time_gat(args, launches: int) -> dict:
         "replaces": "src/repro/kernels/fused_gnn.py:285",
         "launches": launches,
         "max_abs_err": err,
-        "ms": graph_ms(rotating(fused_gnn.gat_softmax_aggregate, logits, msg, seg, n)),
+        "ms": ms,
         "kernel_ms": graph_ms(
             rotating(fused_gnn.launch_gat_softmax_aggregate, lf, msg, seg, index, out)
         ),
         "eager_ms": time_ms(rotating(fused_gnn.gat_softmax_aggregate, logits, msg, seg, n)),
         "plain_ms": time_ms(rotating(plain_gat, logits, msg, seg, n)),
-        "bound_ms": bound,
-        "bound_by": by,
+        **bound_fields(hw, "gat_softmax_aggregate",
+                       {"edges": e, "segments": n, "dim": dh, "heads": h, "valid_edges": valid,
+                        "dtype_bytes": msg.element_size()}, ms),
         "library_ms": None,
         "shape": {"E": e, "valid_edges": valid, "n": n, "H": h, "dh": dh,
                   "dtype": str(msg.dtype)},
@@ -1850,12 +1886,13 @@ def sparse_mm_from_ids(seg, idx, x, n):
     return torch.sparse.mm(adjacency(seg[ok], idx[ok], (n, x.shape[0])), x)
 
 
-def gather_row_dict(name, replaces, launches, err, fn, args, kernel_args, plain, lib, nbytes,
-                    flops, shape) -> dict:
+def gather_row_dict(name, replaces, launches, err, fn, args, kernel_args, plain, lib, hw,
+                    kshape, shape) -> dict:
+    """A gather row: ``name`` is also its roofline op, ``kshape`` its shape."""
     from repro_torch.kernels import fused_gnn
 
-    bound, by = bound_ms(nbytes, flops)
     with torch.no_grad():
+        ms = graph_ms(rotating(fn, *args))
         return {
             "name": name,
             "route": "cuda",
@@ -1863,20 +1900,20 @@ def gather_row_dict(name, replaces, launches, err, fn, args, kernel_args, plain,
             "replaces": replaces,
             "launches": launches,
             "max_abs_err": err,
-            "ms": graph_ms(rotating(fn, *args)),
+            "ms": ms,
             "kernel_ms": graph_ms(rotating(fused_gnn.launch_gather_sum, *kernel_args)),
             "eager_ms": time_ms(rotating(fn, *args)),
             "plain_ms": time_ms(rotating(plain, *args[:4])),
-            "bound_ms": bound,
-            "bound_by": by,
+            **bound_fields(hw, name, kshape, ms),
             "library_ms": time_ms(rotating(lib, args[0])),
             "shape": shape,
         }
 
 
-def time_gather(args, launches: int) -> dict:
-    """Kernel 3 at the training path's largest gather: bound = the distinct
-    gathered rows read once, idx and seg, the output written once."""
+def time_gather(args, launches: int, hw: dict) -> dict:
+    """Kernel 3 at the training path's largest gather. Bound
+    (``gather_spmm_ragged``): the distinct gathered rows read once, idx and
+    seg, the output written once."""
     from repro_torch.kernels import fused_gnn
     from repro_torch.kernels.ref import gather_spmm_ref
 
@@ -1896,23 +1933,24 @@ def time_gather(args, launches: int) -> dict:
     a = adjacency(seg[ok], idx[ok], (n, f))
     check_close("torch.sparse.mm of the CSR adjacency on the same call",
                 torch.sparse.mm(a, feats), got)
-    esize = feats.element_size()
     return gather_row_dict(
         "gather_spmm_ragged", "src/repro/kernels/fused_gnn.py:159", launches, err,
         fused_gnn.gather_spmm_ragged, (feats, idx, seg, n, order),
         (feats, idx, seg, index, torch.empty_like(got)), gather_spmm_ref,
-        lambda x: torch.sparse.mm(a, x),
-        rows * d * esize + 2 * idx.shape[0] * 4 + n * d * esize, valid * d,
+        lambda x: torch.sparse.mm(a, x), hw,
+        {"edges": idx.shape[0], "segments": n, "dim": d, "valid_edges": valid,
+         "rows_read": rows, "dtype_bytes": feats.element_size()},
         {"E": idx.shape[0], "valid_edges": valid, "distinct_rows_read": rows, "F": f, "n": n,
          "D": d, "dtype": str(feats.dtype)},
     )
 
 
-def time_gather_backward(args, launches: int) -> dict:
+def time_gather_backward(args, launches: int, hw: dict) -> dict:
     """Kernel 3 as the backward of the gathers, at the largest call on the
     training path: dfeats[f] = sum_{idx[e]==f} grad[seg[e]] over the
-    idx-sorted edges. Bound: the distinct gradient rows read once, idx,
-    seg and the order, the output written once."""
+    idx-sorted edges. Bound (``gather_spmm_ragged_backward``): the distinct
+    gradient rows read once, idx, seg and the order, the output written
+    once."""
     from repro_torch.kernels import fused_gnn
     from repro_torch.kernels.ref import gather_spmm_ragged_backward_ref
 
@@ -1933,13 +1971,13 @@ def time_gather_backward(args, launches: int) -> dict:
     a = adjacency(g_seg[ok], g_idx[ok], (f, n))
     check_close("torch.sparse.mm of the transposed adjacency on the same call",
                 torch.sparse.mm(a, grad), got)
-    esize = grad.element_size()
     row = gather_row_dict(
         "gather_spmm_ragged_backward", "src/repro/kernels/fused_gnn.py:159", launches, err,
         fused_gnn.gather_spmm_ragged_backward, (grad, idx, seg, f, order),
         (grad, g_idx, g_seg, index, torch.empty_like(got)),
-        gather_spmm_ragged_backward_ref, lambda x: torch.sparse.mm(a, x),
-        rows * d * esize + 3 * idx.shape[0] * 4 + f * d * esize, valid * d,
+        gather_spmm_ragged_backward_ref, lambda x: torch.sparse.mm(a, x), hw,
+        {"edges": idx.shape[0], "segments": f, "dim": d, "valid_edges": valid,
+         "rows_read": rows, "dtype_bytes": grad.element_size()},
         {"E": idx.shape[0], "valid_edges": valid, "distinct_rows_read": rows, "rows_out": f,
          "grad_rows": n, "D": d, "dtype": str(grad.dtype)},
     )
@@ -1970,13 +2008,14 @@ def kernel_ms_by_name(fn, *args, calls: int = 5) -> dict | str:
     return {name: ms / calls for name, ms in found[1]}
 
 
-def time_dense_forms(args, launches: dict) -> list:
+def time_dense_forms(args, launches: dict, hw: dict) -> list:
     """Rows 6 and 4 (``segment_spmm``, ``gather_spmm``) and the sort, at the
     dense-form path's clean float32 call, and ``ms`` in bf16. ``kernel_ms``
     is the CSR kernel alone over the sorted edges, ``sort_ms`` the sort
-    alone. Bounds as for kernels 1 and 3: the messages (or the distinct
-    rows gathered) and the ids read once, the output written once; the
-    sort: the ids read once and the permutation written once. Library
+    alone. Bounds (the roofline's ops of the same names) as for kernels 1
+    and 3: the messages (or the distinct rows gathered) and the ids read
+    once, the output written once; the sort (``segment_sort``): the ids read
+    once and the permutation written once. Library
     yardsticks: ``index_add_`` into zeros, ``torch.sparse.mm`` of the
     adjacency, ``torch.sort(stable=True)`` of the key."""
     from repro_torch.kernels import fused_gnn
@@ -2009,26 +2048,26 @@ def time_dense_forms(args, launches: dict) -> list:
     check_sum_f32("torch.sparse.mm of the adjacency built from the unsorted ids",
                   sparse_mm_from_ids(seg, idx, feats, n), *sums["gather_spmm"], n,
                   in_order=False)
-    b_sort, by_sort = bound_ms(8 * e, 0)
     rows = []
     index_add = (lambda m, s_: m.new_zeros((n, d)).index_add_(0, s_, m), msg, seg)
-    for name, replaces, fn, a, a16, kernel_args, sort_args, plain, lib, from_ids, nbytes in (
+    for name, replaces, fn, a, a16, kernel_args, sort_args, plain, lib, from_ids, kshape in (
         ("segment_spmm", "src/repro/kernels/segment_spmm.py:57", fused_gnn.segment_spmm,
          (msg, seg, n), (msg16, seg, n), (msg, perm, keys, index, out), (seg, n, keys, perm),
          segment_spmm_ref, index_add, None,
-         lambda es: e * d * es + e * 4 + n * d * es),
+         {"edges": e, "segments": n, "dim": d}),
         ("gather_spmm", "src/repro/kernels/fused_gnn.py:122", fused_gnn.gather_spmm,
          (feats, idx, seg, n), (feats16, idx, seg, n), (feats, gidx, keys, index, out),
          (seg, n, keys, perm, idx, gidx), gather_spmm_ref,
          (lambda x: torch.sparse.mm(adj, x), feats),
          (lambda s_, i_, x: sparse_mm_from_ids(s_, i_, x, n), seg, idx, feats),
-         lambda es: rows_read * d * es + 2 * e * 4 + n * d * es),
+         {"edges": e, "segments": n, "dim": d, "rows_read": rows_read}),
     ):
         got = fn(*a)
         err = check_sum_f32(f"{name} on the path's call E={e} n={n} D={d}", got, *sums[name], n)
         ms = graph_ms(rotating(fn, *a))
         sort_ms = graph_ms(rotating(fused_gnn.launch_segment_sort, *sort_args))
-        bound, by = bound_ms(nbytes(4), e * d)
+        bound = bound_fields(hw, name, {**kshape, "dtype_bytes": 4}, ms)
+        ms16 = graph_ms(rotating(fn, *a16))
         kernel_ms = graph_ms(rotating(fused_gnn.launch_gather_sum, *kernel_args))
         library_ms = time_ms(rotating(*lib))
         # index_add_ starts from the ids; torch.sparse.mm from a prebuilt CSR
@@ -2047,21 +2086,21 @@ def time_dense_forms(args, launches: dict) -> list:
             "sort_share": sort_ms / ms,
             "eager_ms": time_ms(rotating(fn, *a)),
             "plain_ms": time_ms(rotating(plain, *a)),
-            "bound_ms": bound,
-            "bound_by": by,
+            **bound,
             "library_ms": library_ms,
             "library_from_ids_ms": from_ids_ms,
             "ms_over_library_from_ids": ms / from_ids_ms,
             "kernel_ms_over_library": kernel_ms / library_ms,
-            "kernel_ms_over_bound": kernel_ms / bound,
-            "bf16": {"ms": graph_ms(rotating(fn, *a16)),
-                     "bound_ms": bound_ms(nbytes(2), e * d)[0]},
+            "kernel_ms_over_bound": kernel_ms / bound["bound_ms"],
+            "bf16": {"ms": ms16,
+                     **bound_fields(hw, name, {**kshape, "dtype_bytes": 2}, ms16)},
             "device_ms_by_kernel": kernel_ms_by_name(fn, *a),
             "shape": {"E": e, "n": n, "F": feats.shape[0], "D": d, "dtype": str(msg.dtype),
                       "sort_passes": fused_gnn.sort_passes(n)},
         })
     check_bitwise("segment_sort on the path's call vs its plain version",
                   fused_gnn.segment_sort(seg, n), segment_sort_ref(seg, n))
+    ms = graph_ms(rotating(fused_gnn.segment_sort, seg, n))
     rows.append({
         "name": "segment_sort",
         "route": "cuda",
@@ -2070,12 +2109,11 @@ def time_dense_forms(args, launches: dict) -> list:
         "part_of": ["segment_spmm", "gather_spmm"],
         "launches": launches["segment_sort"],
         "max_abs_err": 0.0,
-        "ms": graph_ms(rotating(fused_gnn.segment_sort, seg, n)),
+        "ms": ms,
         "kernel_ms": graph_ms(rotating(fused_gnn.launch_segment_sort, seg, n, keys, perm)),
         "eager_ms": time_ms(rotating(fused_gnn.segment_sort, seg, n)),
         "plain_ms": time_ms(rotating(segment_sort_ref, seg, n)),
-        "bound_ms": b_sort,
-        "bound_by": by_sort,
+        **bound_fields(hw, "segment_sort", {"edges": e}, ms),
         "library_ms": time_ms(rotating(lambda k: torch.sort(k, stable=True), key)),
         "shape": {"E": e, "n": n, "passes": fused_gnn.sort_passes(n), "kernels_a_pass": 3},
     })
@@ -2091,10 +2129,10 @@ def plain_gat_backward(grad, logits, msg, seg, index, out, stats):
     return torch.stack([p[0] for p in parts], 1), torch.stack([p[1] for p in parts], 1)
 
 
-def time_gat_backward(args, launches: int) -> dict:
+def time_gat_backward(args, launches: int, hw: dict) -> dict:
     """The GAT backward kernel at the largest call on the training path.
-    Bound: logits, msg, the upstream gradient, out, stats and seg read
-    once; dmsg and dlogit written once."""
+    Bound (``gat_softmax_aggregate_backward``): logits, msg, the upstream
+    gradient, out, stats and seg read once; dmsg and dlogit written once."""
     from repro_torch.kernels import fused_gnn
 
     grad, logits, msg, seg, index, out, stats = (
@@ -2110,12 +2148,9 @@ def time_gat_backward(args, launches: int) -> dict:
     err = max(err, check_close("gat_softmax_aggregate_backward dlogit on the same call",
                                dlogit, want_l, tol=(1e-4, 1e-5)))
     valid = int(index[n])
-    esize = msg.element_size()
-    nbytes = (valid * h * (4 + dh * esize) + 2 * n * h * dh * esize + 2 * n * h * 4 + e * 4
-              + e * h * (dh * esize + 4))
-    bound, by = bound_ms(nbytes, valid * h * (4 * dh + 6))
     dm, dl = torch.empty_like(msg), torch.empty_like(logits)
     fn_args = (grad, logits, msg, seg, index, out, stats)
+    ms = graph_ms(rotating(fused_gnn.gat_softmax_aggregate_backward, *fn_args))
     return {
         "name": "gat_softmax_aggregate_backward",
         "route": "cuda",
@@ -2123,14 +2158,15 @@ def time_gat_backward(args, launches: int) -> dict:
         "replaces": "src/repro/kernels/fused_gnn.py:285",
         "launches": launches,
         "max_abs_err": err,
-        "ms": graph_ms(rotating(fused_gnn.gat_softmax_aggregate_backward, *fn_args)),
+        "ms": ms,
         "kernel_ms": graph_ms(rotating(
             fused_gnn.launch_gat_softmax_aggregate_backward,
             logits, msg, out, grad, stats, seg, index, dm, dl)),
         "eager_ms": time_ms(rotating(fused_gnn.gat_softmax_aggregate_backward, *fn_args)),
         "plain_ms": time_ms(rotating(plain_gat_backward, *fn_args)),
-        "bound_ms": bound,
-        "bound_by": by,
+        **bound_fields(hw, "gat_softmax_aggregate_backward",
+                       {"edges": e, "segments": n, "dim": dh, "heads": h, "valid_edges": valid,
+                        "dtype_bytes": msg.element_size()}, ms),
         "library_ms": None,
         "shape": {"E": e, "valid_edges": valid, "n": n, "H": h, "dh": dh,
                   "dtype": str(msg.dtype)},
@@ -2497,13 +2533,16 @@ def routing_flips(a: RoutingRecorder, b: RoutingRecorder, seq_len: int) -> tuple
     return per_layer, sorted(rows)
 
 
-def serve_lm(arch: str, kernel: str, f32_layers, captured: dict) -> dict:
+def serve_lm(arch: str, kernel: str, f32_layers, captured: dict, hw: dict) -> dict:
     """``repro_torch.launch.serve.serve`` at the full config: batch 4,
     prompt 2048, 32 greedy tokens, weights drawn on the card from seed 0
     (as ``serve`` draws them itself). Counts are zeroed just before the run
     and read just after: one kernel launch per layer's prefill, none in
-    decode. A second run must give the same bits, and one more prefill
-    and decode are profiled (:func:`profile_lm`). The prefill's logits are
+    decode. A second run must give the same bits; its warm prefill and
+    decode walls give the roofline's shares (:func:`step_roofline`, bf16
+    weights at 2 bytes; decode's context the prompt plus half the
+    generated tokens, the mean over its steps), and one more prefill and
+    decode are profiled (:func:`profile_lm`). The prefill's logits are
     then held against the plain versions at ``f32_layers`` layers (None:
     all; the first layers of the same model where an upcast of all would
     not fit the card): in float32 (the same weights upcast) within
@@ -2553,6 +2592,14 @@ def serve_lm(arch: str, kernel: str, f32_layers, captured: dict) -> dict:
     again = serve(cfg, **kw)
     launched("second run")
     bitwise = bool(np.array_equal(again["tokens"], toks) and torch.equal(again["logits"], logits))
+    roof = {
+        "prefill": step_roofline(f"serve {arch} prefill", cfg,
+                                 dict(seq=LM_PROMPT, batch=LM_BATCH, kind="prefill"),
+                                 again["prefill_ms"], hw, 2),
+        "decode": step_roofline(f"serve {arch} decode", cfg,
+                                dict(seq=LM_PROMPT + LM_GEN // 2, batch=LM_BATCH, kind="decode"),
+                                again["decode_ms_per_token"], hw, 2),
+    }
     reset_lm_launches()
     with plain_lm():
         plain = serve(cfg, **kw)
@@ -2606,6 +2653,7 @@ def serve_lm(arch: str, kernel: str, f32_layers, captured: dict) -> dict:
         "decode_ms_per_token": out["decode_ms_per_token"],
         "again_prefill_ms": again["prefill_ms"],
         "again_decode_ms_per_token": again["decode_ms_per_token"],
+        "roofline": roof,
         "plain_prefill_ms": plain["prefill_ms"],
         "plain_decode_ms_per_token": plain["decode_ms_per_token"],
         "f32_depth": depth,
@@ -2681,7 +2729,7 @@ def loss_and_grads(params, cfg, inp, tgt) -> tuple:
     return loss.detach(), grads
 
 
-def train_lm(arch: str, captured: dict) -> dict:
+def train_lm(arch: str, captured: dict, hw: dict) -> dict:
     """``repro_torch.train.LMTrainer`` at the full config, computing in its
     dtype (bf16) on float32 master weights, as the reference trainer's,
     drawn on the card from seed 0, with the reference's AdamW config (lr
@@ -2692,7 +2740,9 @@ def train_lm(arch: str, captured: dict) -> dict:
     counts zeroed just before and read just after (per step, each
     attention or SSD layer: two forward launches, one in the forward and
     one in remat's recompute, and one backward launch), the losses finite
-    and falling; then one step under ``torch.profiler``."""
+    and falling, and the steady step's roofline shares (:func:`step_roofline`,
+    float32 master weights at 4 bytes); then one step under
+    ``torch.profiler``."""
     import gc
 
     from repro_torch.configs import get_config
@@ -2793,6 +2843,8 @@ def train_lm(arch: str, captured: dict) -> dict:
         fail(f"{arch} training losses {losses}: not finite or not falling")
     gaps = np.diff(rec.starts) * 1e3
     steady_ms = float(np.median(gaps[1:])) if gaps.size > 1 else float(gaps[0])
+    roof = step_roofline(f"train {arch} steady step", cfg,
+                         dict(seq=seq, batch=batch, kind="train"), steady_ms, hw, 4)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # one more step under the profiler: device time by kind, busy share
@@ -2823,6 +2875,7 @@ def train_lm(arch: str, captured: dict) -> dict:
         "step_wall_ms_steady_median": steady_ms,
         "step_wall_ms_simt_backward": LM_TRAIN_SIMT_STEP_MS.get(arch),
         "tokens_per_s": batch * seq / steady_ms * 1e3,
+        "roofline": roof,
         "step_device_ms": rec.device_ms(),
         "losses": losses,
         "launches": got,
@@ -2858,12 +2911,12 @@ def named_leaves(tree, prefix=""):
     return [(prefix[:-1], tree)]
 
 
-def time_flash(call, launches: int, name: str = "flash_attention") -> dict:
+def time_flash(call, launches: int, hw: dict, name: str = "flash_attention") -> dict:
     """The flash kernel at a serving prefill's call (gemma-2b: D 256 over
-    one KV head; deepseek-v2-lite: q and k 192 wide, v 128). Bound: q, k,
-    v read once and the output written once at 3.35 TB/s, against the
-    causal products (2 (D + Dv) flops per unmasked (query, key) pair) at
-    989 TFLOP/s. The yardstick, SDPA, is timed both ways: ``library_ms``
+    one KV head; deepseek-v2-lite: q and k 192 wide, v 128). Bound
+    (``flash_attention``): q, k, v read once and the output written once,
+    against the causal products (2 (D + Dv) flops per unmasked (query,
+    key) pair) on the tensor cores. The yardstick, SDPA, is timed both ways: ``library_ms``
     eager (CUDA events around back-to-back calls) and ``library_graph_ms``
     by CUDA-graph replay, as ``ms`` is; ``ms_over_library_graph`` and
     ``bound_share`` (bound / ms) compare like with like."""
@@ -2889,10 +2942,6 @@ def time_flash(call, launches: int, name: str = "flash_attention") -> dict:
 
     check_close("scaled_dot_product_attention on the same call", sdpa(q, k, v).transpose(1, 2),
                 fa.flash_attention(q, k, v, **kw), tol=ATTN_TOL[q.dtype])
-    pairs = b * h * s * (s + 1) // 2
-    esize = q.element_size()
-    nbytes = (q.numel() + k.numel() + v.numel() + b * s * h * dv) * esize
-    bound, by = bound_ms(nbytes, 2 * (d + dv) * pairs, BF16_FLOPS)
     out = q.new_empty((b, s, h, dv))
     ms = graph_ms(rotating(functools.partial(fa.flash_attention, **kw), q, k, v), iters=5)
     try:
@@ -2919,25 +2968,25 @@ def time_flash(call, launches: int, name: str = "flash_attention") -> dict:
                             iters=20),
         "plain_ms": time_ms(rotating(functools.partial(attention_ref, **kw), q, k, v), iters=5,
                             warmup=2),
-        "bound_ms": bound,
-        "bound_by": by,
+        **bound_fields(hw, "flash_attention",
+                       {"batch": b, "seq_q": s, "seq_kv": skv, "heads": h, "kv_heads": hkv,
+                        "dim": d, "dim_v": dv, "dtype_bytes": q.element_size()}, ms, "bf16"),
         "library_ms": time_ms(rotating(sdpa, q, k, v), iters=20),
         "library_graph_ms": library_graph,
         "library_graph_note": graph_note,
         "ms_over_library_graph": ms / library_graph if library_graph else None,
-        "bound_share": bound / ms,
-        "shape": {"B": b, "S": s, "H": h, "Hkv": hkv, "D": d, "Dv": dv, "causal_pairs": pairs,
-                  "dtype": str(q.dtype)},
+        "shape": {"B": b, "S": s, "H": h, "Hkv": hkv, "D": d, "Dv": dv, "dtype": str(q.dtype)},
     }
 
 
-def time_flash_backward(call, launches: int) -> dict:
+def time_flash_backward(call, launches: int, hw: dict) -> dict:
     """The flash backward kernels at the first training call (gemma-2b:
     B 2, S 2048, 8 query heads over one KV head of 256; o the forward's
-    float32 output, as training hands it over). Bound: operations, 2.5
-    times the forward's causal products (2 (D + Dv) flops per unmasked
-    pair) at 989 TFLOP/s, against q, k, v, o, dO and the log-sum-exp read
-    once and dq, dk, dv written once at 3.35 TB/s. The yardstick: the
+    float32 output, as training hands it over). Bound
+    (``flash_attention_backward``): operations, 2.5 times the forward's
+    causal products (2 (D + Dv) flops per unmasked pair) on the tensor
+    cores, against q, k, v, o, dO and the log-sum-exp read once and dq,
+    dk, dv written once. The yardstick: the
     backward of ``scaled_dot_product_attention`` by autograd (its forward
     run once, the graph kept). ``phase_kernel_ms``: the call by kernel,
     from a fresh process (``fresh_phases``)."""
@@ -2965,14 +3014,6 @@ def time_flash_backward(call, launches: int) -> dict:
         f"abs err from the float32 run: kernel {err:.3e}, plain {plain_err:.3e}, ratio "
         f"{err / max(plain_err, 1e-30):.3f} (limit {ATTN_BF16_GRAD_RATIO})")
     window = kw["window"]
-    q_pos = kw["kv_offset"] + np.arange(s)
-    lo = np.maximum(0, q_pos - window + 1) if window > 0 else np.zeros(s, np.int64)
-    hi = np.minimum(skv, q_pos + 1) if kw["causal"] else np.full(s, skv)
-    pairs = b * h * int(np.maximum(hi - lo, 0).sum())
-    esize = q.element_size()
-    nbytes = ((2 * (q.numel() + k.numel() + v.numel()) + dout.numel()) * esize
-              + o.numel() * o.element_size() + lse.numel() * 4)
-    bound, by = bound_ms(nbytes, 2.5 * 2 * (d + dv) * pairs, BF16_FLOPS)
     ms = graph_ms(rotating(functools.partial(fa.flash_attention_backward, **kw),
                            q, k, v, o, dout, lse), iters=3)
     try:
@@ -3002,24 +3043,27 @@ def time_flash_backward(call, launches: int) -> dict:
                                      q, k, v, o, dout, lse), iters=5, warmup=2),
         "plain_ms": time_ms(rotating(functools.partial(attention_backward_ref, **kw),
                                      q, k, v, dout), iters=3, warmup=1),
-        "bound_ms": bound,
-        "bound_by": by,
+        **bound_fields(hw, "flash_attention_backward",
+                       {"batch": b, "seq_q": s, "seq_kv": skv, "heads": h, "kv_heads": hkv,
+                        "dim": d, "dim_v": dv, "causal": kw["causal"], "window": window,
+                        "kv_offset": kw["kv_offset"], "dtype_bytes": q.element_size(),
+                        "o_bytes": o.element_size()}, ms, "bf16"),
         "library_ms": library,
         "library_note": note,
-        "bound_share": bound / ms,
         **fresh_phases("flash-phases"),
-        "shape": {"B": b, "S": s, "H": h, "Hkv": hkv, "D": d, "Dv": dv, "pairs": pairs,
-                  "window": window, "dtype": str(q.dtype), "o_dtype": str(o.dtype)},
+        "shape": {"B": b, "S": s, "H": h, "Hkv": hkv, "D": d, "Dv": dv, "window": window,
+                  "dtype": str(q.dtype), "o_dtype": str(o.dtype)},
     }
 
 
-def time_ssd_backward(call, launches: int) -> dict:
+def time_ssd_backward(call, launches: int, hw: dict) -> dict:
     """The SSD backward kernels at the first training call (mamba2-130m: B
-    4, S 2048, 24 heads of 64, state 128, bf16). Bound: bytes, x, dy, B,
-    C, a, dt (and the initial state and the final state's gradient where
-    given) read once, dx, dB, dC, da, ddt (and dinit) written once at 3.35
-    TB/s, against the recurrence's backward, twice the forward's 6 P N
-    flops per (step, head), at 989 TFLOP/s. No single PyTorch call
+    4, S 2048, 24 heads of 64, state 128, bf16). Bound
+    (``ssd_scan_backward``): bytes, x, dy, B, C, a, dt (and the initial
+    state and the final state's gradient where given) read once, dx, dB,
+    dC, da, ddt (and dinit) written once, against the recurrence's
+    backward, twice the forward's 6 P N flops per (step, head), on the
+    tensor cores. No single PyTorch call
     computes it. ``phase_kernel_ms``: the call by kernel with the
     wrapper's copies, from a fresh process (``fresh_phases``)."""
     import functools
@@ -3043,11 +3087,6 @@ def time_ssd_backward(call, launches: int) -> dict:
             tol = (1e-2, 1e-3 * float(w.abs().max()))
         err = max(err, check_close(f"ssd_scan_backward {name} on the path's call", gg, w,
                                    tol=tol))
-    esize = x.element_size()
-    states = 0 if init is None else 2 * init.numel() * 4
-    final = 0 if dfinal is None else dfinal.numel() * 4
-    nbytes = (3 * x.numel() + 4 * B.numel()) * esize + 4 * a.numel() * 4 + states + final
-    bound, by = bound_ms(nbytes, 12 * b * s * h * p * n, BF16_FLOPS)
     fn = functools.partial(sk.ssd_scan_backward, init_state=init)
     ms = graph_ms(rotating(fn, x, a, dt, B, C, dy, dfinal), iters=5)
     return {
@@ -3062,10 +3101,12 @@ def time_ssd_backward(call, launches: int) -> dict:
         "eager_ms": time_ms(rotating(fn, x, a, dt, B, C, dy, dfinal), iters=20),
         "plain_ms": time_ms(rotating(functools.partial(ssd_backward_ref, init_state=init),
                                      x, a, dt, B, C, dy, dfinal), iters=3, warmup=1),
-        "bound_ms": bound,
-        "bound_by": by,
+        **bound_fields(hw, "ssd_scan_backward",
+                       {"batch": b, "seq": s, "heads": h, "head_dim": p, "groups": g,
+                        "state_dim": n, "dtype_bytes": x.element_size(),
+                        "init_state": init is not None, "final_state_grad": dfinal is not None},
+                       ms, "bf16"),
         "library_ms": None,
-        "bound_share": bound / ms,
         **fresh_phases("ssd"),
         "shape": {"B": b, "S": s, "H": h, "P": p, "G": g, "N": n, "dtype": str(x.dtype),
                   "init_state": init is not None, "final_state_grad": dfinal is not None},
@@ -3109,13 +3150,13 @@ def fresh_phases(only: str) -> dict:
             "phase_source": f"tools/bwd_probe.py --only {only}, a fresh process"}
 
 
-def time_ssd(call, launches: int) -> dict:
+def time_ssd(call, launches: int, hw: dict) -> dict:
     """The SSD kernels at the mamba2-130m prefill's call, the whole call and
-    each of its three kernels. Bound: x, B, C, a, dt and the initial state
-    read once, y and the final state written once at 3.35 TB/s, against the
-    recurrence's 6 P N flops per (step, head) at 989 TFLOP/s (the formula of
-    PR 13's recurrence kernel, kept so that the row compares across
-    designs)."""
+    each of its three kernels. Bound (``ssd_scan``): x, B, C, a, dt and the
+    initial state read once, y and the final state written once, against
+    the recurrence's 6 P N flops per (step, head) on the tensor cores (the
+    formula of the first, step-by-step kernel, kept so that the row
+    compares across designs)."""
     import functools
 
     from repro_torch.kernels import ssd_scan as sk
@@ -3134,10 +3175,6 @@ def time_ssd(call, launches: int) -> dict:
         check_close("ssd_scan final state on the same call", state, want_st,
                     tol=SSD_TOL[torch.float32]),
     )
-    esize = x.element_size()
-    nbytes = ((2 * b * s * h * p + 2 * b * s * g * n) * esize + 2 * b * s * h * 4
-              + 2 * b * h * p * n * 4)
-    bound, by = bound_ms(nbytes, 6 * b * s * h * p * n, BF16_FLOPS)
     ys, fs = torch.empty_like(y), torch.empty_like(state)
     launch = rotating(lambda *t: sk.launch_ssd_scan(*t, init, ys, fs), x, a, dt, B, C)
     ms = graph_ms(rotating(functools.partial(sk.ssd_scan_fused, **kw), x, a, dt, B, C), iters=5)
@@ -3155,10 +3192,11 @@ def time_ssd(call, launches: int) -> dict:
                             iters=20),
         "plain_ms": time_ms(rotating(functools.partial(ssd_chunked_ref, **kw), x, a, dt, B, C),
                             iters=5, warmup=2),
-        "bound_ms": bound,
-        "bound_by": by,
+        **bound_fields(hw, "ssd_scan",
+                       {"batch": b, "seq": s, "heads": h, "head_dim": p, "groups": g,
+                        "state_dim": n, "dtype_bytes": x.element_size(),
+                        "init_state": init is not None}, ms, "bf16"),
         "library_ms": None,
-        "bound_share": bound / ms,
         "shape": {"B": b, "S": s, "H": h, "P": p, "G": g, "N": n, "chunk": kw["chunk"],
                   "kernel_chunk": sk.kernel_chunk(x.dtype), "dtype": str(x.dtype)},
     }
@@ -3193,9 +3231,13 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.roofline import hardware
+
     card = device_line()
     kind = torch.cuda.get_device_name(0)
     log(f"device: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
+    hw = hardware(kind)  # an unknown card fails here: its shares would be wrong
+    log(f"roofline peaks (repro_torch.launch.roofline.HW): {hw}")
     t_start = time.perf_counter()
     shutil.rmtree(WORKDIR, ignore_errors=True)
     WORKDIR.mkdir(parents=True)
@@ -3215,7 +3257,7 @@ def main() -> int:
     lm_train = {}
     for arch in LM_TRAIN:
         torch.cuda.empty_cache()  # the earlier model's weights, gradients and moments
-        lm_train[arch] = train_lm(arch, lm_train_captured)
+        lm_train[arch] = train_lm(arch, lm_train_captured, hw)
     train_launches = {k: sum(v["launches"].get(k, 0) for v in lm_train.values())
                       for k in ("flash_attention_backward", "ssd_scan_backward")}
 
@@ -3255,7 +3297,7 @@ def main() -> int:
     lm = {}
     for arch, (kernel, f32_layers) in LM_ARCHS.items():
         torch.cuda.empty_cache()  # the earlier model's weights and caches
-        lm[arch] = serve_lm(arch, kernel, f32_layers, lm_captured)
+        lm[arch] = serve_lm(arch, kernel, f32_layers, lm_captured, hw)
 
     log(f"phase: the distributed tier: {DIST_REQUESTS} requests through forked sampling "
         f"workers (mp, socket), data-parallel SAGE and GAT at S = {DP_SHARDS}")
@@ -3264,35 +3306,34 @@ def main() -> int:
     log("phase: kernel times at the path's largest shapes (CUDA events, 100 calls, "
         f"{COPIES} rotating input copies)")
     rows = [
-        time_segment_sum(captured["segment_spmm_ragged"], launches["segment_spmm_ragged"]),
-        time_gat(captured["gat_softmax_aggregate"], launches["gat_softmax_aggregate"]),
-        time_gather(captured["gather_spmm_ragged"], launches["gather_spmm_ragged"]),
+        time_segment_sum(captured["segment_spmm_ragged"], launches["segment_spmm_ragged"], hw),
+        time_gat(captured["gat_softmax_aggregate"], launches["gat_softmax_aggregate"], hw),
+        time_gather(captured["gather_spmm_ragged"], launches["gather_spmm_ragged"], hw),
         time_gather_backward(captured["gather_spmm_ragged_backward"],
-                             launches["gather_spmm_ragged_backward"]),
+                             launches["gather_spmm_ragged_backward"], hw),
         time_gat_backward(captured["gat_softmax_aggregate_backward"],
-                          launches["gat_softmax_aggregate_backward"]),
-        time_segment_max(seg_max_call, seg_max["launches"]),
-        *time_dense_forms(dense_calls, dense["launches"]),
-        time_flash(lm_captured["gemma-2b"], lm["gemma-2b"]["launches"]["flash_attention"]),
+                          launches["gat_softmax_aggregate_backward"], hw),
+        time_segment_max(seg_max_call, seg_max["launches"], hw),
+        *time_dense_forms(dense_calls, dense["launches"], hw),
+        time_flash(lm_captured["gemma-2b"], lm["gemma-2b"]["launches"]["flash_attention"], hw),
         time_flash(lm_captured["deepseek-v2-lite-16b"],
-                   lm["deepseek-v2-lite-16b"]["launches"]["flash_attention"],
+                   lm["deepseek-v2-lite-16b"]["launches"]["flash_attention"], hw,
                    name="flash_attention_mla"),
-        time_ssd(lm_captured["mamba2-130m"], lm["mamba2-130m"]["launches"]["ssd_scan"]),
+        time_ssd(lm_captured["mamba2-130m"], lm["mamba2-130m"]["launches"]["ssd_scan"], hw),
         time_flash_backward(lm_train_captured["flash_attention_backward"],
-                            train_launches["flash_attention_backward"]),
+                            train_launches["flash_attention_backward"], hw),
         time_ssd_backward(lm_train_captured["ssd_scan_backward"],
-                          train_launches["ssd_scan_backward"]),
+                          train_launches["ssd_scan_backward"], hw),
     ]
     for r in rows:
         if r["launches"] <= 0:
             fail(f"{r['name']} was never launched on the main path")
         log(f"  {r['name']}: ms {r['ms']:.4f} kernel_ms {r['kernel_ms']:.4f} "
             f"eager_ms {r['eager_ms']:.4f} "
-            f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) "
-            f"library_ms {r['library_ms']}")
+            f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}, "
+            f"{r['roofline_op']}; share {r['bound_share']:.3f}) library_ms {r['library_ms']}")
         if "phase_kernel_ms" in r:
-            log(f"    {r['name']}: by kernel {r['phase_kernel_ms']}; share of the bound "
-                f"{r['bound_share']:.3f}")
+            log(f"    {r['name']}: by kernel {r['phase_kernel_ms']}")
         if "library_from_ids_ms" in r:
             log(f"    {r['name']}: ms / library from the ids {r['ms_over_library_from_ids']:.3f}; "
                 f"kernel_ms / library {r['kernel_ms_over_library']:.3f}; "
@@ -3300,9 +3341,8 @@ def main() -> int:
         if "library_graph_ms" in r:
             ratio = r["ms_over_library_graph"]
             log(f"    {r['name']}: SDPA by graph replay {r['library_graph_ms']} ms; kernel / "
-                f"SDPA {'n/a' if ratio is None else f'{ratio:.3f}'}; share of the bound "
-                f"{r['bound_share']:.3f}" + (f" ({r['library_graph_note']})"
-                                              if r["library_graph_note"] else ""))
+                f"SDPA {'n/a' if ratio is None else f'{ratio:.3f}'}"
+                + (f" ({r['library_graph_note']})" if r["library_graph_note"] else ""))
     log("summary: " + json.dumps({
         "sage_infer_wall_s": sage["wall_s"],
         "gat_infer_wall_s": gat["wall_s"],
@@ -3335,13 +3375,13 @@ def main() -> int:
         "segment_max_path": seg_max,
         "dense_form_path": {k: v for k, v in dense.items() if k != "launches"},
         "lm_serve": {k: {key: v[key] for key in (
-            "prefill_ms", "again_prefill_ms", "decode_ms_per_token", "peak_memory_gb",
+            "prefill_ms", "again_prefill_ms", "decode_ms_per_token", "roofline", "peak_memory_gb",
             "two_runs_bitwise_equal", "f32_depth", "f32_logits_max_abs_err_vs_plain",
             "f32_routing_flips_per_layer", "bf16_kernels_err_vs_f32",
             "bf16_plain_err_vs_f32")} for k, v in lm.items()},
         "lm_train": {k: {key: v[key] for key in (
             "step_wall_ms_steady_median", "step_wall_ms_simt_backward", "tokens_per_s",
-            "losses", "launches_per_step",
+            "roofline", "losses", "launches_per_step",
             "f32_depth", "f32_worst_grad_share", "bf16_step_bitwise_run_to_run",
             "bf16_grad_leaves_not_bitwise", "peak_memory_gb")} for k, v in lm_train.items()},
         "total_s": time.perf_counter() - t_start,

@@ -1,3 +1,5 @@
 """Launchers: the transformer side's shapes and step functions
-(``specs``) and serving entry point (``serve``), and the GNN training
-launcher (``train``)."""
+(``specs``) and serving entry point (``serve``), the GNN training launcher
+(``train``), and the H100's roofline (``roofline``): the model-FLOPs and
+byte accounting behind every kernel bound and every step's share of the
+card's peaks."""

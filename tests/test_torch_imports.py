@@ -35,6 +35,7 @@ MODULES = [
     "repro_torch.kernels.ops",
     "repro_torch.kernels.ref",
     "repro_torch.kernels.ssd_scan",
+    "repro_torch.launch.roofline",
     "repro_torch.launch.serve",
     "repro_torch.launch.specs",
     "repro_torch.launch.train",

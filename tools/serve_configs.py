@@ -9,7 +9,8 @@ musicgen-medium and llava-next-34b are fed random embeddings): the
 flash-attention launches one
 per layer's prefill and none in decode, two runs bitwise equal, the
 prefill's logits against the plain versions in float32 at the depth given
-below and in bf16 within ``LM_BF16_RATIO``, and a profiled prefill. Then it
+below and in bf16 within ``LM_BF16_RATIO``, the prefill's and decode's
+roofline shares (``mfu``, ``hbm_share``), and a profiled prefill. Then it
 times the flash kernel at the first prefill call of a D 128 config
 (internlm2-1.8b) and of a D 64 one (granite-3-2b), as ``chip_smoke.py``
 times rows 7 and 7b. Prints the card's name and power limit and one JSON
@@ -57,7 +58,9 @@ def main() -> int:
         print("serve_configs: needs a CUDA card", file=sys.stderr)
         return 1
     import chip_smoke
+    from repro_torch.launch.roofline import hardware
 
+    hw = hardware(torch.cuda.get_device_name(0))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     chip_smoke.build_kernels()
@@ -68,7 +71,7 @@ def main() -> int:
         t0 = time.perf_counter()
         f32_layers, chip_smoke.LM_BATCH = CONFIGS[arch]
         try:
-            info = chip_smoke.serve_lm(arch, "flash_attention", f32_layers, captured)
+            info = chip_smoke.serve_lm(arch, "flash_attention", f32_layers, captured, hw)
         except Exception as e:  # report it and go on with the others
             failed[arch] = f"{type(e).__name__}: {e}"[:400]
             traceback.print_exc()
@@ -76,12 +79,12 @@ def main() -> int:
         info["phase_s"] = time.perf_counter() - t0
         served[arch] = {k: info[k] for k in (
             "phase_s", "batch", "prefill_ms", "again_prefill_ms", "decode_ms_per_token",
-            "peak_memory_gb", "launches", "two_runs_bitwise_equal", "f32_depth",
+            "roofline", "peak_memory_gb", "launches", "two_runs_bitwise_equal", "f32_depth",
             "f32_logits_max_abs_err_vs_plain", "bf16_kernels_err_vs_f32",
             "bf16_plain_err_vs_f32", "profile")}
         if arch in TIMED:
             rows.append(chip_smoke.time_flash(captured[arch], info["launches"]["flash_attention"],
-                                              name=TIMED[arch]))
+                                              hw, name=TIMED[arch]))
         del captured
     card = chip_smoke.device_line()
     print(card, flush=True)
