@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's main paths once on one NVIDIA card.
 
-    python3 chip_smoke.py [--save-calls PATH]
+    python3 chip_smoke.py [--save-calls PATH] [--tuned-turns ROUNDS]
 
 Builds the Hopper kernels from ``src/repro_torch/kernels/csrc/`` (one nvcc
 per source, in parallel), holds each kernel and each backward kernel
@@ -14,6 +14,15 @@ three at full width:
 * inference and serving: ``GLISPSystem.build -> infer_layerwise ->
   server().submit/step/response``; 32 Zipf requests served batched and
   solo must agree bit for bit;
+* the autotuner (``repro_torch.kernels.autotune``): every valid launch
+  shape of every tuned op at an engine bucket, rows of over ``SUM_CHUNK``
+  slots and D = 1, float32 and bf16, bitwise the heuristic's launch (the
+  sums also bitwise ``ref.chunked_segment_sum_ref``); then
+  ``infer_layerwise(kernel_autotune=True, kernel_cache_dir=...)`` for SAGE
+  and GAT, whose layer stores must equal the untuned passes' bit for bit,
+  with every launch reading a winner, each (op, bucket, dtype)'s heuristic
+  and winner printed with their times; a fresh process must read every
+  winner from the artifact (``measured == 0``); a CPU device must raise;
 * training: ``system.trainer(model, train_ids).train(max_steps=...)``,
   20 SAGE steps and 10 GAT steps (batch 256, prefetch 2, AdamW lr 1e-3,
   weight decay 1e-4), then the first batch's loss and every gradient
@@ -135,6 +144,8 @@ against ``kernel_ms``; for ``segment_spmm``, ``index_add_`` starts from
 the ids, so the two are one time).
 ``--save-calls PATH`` also saves the sampled paths' largest calls for
 ``tools/time_sampled_rows.py``, which times them on another tree's kernels.
+``--tuned-turns ROUNDS`` runs, after the build, only the SAGE and GAT
+passes without and with the tuner's winners in turns (``tuned_turns``).
 Bounds come from ``repro_torch.launch.roofline`` alone: each row's
 ``kernel_roofline(op, shape, ms, dtype, hw)`` (``roofline_op`` names the
 op), with ``hw = hardware(torch.cuda.get_device_name(0))``, which fails
@@ -174,6 +185,7 @@ float32 and ``LM_BF16_RATIO`` in bf16 (see there).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -877,21 +889,22 @@ def time_segment_max(args, launches: int, hw: dict) -> dict:
 
 
 class SliceRecorder:
-    """Wraps a layer's tensor slice: keeps its first batch's inputs and
-    brackets every call with CUDA events (no host sync)."""
+    """Wraps a layer's tensor slice (or another call): keeps its first
+    call's arguments and brackets every call with CUDA events (no host
+    sync)."""
 
     def __init__(self, fn):
         self.fn = fn
         self.first = None
         self.events = []
 
-    def __call__(self, h_self, h_nbr, seg, etype):
+    def __call__(self, *args):
         if self.first is None:
-            self.first = (h_self, h_nbr, seg, etype)
+            self.first = args
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = self.fn(h_self, h_nbr, seg, etype)
+        out = self.fn(*args)
         stop.record()
         self.events.append((start, stop))
         return out
@@ -1030,7 +1043,8 @@ def serve(system, reqs, kernel: str, launches: dict) -> dict:
     return out
 
 
-def run_model(system, kind: str, kernel: str, launches: dict, captured: dict) -> dict:
+def run_model(system, kind: str, kernel: str, launches: dict, captured: dict,
+              passes: dict) -> dict:
     from repro_torch.kernels import fused_gnn
     from repro_torch.models.gnn import GNNModel, load_jax_params, models
 
@@ -1064,7 +1078,12 @@ def run_model(system, kind: str, kernel: str, launches: dict, captured: dict) ->
     final = res.final_store.read_rows(np.arange(g.num_vertices))
     if final.shape != (g.num_vertices, 256) or not np.all(np.isfinite(final)):
         fail(f"{kind}: final store {final.shape}, finite={np.all(np.isfinite(final))}")
+    # what the autotune phase's tuned pass must repeat bit for bit
+    passes[kind] = {"fns": fns, "kernel": kernel, "launches": got[kernel], "wall_s": wall_s,
+                    "stores": [s.read_rows(np.arange(g.num_vertices))
+                               for s in system.infer_engine.layer_stores[1:]]}
     slice_ms = sum(r.device_ms() for r in recorders)
+    passes[kind]["slice_ms"] = slice_ms
     info = {
         "wall_s": wall_s,
         "engine_batches": batches,
@@ -1086,6 +1105,263 @@ def run_model(system, kind: str, kernel: str, launches: dict, captured: dict) ->
     info["serve"] = serve(system, zipf_requests(g, 32, 1), kernel, launches)
     info["samplewise"] = samplewise(system, kind, kernel, fns, wall_s, launches)
     return info
+
+
+# ---------------------------------------------------------------------------
+# the autotune phase: every launch shape bitwise, and a tuned pass per model
+# ---------------------------------------------------------------------------
+
+# (label, E, n, D): the passes' largest engine bucket (D 64 for the GAT
+# aggregate: 256 over 4 heads), rows of about 3 x SUM_CHUNK slots (the
+# long-row chunks), and the count's D = 1
+TUNE_CHECK_SHAPES = (("bucket", 65536, 4096, 256), ("long rows", 16384, 64, 128),
+                     ("count", 65536, 4096, 1))
+
+
+def autotune_candidates() -> dict:
+    """Every valid launch shape of every tuned op (``autotune.valid_candidates``)
+    at ``TUNE_CHECK_SHAPES``, float32 and bf16, on the tuner's own inputs:
+    bitwise the heuristic's output, which for the sums must have the bits
+    of ``ref.chunked_segment_sum_ref`` and for the segment max those of
+    ``ref.segment_max_ref``. Returns the launch shapes checked by op."""
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels.ref import chunked_segment_sum_ref, segment_max_ref
+
+    checked: dict = {}
+    batched_f32 = 0
+    for op in at.TUNED_OPS:
+        for label, e, n, d in TUNE_CHECK_SHAPES:
+            if op == "gat_softmax_aggregate" and label == "bucket":
+                d = 64
+            for dtype in (torch.float32, torch.bfloat16):
+                inp = at._inputs(op, (e, n, d), dtype)
+                launch = at._kernel(op, inp)
+                cands = at.valid_candidates(op, (e, n, d), dtype)
+                want = launch(cands[0]).clone()
+                seg, idx = inp["seg"], inp["idx"]
+                if op == "segment_max":
+                    model = segment_max_ref(inp["logits"], seg, n)
+                elif op.startswith("segment"):
+                    model = chunked_segment_sum_ref(inp["msg"], seg, n).to(dtype)
+                elif op.startswith("gather"):
+                    model = chunked_segment_sum_ref(inp["feats"][idx.clamp_min(0).long()], seg,
+                                                    n, idx >= 0).to(dtype)
+                else:
+                    model = None
+                if model is not None and not torch.equal(bits(want), bits(model)):
+                    fail(f"autotune {op} {label} {dtype}: the heuristic's launch is not "
+                         "bitwise the plain model")
+                for cfg in cands[1:]:
+                    got = launch(cfg)
+                    if not torch.equal(bits(got), bits(want)):
+                        differ = int((bits(got) != bits(want)).sum())
+                        fail(f"autotune {op} {label} {dtype}: {cfg} differs from the "
+                             f"heuristic's {cands[0]} in {differ} elements")
+                lean0 = sum(c.lean == 0 for c in cands) if op != "gat_softmax_aggregate" else 0
+                if dtype == torch.float32:
+                    batched_f32 += lean0
+                checked[op] = checked.get(op, 0) + len(cands)
+                log(f"  ok autotune {op} {label} (E={e} n={n} D={d}) {str(dtype)[6:]}: "
+                    f"{len(cands)} launch shapes bitwise the heuristic's {cands[0]}"
+                    + ("" if model is None else " and the plain model")
+                    + (f" ({lean0} of the batched build)" if lean0 else ""))
+    if batched_f32 == 0:
+        fail("autotune: the float32 batched build of the sum kernel never ran")
+    checked["float32_batched_build"] = batched_f32
+    return checked
+
+
+def _shape_of(key: str) -> tuple:
+    """(op, shape, dtype name) of an ``autotune.tuned_key`` string."""
+    op, dims, dtype = key.split("/")
+    return op, tuple(int(x) for x in dims.split("x")), dtype
+
+
+def autotune_fresh_process(cache: str, keys: list) -> dict:
+    """A new process tunes the recorded keys against ``cache``: each must
+    be read from the artifact (``measured == 0``), with the same winner."""
+    code = (
+        "import dataclasses, json, sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+        "from repro_torch.kernels import autotune as at\n"
+        "keys = json.loads(sys.argv[1])\n"
+        "win = {}\n"
+        "for key in keys:\n"
+        "    op, dims, dt = key.split('/')\n"
+        "    shape = tuple(int(x) for x in dims.split('x'))\n"
+        "    at.autotune_for_slice([(op, shape)], dt, cache_dir=sys.argv[2])\n"
+        "    win[key] = dataclasses.asdict(at.get_tuned(op, shape, dt))\n"
+        "print(json.dumps({'stats': at.stats(), 'winners': win}))\n"
+    )
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", code, json.dumps(keys), cache],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"autotune fresh process exited {out.returncode}: {out.stderr[-2000:]}")
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    got["wall_s"] = time.perf_counter() - t0
+    return got
+
+
+def autotune_phase(system, passes: dict) -> dict:
+    """``infer_layerwise(kernel_autotune=True, kernel_cache_dir=...)`` for
+    each model of ``passes`` (run_model's untuned passes): its layer stores
+    bitwise the untuned pass's, its launches the same, every launch reading
+    a winner; each (op, bucket, dtype)'s heuristic and winner with their
+    times; then the artifact from a fresh process, the refusal on a CPU
+    device, and the table dropped so later phases launch as before."""
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import fused_gnn
+
+    t_phase = time.perf_counter()
+    checked = autotune_candidates()
+    check_s = time.perf_counter() - t_phase
+    cache = str(WORKDIR / "kernel_tune")
+    at.reset()
+    ids = np.arange(system.graph.num_vertices)
+    info: dict = {"launch_shapes_checked": checked, "check_s": check_s, "passes": {}}
+    for kind, run in passes.items():
+        reads = {"launches": 0, "tuned": 0}
+
+        def counted(op, shape, dtype, _orig=fused_gnn.get_tuned):
+            cfg = _orig(op, shape, dtype)
+            reads["launches"] += 1
+            reads["tuned"] += cfg is not None
+            return cfg
+
+        recorders = [fn.torch for fn in run["fns"]]  # run_model's SliceRecorders
+        seen = [len(r.events) for r in recorders]
+        before = set(at.sweeps())
+        fused_gnn.reset_launches()
+        t0 = time.perf_counter()
+        with mock.patch.object(fused_gnn, "get_tuned", counted):
+            system.infer_layerwise(run["fns"], str(WORKDIR / f"{kind}_tuned"),
+                                   out_dims=[256, 256, 256], device="cuda",
+                                   kernel_autotune=True, kernel_cache_dir=cache)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        slice_ms = sum(a.elapsed_time(b) for r, k in zip(recorders, seen) for a, b in r.events[k:])
+        kernel = run["kernel"]
+        if fused_gnn.LAUNCHES[kernel] != run["launches"]:
+            fail(f"autotune {kind}: {fused_gnn.LAUNCHES[kernel]} launches of {kernel} tuned, "
+                 f"{run['launches']} untuned")
+        if reads["tuned"] != reads["launches"] or reads["launches"] != run["launches"]:
+            fail(f"autotune {kind}: {reads['tuned']} of {reads['launches']} launches read a "
+                 f"winner ({run['launches']} launches)")
+        stores = system.infer_engine.layer_stores[1:]
+        for k, (store, want) in enumerate(zip(stores, run["stores"])):
+            got = store.read_rows(ids)
+            if got.shape != want.shape or not np.array_equal(got.view(np.uint32),
+                                                             want.view(np.uint32)):
+                fail(f"autotune {kind}: layer {k + 1}'s tuned embeddings are not bitwise "
+                     "the untuned pass's")
+        log(f"  ok autotune {kind}: the tuned pass's {len(stores)} layer stores bitwise the "
+            f"untuned pass's; {reads['tuned']} of {reads['launches']} launches read a winner")
+        new = {k: v for k, v in at.sweeps().items() if k not in before}
+        for key, v in new.items():
+            h, w = v["heuristic"], v["winner"]
+            log(f"  tuned {key}: heuristic vec {h['vec']} tpr {h['tpr']} lean {h['lean']} "
+                f"{v['heuristic_ms']:.4f} ms -> winner vec {w['vec']} tpr {w['tpr']} "
+                f"lean {w['lean']} {v['winner_ms']:.4f} ms ({v['candidates']} candidates, "
+                f"sweep {v['sweep_s']:.3f} s)")
+        sweep_s = sum(v["sweep_s"] for v in new.values())
+        info["passes"][kind] = {
+            "untuned_wall_s": run["wall_s"], "tuned_wall_s": wall_s,
+            "untuned_slice_device_span_ms": run["slice_ms"],
+            "tuned_slice_device_span_ms": slice_ms,
+            "tuned_wall_less_sweeps_s": wall_s - sweep_s, "sweep_s": sweep_s,
+            "keys": len(new), "winners_not_the_heuristic": sum(
+                v["winner"] != v["heuristic"] for v in new.values()),
+            "launches": run["launches"],
+        }
+    info["sweeps"] = at.sweeps()
+    keys = sorted(info["sweeps"])
+    fresh = autotune_fresh_process(cache, keys)
+    want = {k: v["winner"] for k, v in info["sweeps"].items()}
+    if fresh["stats"] != {"memory_hits": 0, "artifact_hits": len(keys), "measured": 0} or \
+            fresh["winners"] != want:
+        fail(f"autotune fresh process: {fresh['stats']} for {len(keys)} keys; winners equal "
+             f"{fresh['winners'] == want}")
+    log(f"  ok autotune fresh process: {len(keys)} keys from the artifact "
+        f"({fresh['stats']}), the same winners, {fresh['wall_s']:.2f} s")
+    info["fresh_process"] = {"stats": fresh["stats"], "wall_s": fresh["wall_s"]}
+    try:
+        at.autotune("segment_spmm_ragged", (256, 64, 16), torch.float32, device="cpu")
+    except ValueError as err:
+        log(f"  ok autotune on a CPU device raises: {err}")
+    else:
+        fail("autotune on a CPU device did not raise")
+    at.reset()  # later phases launch with the heuristic, as before
+    info["phase_s"] = time.perf_counter() - t_phase
+    log("  autotune: " + json.dumps({k: v for k, v in info.items() if k != "sweeps"}))
+    return info
+
+
+def tuned_turns(rounds: int) -> int:
+    """``--tuned-turns``: the SAGE and GAT layerwise passes without and with
+    the tuner's winners, in turns. Per model one tuning pass
+    (``kernel_autotune=True``, labelled ``tune``), then ``rounds`` times
+    untuned, tuned, tuned, untuned; an untuned pass reads no winner
+    (``fused_gnn.get_tuned`` patched to None), a tuned one the table the
+    first pass filled. Per pass: wall s, the slices' device span ms and
+    the aggregation's (CUDA events around each slice and each aggregate
+    call), and its final store bitwise the first untuned pass's (it must
+    be). Prints one line a pass, the card's name and power limit, and a
+    JSON line with the medians by label."""
+    from repro_torch.api import GLISPConfig, GLISPSystem
+    from repro_torch.graph import named_dataset
+    from repro_torch.kernels import fused_gnn
+    from repro_torch.models.gnn import GNNModel, load_jax_params, models
+
+    g = named_dataset("ogbn-paper", feat_dim=128, num_classes=16, seed=0, scale=1.0)
+    system = GLISPSystem.build(g, GLISPConfig(num_parts=4, fanouts=(15, 10, 5), seed=0))
+    ids = np.arange(g.num_vertices)
+    order = ["tune"] + ["untuned", "tuned", "tuned", "untuned"] * rounds
+    runs, medians = [], {}
+    for kind, entry in (("sage", "gnn_aggregate_and_count"), ("gat", "gnn_gat_aggregate")):
+        model = GNNModel(kind, 128, hidden=256, num_layers=3, num_heads=4, device="cuda")
+        load_jax_params(model, model.init_numpy(0))
+        fns = [model.embed_layer_fn(k) for k in range(3)]
+        slices = [SliceRecorder(fn.torch) for fn in fns]
+        for fn, rec in zip(fns, slices):
+            fn.torch = rec
+        agg = SliceRecorder(getattr(models, entry))
+        want = None
+        for i, label in enumerate(order):
+            for rec in slices + [agg]:
+                rec.events.clear()
+            workdir = WORKDIR / f"{kind}_turn{i}"
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(mock.patch.object(models, entry, agg))
+                if label == "untuned":
+                    stack.enter_context(mock.patch.object(fused_gnn, "get_tuned",
+                                                          lambda *a: None))
+                t0 = time.perf_counter()
+                res = system.infer_layerwise(fns, str(workdir), out_dims=[256, 256, 256],
+                                             device="cuda", kernel_autotune=label != "untuned",
+                                             kernel_cache_dir=str(WORKDIR / "kernel_tune"))
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+            final = res.final_store.read_rows(ids)
+            want = final if want is None and label == "untuned" else want
+            same = None if want is None else bool(np.array_equal(final.view(np.uint32),
+                                                                 want.view(np.uint32)))
+            run = {"model": kind, "pass": i, "label": label, "wall_s": wall_s,
+                   "slice_device_span_ms": sum(r.device_ms() for r in slices),
+                   "aggregate_device_span_ms": agg.device_ms(), "bitwise_first_untuned": same}
+            log("  turn " + json.dumps(run))
+            runs.append(run)
+            shutil.rmtree(workdir, ignore_errors=True)
+            if same is False:
+                fail(f"{kind} pass {i} ({label}) changed the stores")
+        for label in ("untuned", "tuned"):
+            rows = [r for r in runs if r["model"] == kind and r["label"] == label]
+            medians[f"{kind} {label}"] = {k: float(np.median([r[k] for r in rows])) for k in (
+                "wall_s", "slice_device_span_ms", "aggregate_device_span_ms")}
+    shutil.rmtree(WORKDIR, ignore_errors=True)
+    log(device_line())
+    log(json.dumps({"tuned_turns": rounds, "medians": medians}))
+    return 0
 
 
 SAMPLEWISE_TARGETS = 2048
@@ -3220,6 +3496,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--save-calls", metavar="PATH",
                     help="also save the sampled paths' largest calls (tools/time_sampled_rows.py)")
+    ap.add_argument("--tuned-turns", metavar="ROUNDS", type=int, default=0,
+                    help="instead of the whole run: ROUNDS of untuned / tuned SAGE and GAT "
+                         "passes in turns (tuned_turns)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one CUDA card",
@@ -3243,6 +3522,8 @@ def main() -> int:
     WORKDIR.mkdir(parents=True)
 
     build_kernels()
+    if args.tuned_turns:
+        return tuned_turns(args.tuned_turns)
     compare_kernels()
     compare_training_kernels()
     dense_small()
@@ -3275,10 +3556,15 @@ def main() -> int:
     captured: dict = {}
     seg_max, seg_max_call = segment_max_path(g)
     dense, dense_calls = dense_form_path(g)
+    passes: dict = {}
     log("phase: SAGE 128->256x3, infer_layerwise + serving")
-    sage = run_model(system, "sage", "segment_spmm_ragged", launches, captured)
+    sage = run_model(system, "sage", "segment_spmm_ragged", launches, captured, passes)
     log("phase: GAT 4 heads 128->256x3, infer_layerwise + serving")
-    gat = run_model(system, "gat", "gat_softmax_aggregate", launches, captured)
+    gat = run_model(system, "gat", "gat_softmax_aggregate", launches, captured, passes)
+    log("phase: autotune (every launch shape bitwise; infer_layerwise with kernel_autotune, "
+        "SAGE and GAT, bitwise the untuned passes; the artifact from a fresh process)")
+    tuned = autotune_phase(system, passes)
+    del passes
 
     train_ids = np.sort(np.random.default_rng(0).choice(g.num_vertices, g.num_vertices // 5,
                                                         replace=False))
@@ -3350,6 +3636,8 @@ def main() -> int:
         "gat_slice_device_span_ms": gat["slice_device_span_ms"],
         "serve_bitwise": {"sage": sage["serve"]["bitwise_equal"],
                           "gat": gat["serve"]["bitwise_equal"]},
+        "autotune": {"passes": tuned["passes"], "check_s": tuned["check_s"],
+                     "phase_s": tuned["phase_s"]},
         "train": {k: {"step_wall_ms_mean": v["step_wall_ms_mean"],
                       "step_wall_ms_steady_median": v["step_wall_ms_steady_median"],
                       "device_idle_share": v["device_idle_share"],

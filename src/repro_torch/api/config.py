@@ -1,8 +1,11 @@
 """``GLISPConfig`` — one plain-data description of a full GLISP deployment.
 
 Counterpart of ``repro/api/config.py`` with the same fields, defaults and
-validation, less the JAX engine's ``infer_use_kernel``, ``infer_jit``,
-``kernel_autotune`` and ``kernel_cache_dir``, which have no meaning here.
+validation, less the JAX engine's ``infer_use_kernel`` and ``infer_jit``,
+which have no meaning here: the tensors' device picks the kernel, and
+PyTorch runs eagerly. ``kernel_autotune`` therefore needs no
+``infer_use_kernel=True``; on a CPU device the tuner raises at the first
+bucket instead.
 
 Every component is named by a registry string (see ``repro_torch.api.backends``),
 so a config serializes to JSON and a whole pipeline is reproducible from it:
@@ -93,6 +96,13 @@ class GLISPConfig:
     # batch with more edges than the last bucket falls back to
     # power-of-two padding rather than failing
     infer_edge_buckets: tuple = ()
+    # sweep the GNN kernels' launch shapes per (op, shape-bucket, dtype)
+    # before each bucket's first slice (repro_torch.kernels.autotune); the
+    # outputs keep their bits
+    kernel_autotune: bool = False
+    # directory for the tuner's content-addressed JSON artifact; None keeps
+    # tuned configs in-process only (re-measured per process)
+    kernel_cache_dir: str | None = None
 
     # -- fault tolerance -----------------------------------------------------
     # chaos schedule injected into the sampling servers + storage tiers;
@@ -274,6 +284,13 @@ class GLISPConfig:
             raise ValueError(
                 "serve_deadline_ms must be positive or None, got "
                 f"{self.serve_deadline_ms}"
+            )
+        if self.kernel_cache_dir is not None and (
+            not isinstance(self.kernel_cache_dir, str) or not self.kernel_cache_dir
+        ):
+            raise ValueError(
+                "kernel_cache_dir must be None or a non-empty path, got "
+                f"{self.kernel_cache_dir!r}"
             )
         if self.infer_mode not in ("bucketed", "reference"):
             raise ValueError(

@@ -383,11 +383,16 @@ class GLISPSystem:
         dynamic_frac: float | None = None,
         batch_size: int | None = None,
         mode: str | None = None,
+        kernel_autotune: bool | None = None,
+        kernel_cache_dir: str | None = None,
         edge_buckets: tuple | None = None,
         device="cuda",
     ):
         """Run the redundancy-free layerwise engine over the whole graph,
-        with the layer slices on ``device``.
+        with the layer slices on ``device``. ``kernel_autotune`` /
+        ``kernel_cache_dir`` (default: the config's) sweep the kernels'
+        launch shapes per shape bucket before its first slice
+        (``repro_torch.kernels.autotune``).
 
         Repeat calls with the same resolved parameters (and the *same*
         ``layer_fns``/``feats`` objects) reuse one engine."""
@@ -431,6 +436,16 @@ class GLISPSystem:
             out_dims=tuple(out_dims) if out_dims is not None else None,
             seed=cfg.seed,
             mode=mode if mode is not None else cfg.infer_mode,
+            kernel_autotune=(
+                kernel_autotune
+                if kernel_autotune is not None
+                else cfg.kernel_autotune
+            ),
+            kernel_cache_dir=(
+                kernel_cache_dir
+                if kernel_cache_dir is not None
+                else cfg.kernel_cache_dir
+            ),
             edge_buckets=(
                 tuple(edge_buckets)
                 if edge_buckets is not None
@@ -470,6 +485,8 @@ class GLISPSystem:
             retry_policy=cfg.retry_policy,
             faults=cfg.fault_plan,
             device=device,
+            kernel_autotune=resolved["kernel_autotune"],
+            kernel_cache_dir=resolved["kernel_cache_dir"],
         )
         # pin layer_fns/feats so the id()s in the signature stay valid
         self._infer_cache = (sig, engine, (list(layer_fns), feats_arr))

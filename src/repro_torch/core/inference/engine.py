@@ -51,6 +51,7 @@ from repro_torch.core.storage import (
 from repro_torch.device import resolve_device
 from repro_torch.graph.graph import HeteroGraph
 from repro_torch.graph.reorder import reorder_permutation
+from repro_torch.kernels.autotune import autotune_for_slice
 
 # domain-separation tag for the engine's sample-request RNG keys, so they
 # never alias a loader/trainer request stream on a shared service (the same
@@ -250,6 +251,8 @@ class LayerwiseInferenceEngine:
         retry_policy=None,  # RetryPolicy for tiered-storage reads
         faults=None,  # FaultPlan/FaultInjector armed on the cache tiers
         device="cuda",
+        kernel_autotune: bool = False,
+        kernel_cache_dir: str | None = None,
     ):
         if mode not in ("bucketed", "reference"):
             raise ValueError(f"mode must be 'bucketed' or 'reference', got {mode!r}")
@@ -275,6 +278,11 @@ class LayerwiseInferenceEngine:
         self.retry_policy = retry_policy
         self.faults = faults
         self.device = resolve_device(device)
+        # sweep the kernels' launch shapes per (op, bucket, dtype) before a
+        # (layer, bucket)'s first slice (repro_torch.kernels.autotune); the
+        # artifact directory, or None to keep the winners in process only
+        self.kernel_autotune = kernel_autotune
+        self.kernel_cache_dir = kernel_cache_dir
         # filled by run(): the per-layer DFS stores (index k = layer-k
         # embeddings, 0 = input features) and the last InferenceResult —
         # the online serving tier reads layer K-1 through these instead of
@@ -506,6 +514,17 @@ class LayerwiseInferenceEngine:
         b, e = h_self.shape[0], seg.shape[0]
         bp, ep = shape or (self._vertex_bucket(b), self._edge_bucket(e))
         key = (k, bp, ep)
+        if self.kernel_autotune and key not in self._shapes_lifetime:
+            # tune this bucket's kernel shapes before its first slice, so
+            # the slice's launches read the winners (a CPU device raises)
+            shapes_of = getattr(self.layer_fns[k], "kernel_shapes", None)
+            if shapes_of is not None:
+                autotune_for_slice(
+                    shapes_of(ep, bp, h_nbr.shape[1]),
+                    h_nbr.dtype,
+                    cache_dir=self.kernel_cache_dir,
+                    device=self.device,
+                )
         if key not in self._shapes_seen:
             self._shapes_seen.add(key)
             result.slice_shapes += 1

@@ -76,6 +76,14 @@ form: the gather kernel counts under ``gather_spmm_ragged`` (forward),
 aggregate and :func:`gather_rows`), ``segment_spmm`` and ``gather_spmm``
 (the dense forms); ``segment_sort`` counts the sort's kernels (three a
 pass: count, scan, scatter), those of :func:`sort_order` included.
+
+Launch shapes. The sums and the softmax aggregate take three launch
+choices (elements per load, threads per row group, and for the sums
+which of two builds runs). A forward launch reads the autotuner's winner
+for its (op, shape bucket, dtype) under the reference's name of the
+wrapper that called it (``autotune.get_tuned``), else a heuristic; the
+backwards keep the heuristic. Every choice adds in the same order, so the
+tuner moves time and never bits.
 """
 from __future__ import annotations
 
@@ -83,6 +91,7 @@ import math
 
 import torch
 
+from repro_torch.kernels.autotune import TUNED_OPS, get_tuned
 from repro_torch.kernels.build import check, forbid_grad, library, on_cpu
 from repro_torch.kernels.ref import (
     SUM_CHUNK,
@@ -145,17 +154,29 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _vec_tpr(row: int, *ts: torch.Tensor) -> tuple[int, int]:
-    """Elements per load (16 bytes at most, dividing the row and every base
-    address) and threads per row (a power of two up to a warp)."""
-    esize = ts[0].element_size()
-    vec = 16 // esize
+def _cap_vec(vec: int, row: int, esize: int, ts=()) -> int:
+    """``vec`` halved until it divides the row and every base address of
+    ``ts`` (16 bytes a load at most)."""
+    vec = min(vec, 16 // esize)
     while vec > 1 and (row % vec or any(t.data_ptr() % (vec * esize) for t in ts)):
         vec //= 2
+    return vec
+
+
+def heuristic_vec_tpr(row: int, esize: int, ts=()) -> tuple[int, int]:
+    """The untuned launch: elements per load (16 bytes at most, dividing the
+    row and every base address of ``ts``) and threads per row (a power of
+    two up to a warp, enough for one load of the row each)."""
+    vec = _cap_vec(16 // esize, row, esize, ts)
     tpr = 1
     while tpr < 32 and tpr * vec < row:
         tpr *= 2
     return vec, tpr
+
+
+def _vec_tpr(row: int, *ts: torch.Tensor) -> tuple[int, int]:
+    """:func:`heuristic_vec_tpr` for the tensors ``ts`` of a launch."""
+    return heuristic_vec_tpr(row, ts[0].element_size(), ts)
 
 
 def _check_cuda_args(msg: torch.Tensor, seg: torch.Tensor, num_segments: int) -> None:
@@ -209,13 +230,31 @@ def _lean(e: int, n: int, dtype: torch.dtype) -> int:
     return int(cut is None or e < cut * n)
 
 
-def launch_segment_sum(msg, seg, index, out) -> None:
+def _launch_shape(op, config, e: int, n: int, row: int, *ts) -> tuple[int, int, int]:
+    """(vec, tpr, lean) of a forward launch of E = ``e`` edges into ``n``
+    rows of width ``row`` over the tensors ``ts`` it loads and stores (the
+    first gives the element size): ``config`` when given (the tuner's
+    candidates), else the tuner's winner for ``op``'s bucket
+    (``autotune.get_tuned``; ``op`` None: never), else the heuristic. A
+    tuned ``vec`` is capped by the row and the base addresses as the
+    heuristic's is: a bucket's shape does not fix the pointers."""
+    if config is None and op is not None:
+        config = get_tuned(op, (e, n, row), ts[0].dtype)
+    if config is None:
+        vec, tpr = _vec_tpr(row, *ts)
+        return vec, tpr, _lean(e, n, ts[0].dtype)
+    return _cap_vec(config.vec, row, ts[0].element_size(), ts), config.tpr, config.lean
+
+
+def launch_segment_sum(msg, seg, index, out, op=None, config=None) -> None:
     """Launch ``csrc/segment_sum.cu`` on checked CUDA tensors (msg [E, D],
-    seg [E], out [n, D]) and the index from :func:`segment_index`. Counts
-    nothing: the wrapper counts its launches."""
+    seg [E], out [n, D]) and the index from :func:`segment_index`, with
+    the launch shape of :func:`_launch_shape` (``op``: the tuned op name of
+    the calling wrapper; ``config``: a forced one). Counts nothing: the
+    wrapper counts its launches."""
     n, d = out.shape
     e = seg.shape[0]
-    vec, tpr = _vec_tpr(d, msg)
+    vec, tpr, lean = _launch_shape(op, config, e, n, d, msg)
     partial = _partials(e, d, out.device)
     code = library("segment_sum").segment_sum(
         msg.data_ptr(),
@@ -228,7 +267,7 @@ def launch_segment_sum(msg, seg, index, out) -> None:
         _DTYPE_CODE[msg.dtype],
         vec,
         tpr,
-        _lean(e, n, msg.dtype),
+        lean,
         partial.data_ptr(),
         partial.shape[0],
         out.data_ptr(),
@@ -237,13 +276,14 @@ def launch_segment_sum(msg, seg, index, out) -> None:
     check(code, "segment_sum")
 
 
-def launch_gather_sum(feats, idx, seg, index, out) -> None:
+def launch_gather_sum(feats, idx, seg, index, out, op=None, config=None) -> None:
     """Launch ``gather_segment_sum`` (``csrc/segment_sum.cu``) on checked
     CUDA tensors (feats [F, D], idx and seg [E], out [n, D]) and the index
-    of ``seg`` from :func:`segment_index`. Counts nothing."""
+    of ``seg`` from :func:`segment_index`; ``op`` and ``config`` as for
+    :func:`launch_segment_sum`. Counts nothing."""
     n, d = out.shape
     e = seg.shape[0]
-    vec, tpr = _vec_tpr(d, feats, out)
+    vec, tpr, lean = _launch_shape(op, config, e, n, d, feats, out)
     partial = _partials(e, d, out.device)
     code = library("segment_sum").gather_segment_sum(
         feats.data_ptr(),
@@ -257,7 +297,7 @@ def launch_gather_sum(feats, idx, seg, index, out) -> None:
         _DTYPE_CODE[feats.dtype],
         vec,
         tpr,
-        _lean(e, n, feats.dtype),
+        lean,
         partial.data_ptr(),
         partial.shape[0],
         out.data_ptr(),
@@ -266,14 +306,16 @@ def launch_gather_sum(feats, idx, seg, index, out) -> None:
     check(code, "gather_segment_sum")
 
 
-def launch_gat_softmax_aggregate(logits, msg, seg, index, out, stats=None) -> None:
+def launch_gat_softmax_aggregate(logits, msg, seg, index, out, stats=None, op=None,
+                                 config=None) -> None:
     """Launch ``csrc/gat_softmax_aggregate.cu`` on checked CUDA tensors
     (float32 logits [E, H], msg [E, H, dh], seg [E], out [n, H, dh]) and the
     index from :func:`segment_index`; ``stats``, when given, float32
-    [2, n, H], receives each (row, head)'s max and denominator. Counts
-    nothing."""
+    [2, n, H], receives each (row, head)'s max and denominator. ``op`` and
+    ``config`` as for :func:`launch_segment_sum` (the kernel has one
+    build: ``lean`` is not read). Counts nothing."""
     n, h, dh = out.shape
-    vec, tpr = _vec_tpr(dh, msg, out)
+    vec, tpr, _ = _launch_shape(op, config, seg.shape[0], n, dh, msg, out)
     code = library("gat_softmax_aggregate").gat_softmax_aggregate(
         logits.data_ptr(),
         msg.data_ptr(),
@@ -334,7 +376,7 @@ def _sum_on_card(msg, seg, num_segments, index) -> torch.Tensor:
         return out
     if index is None:
         index = segment_index(seg, num_segments)
-    launch_segment_sum(msg, seg, index, out)
+    launch_segment_sum(msg, seg, index, out, op="segment_spmm_ragged")
     LAUNCHES["segment_spmm_ragged"] += 1
     return out
 
@@ -500,12 +542,14 @@ def _check_gather_args(feats, idx, seg, num_segments, order) -> None:
 
 def _gather_on_card(feats, idx, seg, num_segments, name) -> torch.Tensor:
     """Checked CUDA tensors through the gather kernel, counted under
-    ``name``."""
+    ``name``; the forward's launch is tuned under that name, the
+    backward's (not a tuned op, as in the reference) never."""
     d = feats.shape[1]
     out = torch.empty((num_segments, d), dtype=feats.dtype, device=feats.device)
     if num_segments == 0 or d == 0:
         return out
-    launch_gather_sum(feats, idx, seg, segment_index(seg, num_segments), out)
+    op = name if name in TUNED_OPS else None
+    launch_gather_sum(feats, idx, seg, segment_index(seg, num_segments), out, op=op)
     LAUNCHES[name] += 1
     return out
 
@@ -640,7 +684,7 @@ def _dense_on_card(src, idx, seg, num_segments, name) -> torch.Tensor:
         return out
     keys, perm, gathered = _sort_on_card(seg, num_segments, idx)
     launch_gather_sum(src, perm if idx is None else gathered, keys,
-                      segment_index(keys, num_segments), out)
+                      segment_index(keys, num_segments), out, op=name)
     LAUNCHES[name] += 1
     return out
 
@@ -681,7 +725,8 @@ def _gat_on_card(logits, msg, seg, num_segments, stats):
     e, h, dh = msg.shape
     out = torch.empty((num_segments, h, dh), dtype=msg.dtype, device=msg.device)
     index = segment_index(seg, num_segments)
-    launch_gat_softmax_aggregate(logits, msg, seg, index, out, stats)
+    launch_gat_softmax_aggregate(logits, msg, seg, index, out, stats,
+                                 op="gat_softmax_aggregate")
     LAUNCHES["gat_softmax_aggregate"] += 1
     return out, index
 

@@ -7,7 +7,10 @@ argument order. A CUDA tensor goes to the Hopper kernel, a CPU tensor to
 its plain version. So there is no ``use_kernel`` (the tensors' device is
 the switch), and no block sizes: the reference tiles edges for the MXU
 and tunes the tiles (``repro/kernels/autotune.py``), where each kernel here
-gives a destination row one thread group and sizes it from the row width.
+gives a destination row one thread group. Their counterpart is the launch
+shape (elements per load, threads per row group, the sum kernel's build),
+which ``repro_torch.kernels.autotune`` tunes per shape bucket and the
+wrappers read at call time, as the reference's wrappers read its tiles.
 ``ragged=`` picks the call form, as in the reference: ids sorted with the
 padding at the tail (the default), or in any order (``ragged=False``, the
 dense forms: a stable radix sort of the ids on the card, then the same

@@ -276,7 +276,11 @@ class GNNModel(nn.Module):
 
         * ``fn.torch(h_self, h_nbr, seg, etype)``: the slice on tensors
           that already lie on the model's device, ``seg == -1`` padding;
-        * ``fn.needs_etype``: True for hgt."""
+        * ``fn.needs_etype``: True for hgt;
+        * ``fn.kernel_shapes(num_edges, num_vertices, in_dim)``: the
+          reference's (op, (edges, segments, dim)) pairs this slice
+          launches at a bucket, which the engine hands to the autotuner
+          before the bucket's first slice."""
         dev = self.device
 
         def torch_fn(h_self, h_nbr, seg, etype):
@@ -298,8 +302,19 @@ class GNNModel(nn.Module):
             )
             return out.cpu().numpy()
 
+        def kernel_shapes(num_edges, num_vertices, in_dim):
+            if self.kind in ("gcn", "sage"):
+                return [
+                    ("segment_spmm_ragged", (num_edges, num_vertices, in_dim)),
+                    ("segment_spmm_ragged", (num_edges, num_vertices, 1)),
+                ]
+            p = self.layers[k]
+            dh = p["a_dst"].shape[1] if self.kind == "gat" else p["wo"].shape[0] // self.num_heads
+            return [("gat_softmax_aggregate", (num_edges, num_vertices, dh))]
+
         fn.torch = torch_fn
         fn.needs_etype = self.kind == "hgt"
+        fn.kernel_shapes = kernel_shapes
         return fn
 
 

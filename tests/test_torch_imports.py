@@ -29,6 +29,7 @@ MODULES = [
     "repro_torch.dist.transport",
     "repro_torch.dist.worker",
     "repro_torch.graph",
+    "repro_torch.kernels.autotune",
     "repro_torch.kernels.build",
     "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.fused_gnn",
