@@ -72,6 +72,16 @@ three at full width:
   merged aggregates, layer by layer, bitwise each shard's own launches on
   the same layer inputs and the per-shard loop's own forward; ``close()``
   twice, and no worker left;
+* the production-mesh dry run (``repro_torch.launch.dryrun``, on this
+  machine's host, no kernel): ``run_one`` for mixtral-8x7b x ``train_4k``
+  and x ``decode_32k`` on the (16, 16) mesh of a fake 256-rank group, each
+  device's peak and argument bytes printed against the card's memory
+  (``total_memory``), with the roofline's dominant term and the collective
+  bytes; then the accounting held on the card at world 1, in a fresh
+  process: gemma-2b's bf16 parameters and a decode cache (batch 4, length
+  2048) built on the card must grow ``memory_allocated()`` by the dry
+  run's ``argument_bytes`` on a (1, 1) mesh, within the allocator's
+  512-byte rounding per tensor;
 * transformer serving: ``repro_torch.launch.serve.serve`` for gemma-2b
   (18 layers, d_model 2048, 8 query heads over 1 KV head of 256, GeGLU
   16384, vocab 256,000) and mamba2-130m (24 layers, d_model 768, 24 SSD
@@ -3478,6 +3488,92 @@ def time_ssd(call, launches: int, hw: dict) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# the production-mesh dry run
+# ---------------------------------------------------------------------------
+
+DRYRUN = (("mixtral-8x7b", "train_4k"), ("mixtral-8x7b", "decode_32k"))
+WORLD1 = ("gemma-2b", {"seq": 2048, "batch": 4, "kind": "decode"})
+ALLOC_ROUND = 512  # the caching allocator's rounding of a block, bytes
+
+
+# the world-1 check: the dry run's arguments on a (1, 1) mesh, then the
+# same tensors built on the card; prints one JSON line
+WORLD1_CODE = f"""
+import json, sys
+sys.path.insert(0, {str(ROOT / 'src')!r})
+import torch
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models.transformer.model import init_cache, init_params
+cfg, shape = get_config(sys.argv[1]), json.loads(sys.argv[2])
+with dryrun.fake_group(1):
+    want = dryrun.trace_step(cfg, shape, make_local_mesh(1),
+                             weight_dtype=None)["memory"]["argument_bytes"]
+torch.cuda.init()
+before = torch.cuda.memory_allocated()
+params = init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+cache = init_cache(cfg, shape["batch"], shape["seq"], "cuda")
+inputs = torch.zeros((shape["batch"], 1), dtype=torch.int32, device="cuda")
+torch.cuda.synchronize()
+grown = torch.cuda.memory_allocated() - before
+leaves = [inputs] + [t for layer in cache for t in layer.values() if torch.is_tensor(t)]
+stack = [params]
+while stack:
+    x = stack.pop()
+    if isinstance(x, dict):
+        stack.extend(x.values())
+    elif isinstance(x, list):
+        stack.extend(x)
+    else:
+        leaves.append(x)
+print(json.dumps({{"allocated_bytes": grown, "argument_bytes": want, "tensors": len(leaves)}}))
+"""
+
+
+def dryrun_phase(card: str) -> dict:
+    """``run_one`` for ``DRYRUN`` on the single mesh, printed against the
+    card's memory, and the world-1 accounting check on the card."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    result: dict = {"card_total_memory_bytes": total}
+    for arch, shape in DRYRUN:
+        r = dryrun.run_one(arch, shape, False, None, verbose=False)
+        mem, rf = r["memory"], r["roofline"]
+        log(f"  {arch} x {shape} x {r['mesh']}: per device peak "
+            f"{mem['peak_bytes_per_device'] / 2**30:.2f} GiB, arguments "
+            f"{mem['argument_bytes'] / 2**30:.2f} GiB, of the card's {total / 2**30:.2f} GiB "
+            f"({card}); dominant {rf['dominant']} (compute {rf['compute_s'] * 1e3:.2f} ms, "
+            f"memory {rf['memory_s'] * 1e3:.2f} ms, collective {rf['collective_s'] * 1e3:.2f} "
+            f"ms); collective bytes {r['collectives']['total_bytes']} "
+            f"{r['collectives']['bytes']}; trace {r['trace_s']} s")
+        result[f"{arch}/{shape}"] = {"memory": mem, "dominant": rf["dominant"],
+                                  "step_time_bound_s": rf["step_time_bound_s"],
+                                  "collective_bytes": r["collectives"]["total_bytes"],
+                                  "trace_s": r["trace_s"]}
+    # in a fresh process: nothing else there allocates on the card
+    arch, shape = WORLD1
+    out = subprocess.run([sys.executable, "-c", WORLD1_CODE, arch, json.dumps(shape)],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"world-1 accounting process exited {out.returncode}: {out.stderr[-2000:]}")
+    w1 = json.loads(out.stdout.strip().splitlines()[-1])
+    grown, want, tensors = w1["allocated_bytes"], w1["argument_bytes"], w1["tensors"]
+    log(f"  world 1, {arch} bf16 params + decode cache {shape['batch']} x {shape['seq']} "
+        f"(a fresh process): memory_allocated grew {grown} bytes; the dry run's "
+        f"argument_bytes {want} ({tensors} tensors, at most {ALLOC_ROUND} bytes of rounding "
+        f"each)")
+    if not 0 <= grown - want < ALLOC_ROUND * tensors:
+        fail(f"world-1 accounting: the card holds {grown} bytes, the dry run counts {want}")
+    result["world1"] = {"arch": arch, "shape": shape, **w1}
+    result["phase_s"] = time.perf_counter() - t0
+    log(f"  dryrun phase {result['phase_s']:.1f} s")
+    return result
+
+
 SAMPLED_ROWS = ("segment_spmm_ragged", "gat_softmax_aggregate", "gather_spmm_ragged",
                 "gather_spmm_ragged_backward")
 
@@ -3589,6 +3685,10 @@ def main() -> int:
         f"workers (mp, socket), data-parallel SAGE and GAT at S = {DP_SHARDS}")
     dist = dist_phase(g, system, train_ids, launches)
 
+    log("phase: the production-mesh dry run (fake 256-rank group, DTensors, on the host) and "
+        "its accounting on the card at world 1")
+    dry = dryrun_phase(card)
+
     log("phase: kernel times at the path's largest shapes (CUDA events, 100 calls, "
         f"{COPIES} rotating input copies)")
     rows = [
@@ -3672,6 +3772,7 @@ def main() -> int:
             "roofline", "losses", "launches_per_step",
             "f32_depth", "f32_worst_grad_share", "bf16_step_bitwise_run_to_run",
             "bf16_grad_leaves_not_bitwise", "peak_memory_gb")} for k, v in lm_train.items()},
+        "dryrun": dry,
         "total_s": time.perf_counter() - t_start,
     }))
     if args.save_calls:

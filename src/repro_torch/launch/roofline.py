@@ -10,11 +10,11 @@ The analytic model (``analytic_flops``, ``analytic_hbm_bytes``) is the
 reference's line for line: the standard MFU accounting (attention's S^2
 terms, MoE capacity, SSD chunk terms) and a lower bound on device-memory
 traffic. It differs in two places of interface only. ``shape`` is a name in
-``SHAPES`` or a dict with ``seq``, ``batch`` and ``kind``. One card has model
-and data axes of 1, so ``mesh_shape`` goes; ``weight_bytes`` takes its place
-(4: float32 master weights, as the reference counts and ``LMTrainer``
-keeps; 2: bf16 serving). With ``weight_bytes=4`` the results equal the
-reference's with ``mesh_shape={}``.
+``SHAPES`` or a dict with ``seq``, ``batch`` and ``kind``. ``weight_bytes``
+is new (4: float32 master weights, as the reference counts and
+``LMTrainer`` keeps; 2: bf16 serving), and ``mesh_shape`` is optional (one
+card by default). With ``weight_bytes=4`` the results equal the
+reference's for the same ``mesh_shape`` (``{}`` without one).
 
 The kernel formulas are the port's own: each counts every input the
 kernel must read once and every output it writes once, at what this call's
@@ -22,16 +22,33 @@ data needs (valid edges, distinct rows gathered, unmasked attention pairs).
 The reference's GNN formulas count a one-hot matmul on the MXU and row-block
 re-reads, which are TPU tiling.
 
-The reference's ``parse_collectives`` has no counterpart: it reads XLA's
-HLO text, and one card runs no collectives, so ``collective_s`` is 0.
+On a mesh, the dry run (``launch.dryrun``) traces a step over DTensors
+and :class:`CollectiveRecorder` takes the place of the reference's
+``parse_collectives`` (which reads XLA's HLO): it records each collective
+the step issues on each device, with its result's bytes, by kind, and the
+FLOPs of each device's own operations. :func:`mesh_roofline` turns them
+into the reference's per-device roofline, the collectives charged at the
+card's interconnect rates. :func:`roofline` is the one-card form, with no
+collectives.
 """
 from __future__ import annotations
+
+import sys
+
+import torch
+from torch._subclasses.fake_tensor import unset_fake_temporarily
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
 
 from repro_torch.launch.specs import SHAPES
 from repro_torch.models.transformer.config import ArchConfig
 
 __all__ = [
     "HW",
+    "CollectiveRecorder",
+    "collective_seconds",
+    "mesh_roofline",
     "KERNEL_OPS",
     "analytic_flops",
     "analytic_hbm_bytes",
@@ -44,12 +61,17 @@ __all__ = [
 
 # Published peaks, keyed by ``torch.cuda.get_device_name()``. The H100 SXM
 # card at its 700 W limit; a card set below it runs slower under load, so a
-# share against these peaks is stated beside the card's power limit.
+# share against these peaks is stated beside the card's power limit. The
+# interconnect figures are published ones too, not measured: NVLink 4 within
+# a node of 8 cards, one 400 Gb/s NDR InfiniBand port per card between nodes.
 HW = {
     "NVIDIA H100 80GB HBM3": {
         "peak_flops_bf16": 989e12,  # bf16 dense on the tensor cores
         "peak_flops_f32": 67e12,  # float32 outside the tensor cores
         "hbm_bw": 3.35e12,  # device memory, bytes/s
+        "nvlink_bw": 450e9,  # bytes/s per direction, NVLink 4
+        "nvlink_ranks": 8,  # cards of one node, joined by NVLink
+        "ib_bw": 50e9,  # bytes/s, one 400 Gb/s NDR port per card
     },
 }
 
@@ -171,29 +193,38 @@ def analytic_flops(cfg: ArchConfig, shape: str | dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def analytic_hbm_bytes(cfg: ArchConfig, shape: str | dict, *, weight_bytes: int = 4) -> float:
-    """Bytes one step must move through device memory, at ``weight_bytes``
-    a parameter."""
+def analytic_hbm_bytes(cfg: ArchConfig, shape: str | dict, mesh_shape: dict | None = None, *,
+                       weight_bytes: int = 4) -> float:
+    """Bytes one step must move through one device's memory, at
+    ``weight_bytes`` a parameter: weights sharded over the ``model`` axis
+    of ``mesh_shape``, the batch over ``data`` (and ``pod``); one card
+    without a mesh."""
     B, S, kind = _shape(shape)
-    p_dev = weight_bytes * cfg.num_params()
-    b_dev = max(1, B)
+    mesh_shape = mesh_shape or {}
+    msize = mesh_shape.get("model", 1)
+    dsize = 1
+    for a in ("data", "pod"):
+        dsize *= mesh_shape.get(a, 1)
+    n_params = cfg.num_params()
+    p_dev = weight_bytes * n_params / msize  # master weights, model-sharded only
+    b_dev = max(1, B // dsize)
 
     if kind == "train":
         # params: fwd read + remat read + bwd read; grads w+r; adam m,v r+w;
         # saved layer inputs (bf16) w+r; logits fp32 few passes
         act = cfg.num_layers * b_dev * S * cfg.d_model * 2 * 2
-        logits = 3 * b_dev * S * cfg.vocab_size * 4
+        logits = 3 * b_dev * S * (cfg.vocab_size / msize) * 4
         return 3 * p_dev + 2 * p_dev + 4 * p_dev + act + logits
     if kind == "prefill":
         act = cfg.num_layers * b_dev * S * cfg.d_model * 2 * 2
-        cache = _cache_bytes_dev(cfg, S, b_dev)
+        cache = _cache_bytes_dev(cfg, S, b_dev, msize)
         return p_dev + act + cache
     # decode: weights once, cache read+write
-    cache = _cache_bytes_dev(cfg, S, b_dev)
+    cache = _cache_bytes_dev(cfg, S, b_dev, msize)
     return p_dev + 2 * cache
 
 
-def _cache_bytes_dev(cfg: ArchConfig, S: int, b_dev: int) -> float:
+def _cache_bytes_dev(cfg: ArchConfig, S: int, b_dev: int, msize: int) -> float:
     total = 0.0
     for lk in cfg.layer_kinds():
         if lk in ("attn", "local_attn"):
@@ -206,7 +237,8 @@ def _cache_bytes_dev(cfg: ArchConfig, S: int, b_dev: int) -> float:
                 per_tok = (cfg.kv_lora_rank + cfg.rope_head_dim) * 2
             else:
                 per_tok = 2 * cfg.num_kv_heads * cfg.resolved_head_dim * 2
-            total += b_dev * L * per_tok
+            # kv-head (or sequence) dim is model-sharded when divisible
+            total += b_dev * L * per_tok / msize
         elif lk == "ssm":
             s = cfg.ssm
             nh = s.num_heads or s.expand * cfg.d_model // s.head_dim
@@ -251,6 +283,177 @@ def roofline(cfg: ArchConfig, shape: str | dict, *, hw: dict, wall_s: float | No
         out["mfu"] = fl["total"] / (wall_s * hw["peak_flops_bf16"])
         out["hbm_share"] = by / (wall_s * hw["hbm_bw"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# the mesh roofline
+# ---------------------------------------------------------------------------
+
+_COLL_OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
+# ``torch.ops._c10d_functional`` op -> the reference's HLO kind
+_FUNCOL_KINDS = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "all_reduce": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+}
+
+
+def _tensor_bytes(out) -> int:
+    if isinstance(out, torch.Tensor):
+        return out.numel() * out.element_size()
+    if isinstance(out, (list, tuple)):
+        return sum(_tensor_bytes(o) for o in out)
+    return 0
+
+
+class CollectiveRecorder(TorchDispatchMode):
+    """A dispatch mode that sees each device's own operations of a step
+    traced over DTensors: it lets DTensor desugar each operation into
+    local ones and collectives first, then records
+
+    * each ``_c10d_functional`` collective: its kind, as the reference's
+      ``parse_collectives`` names it, the bytes of its result (as
+      ``parse_collectives`` counts them), and the ranks of its group;
+    * the FLOPs of each local operation, by ``torch.utils.flop_counter``'s
+      formulas (those of ``FlopCounterMode``).
+
+    Eager tracing runs every layer, so there are no loop trip counts to
+    multiply. Only operations on fake tensors of ``fake_mode`` count: not
+    DTensor's own shape propagation (another fake mode) nor its
+    bookkeeping on host tensors, which run outside the fake mode.
+    ``on_output(result, held)`` is called with every counted operation's
+    result; ``held`` is None, or the bytes it would hold on the card where
+    PyTorch's CPU stand-in differs (an all-to-all's gathered buffer)."""
+
+    def __init__(self, fake_mode, on_output=None):
+        super().__init__()
+        self.fake_mode = fake_mode
+        self.on_output = on_output
+        self.bytes = {k: 0 for k in _COLL_OPS}
+        self.counts = {k: 0 for k in _COLL_OPS}
+        self.by_group: dict[int, int] = {}  # group size -> bytes
+        self.flops = 0
+        self._in_dtensor = False
+
+    def _ours(self, args, out) -> bool:
+        """Whether an operation is a device's own: it touches a fake tensor
+        of ``fake_mode`` and none of another mode."""
+        modes = [getattr(t, "fake_mode", None)
+                 for t in pytree.tree_leaves((args, out)) if isinstance(t, torch.Tensor)]
+        return self.fake_mode in modes and all(m in (None, self.fake_mode) for m in modes)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            # let DTensor desugar the operation (NotImplemented), its own
+            # bookkeeping on host tensors outside the fake mode, and see the
+            # local operations it issues
+            if self._in_dtensor:
+                return NotImplemented
+            self._in_dtensor = True
+            try:
+                with unset_fake_temporarily(), self:
+                    return func(*args, **kwargs)
+            finally:
+                self._in_dtensor = False
+        out = func(*args, **kwargs)
+        if not self._ours((args, kwargs), out):
+            return out
+        held = None  # bytes the result holds on the card, where not its own
+        packet = func.overloadpacket
+        if packet in flop_registry:
+            self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
+        ns, _, name = getattr(packet, "_qualified_op_name", "").partition("::")
+        if ns == "_c10d_functional" and name in _FUNCOL_KINDS:
+            kind = _FUNCOL_KINDS[name]
+            nbytes = _tensor_bytes(out)
+            if kind == "all-gather" and _in_alltoall_fallback():
+                # PyTorch's CPU stand-in for a Shard-to-Shard all-to-all: an
+                # all-gather, then this rank's chunk; counted as the
+                # all-to-all it stands for, whose result is that chunk
+                kind, nbytes = "all-to-all", nbytes // _group_size(args, kwargs)
+                held = nbytes
+            self.bytes[kind] += nbytes
+            self.counts[kind] += 1
+            size = _group_size(args, kwargs)
+            self.by_group[size] = self.by_group.get(size, 0) + nbytes
+        if self.on_output is not None:
+            self.on_output(out, held)
+        return out
+
+    def result(self) -> dict:
+        """The reference's ``parse_collectives`` keys, and the bytes by
+        group size (``bytes_by_group_ranks``)."""
+        return {"bytes": dict(self.bytes), "counts": dict(self.counts),
+                "total_bytes": sum(self.bytes.values()),
+                "bytes_by_group_ranks": dict(sorted(self.by_group.items()))}
+
+
+def _in_alltoall_fallback() -> bool:
+    frame = sys._getframe(1)
+    while frame is not None:
+        if frame.f_code.co_name == "shard_dim_alltoall":
+            return True
+        frame = frame.f_back
+    return False
+
+
+def _group_size(args, kwargs) -> int:
+    """Ranks of a functional collective's group: its ``group_size``
+    argument, else its group's size by name."""
+    import torch.distributed as dist
+
+    for a in reversed(list(args) + list(kwargs.values())):  # the group name comes last
+        if isinstance(a, str):
+            from torch.distributed.distributed_c10d import _resolve_process_group
+
+            return dist.get_world_size(_resolve_process_group(a))
+    ints = [a for a in args[1:] if isinstance(a, int)]
+    return ints[0] if ints else 1
+
+
+def collective_seconds(coll: dict, hw: dict) -> float:
+    """Seconds the recorded collectives take at the card's published
+    interconnect rates: a group of at most ``nvlink_ranks`` ranks at the
+    NVLink rate, a larger one (it spans nodes) at the InfiniBand rate."""
+    return sum(b / (hw["nvlink_bw"] if ranks <= hw["nvlink_ranks"] else hw["ib_bw"])
+               for ranks, b in coll["bytes_by_group_ranks"].items())
+
+
+def mesh_roofline(cfg: ArchConfig, shape: str | dict, mesh_shape: dict, num_chips: int,
+                  traced_flops: float, coll: dict, hw: dict) -> dict:
+    """The reference's per-device roofline of one step on a mesh: the
+    analytic FLOPs over the chips at the bf16 peak, the analytic bytes of
+    one device at the memory rate, and the recorded collectives (``coll``,
+    from :class:`CollectiveRecorder`) at the interconnect rates. The
+    reference's raw HLO FLOPs become ``traced_flops_per_device``, what one
+    device's traced operations count; it has no HLO bytes."""
+    fl = analytic_flops(cfg, shape)
+    flops_dev = fl["total"] / num_chips
+    analytic_bytes = analytic_hbm_bytes(cfg, shape, mesh_shape)
+    terms = {
+        "compute_s": flops_dev / hw["peak_flops_bf16"],
+        "memory_s": analytic_bytes / hw["hbm_bw"],
+        "collective_s": collective_seconds(coll, hw),
+    }
+    dominant = max(terms, key=terms.get)
+    return {
+        **terms,
+        "dominant": dominant,
+        "step_time_bound_s": max(terms.values()),
+        "analytic_flops_global": fl["total"],
+        "model_flops_6nd_global": fl["6nd"],
+        "useful_flops_ratio": fl["6nd"] / fl["total"] if fl["total"] else 0.0,
+        "traced_flops_per_device": float(traced_flops),
+        "analytic_bytes_per_device": analytic_bytes,
+        "collective_bytes_per_device": coll["total_bytes"],
+    }
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ the cast is a no-op and gives the same bits.
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -35,6 +36,8 @@ __all__ = [
     "rope_freqs",
     "apply_rope",
     "attention_core",
+    "tiled",
+    "reshaped",
     "init_attention",
     "attention_forward",
     "init_mla",
@@ -91,6 +94,59 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def tiled(t: torch.Tensor, dim: int, lead: int) -> torch.Tensor:
+    """``t``, ready for a reshape that splits its dim ``dim`` into
+    ``lead`` blocks (heads). A plain tensor is returned as it is. A DTensor
+    sharded on ``dim`` over mesh axes whose size does not divide ``lead``
+    (a flat split that lands inside a head) is first unsharded on those
+    axes: the all-gather that GSPMD inserts for such a reshape in the
+    reference, issued here explicitly so that the dry run records it
+    (DTensor refuses the uneven reshape)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    sharded = [i for i, pl in enumerate(t.placements) if isinstance(pl, Shard) and pl.dim == dim]
+    if lead % math.prod(mesh.size(i) for i in sharded) == 0:
+        return t
+    return t.redistribute(mesh, [Replicate() if i in sharded else pl
+                                 for i, pl in enumerate(t.placements)])
+
+
+class _Reshape(torch.autograd.Function):
+    """A DTensor's reshape whose backward first brings the gradient to the
+    placements the forward's result had, then reshapes it back."""
+
+    @staticmethod
+    def forward(ctx, t, shape):
+        from torch.distributed.tensor import Partial, Replicate
+
+        out = t.reshape(shape)
+        # a partial sum's gradient is replicated
+        ctx.in_shape = t.shape
+        ctx.placements = tuple(Replicate() if isinstance(pl, Partial) else pl
+                               for pl in out.placements)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if g.placements != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g.reshape(ctx.in_shape), None
+
+
+def reshaped(t: torch.Tensor, shape) -> torch.Tensor:
+    """``t.reshape(shape)``. On a DTensor, the backward's reshape of the
+    gradient runs in the layout of the forward's result, so that a split the
+    gradient's own sharding would cut unevenly (inside a head, or a dim
+    sharded over two mesh axes) is not attempted. A plain tensor is
+    reshaped as it is."""
+    if not hasattr(t, "device_mesh"):
+        return t.reshape(shape)
+    return _Reshape.apply(t, tuple(shape))
 
 
 # ---------------------------------------------------------------------------
@@ -152,9 +208,59 @@ def _blockwise_attention(q, k, v, *, causal, window, q_offset):
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
 
 
+def _sharded_attention(q, k, v, **kw):
+    """Full-sequence attention on DTensors, each device attending its own
+    batch rows and heads through ``local_map``, as GSPMD runs head-sharded
+    attention (no collective), where DTensor would reshard the products'
+    merged batch and head dims. q, k and v are first placed as the sharding
+    rules lay them out: the batch over the data axes (when it divides
+    them), q's heads over ``model`` when they divide it, k's and v's when
+    theirs do, else replicated there (an explicit redistribution, recorded
+    like any other). Each device then takes the kv heads its q heads read;
+    with kv replicated and q sharded, kv's gradient is a partial sum over
+    ``model``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names
+    data = [i for i, n in enumerate(names) if n != "model"]
+    model = names.index("model")
+    b, h, hkv = q.shape[0], q.shape[2], k.shape[2]
+    on_batch = Shard(0) if b % math.prod(mesh.size(i) for i in data) == 0 else Replicate()
+
+    def layout(heads):
+        return [Shard(2) if i == model and heads % mesh.size(model) == 0
+                else (Replicate() if i == model else on_batch) for i in range(mesh.ndim)]
+
+    qp, kp = layout(h), layout(hkv)
+    q = q.redistribute(mesh, qp)
+    k, v = k.redistribute(mesh, kp), v.redistribute(mesh, kp)
+    q_only = qp[model] != kp[model]  # q's heads sharded, kv's replicated
+    kv_grad = [Partial() if i == model and q_only else pl for i, pl in enumerate(kp)]
+
+    def local(ql, kl, vl):
+        if q_only:  # kl holds every kv head: take those this device's q heads read
+            g = h // hkv
+            first = mesh.get_local_rank(model) * ql.shape[2]
+            lo, hi = first // g, (first + ql.shape[2] - 1) // g + 1
+            if (first % g == 0 and ql.shape[2] % g == 0) or hi - lo == 1:
+                kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]  # whole groups
+            else:  # q heads that split kv groups: each q head's own kv head
+                idx = (first + torch.arange(ql.shape[2], device=ql.device)) // g
+                kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+        return attention_core(ql, kl, vl, **kw)
+
+    return local_map(local, out_placements=qp, in_placements=(qp, kp, kp),
+                     in_grad_placements=(qp, kv_grad, kv_grad), device_mesh=mesh)(q, k, v)
+
+
 def attention_core(q, k, v, *, causal=True, window=0, q_offset=0):
     """Full-sequence attention, q [B, Sq, H, D] over k, v [B, Skv, Hkv, D]:
-    the flash-attention kernel on the card, the plain paths on the CPU."""
+    the flash-attention kernel on the card, the plain paths on the CPU
+    (on DTensors, each device's part through :func:`_sharded_attention`)."""
+    if hasattr(q, "device_mesh"):
+        return _sharded_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     if q.device.type == "cuda":
         return mha_attention(q, k, v, causal=causal, window=window, kv_offset=q_offset)
     if k.shape[1] > BLOCKWISE_THRESHOLD:
@@ -167,25 +273,19 @@ def attention_core(q, k, v, *, causal=True, window=0, q_offset=0):
 # ---------------------------------------------------------------------------
 
 
-def _no_head_padding(cfg: ArchConfig) -> None:
-    if cfg.padded_q_heads != cfg.num_heads or cfg.padded_kv_heads != cfg.num_kv_heads:
-        raise NotImplementedError(
-            "tensor-parallel head padding (q_head_pad/kv_head_pad) has no single-card "
-            "counterpart"
-        )
-
-
 def init_attention(generator: torch.Generator, cfg: ArchConfig, device=None) -> Params:
+    """``wq`` [d, Hp Dh] and ``wk``/``wv`` [d, Hkvp Dh] over the padded
+    heads (``cfg.padded_q_heads`` / ``padded_kv_heads``, the real counts
+    without padding), ``wo`` [H Dh, d] over the real heads only."""
     if cfg.kv_lora_rank:
         return init_mla(generator, cfg, device)
-    _no_head_padding(cfg)
     d, dh = cfg.d_model, cfg.resolved_head_dim
-    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    h, hkv = cfg.padded_q_heads, cfg.padded_kv_heads
     return {
         "wq": dense_init(generator, (d, h * dh), device=device),
         "wk": dense_init(generator, (d, hkv * dh), device=device),
         "wv": dense_init(generator, (d, hkv * dh), device=device),
-        "wo": dense_init(generator, (h * dh, d), device=device),
+        "wo": dense_init(generator, (cfg.num_heads * dh, d), device=device),
     }
 
 
@@ -196,7 +296,7 @@ def _decode_attention(q, k_all, v_all, kpos, pos, window):
     [L] int32 absolute positions (-1 = empty slot)."""
     b, sq, h, d = q.shape
     hkv = k_all.shape[2]
-    q5 = q.reshape(b, sq, hkv, h // hkv, d)
+    q5 = tiled(q, 2, hkv).reshape(b, sq, hkv, h // hkv, d)
     s = torch.einsum("bqhgd,bkhd->bhgqk", q5, k_all).float() / (d**0.5)
     mask = (kpos >= 0) & (kpos <= pos)
     if window > 0:
@@ -204,7 +304,7 @@ def _decode_attention(q, k_all, v_all, kpos, pos, window):
     s = torch.where(mask, s, _NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v_all)
-    return o.reshape(b, sq, h, v_all.shape[-1])
+    return reshaped(o, (b, sq, h, v_all.shape[-1]))
 
 
 def _cache_write(cache_tensor, new, pos: int, rolling_len: int):
@@ -260,22 +360,47 @@ def attention_forward(
     cache: Params | None = None,  # {"k","v": [B,L,Hkv,Dh], "kpos": [L], "pos": int}
     window: int = 0,
 ):
-    """Returns (y [B, S, d], new cache or None)."""
+    """Returns (y [B, S, d], new cache or None).
+
+    With head padding (``cfg.q_head_pad`` / ``kv_head_pad``, set by
+    ``launch.specs.pad_heads_for_mesh`` for a tensor-parallel mesh) the
+    projections make the padded heads and :func:`project_out` slices the
+    dead ones away before ``wo``. Repeat mode (decided from ``cfg.tp_size``:
+    neither the kv heads nor the GQA groups divide it, the q heads do)
+    repeats the kv heads to the q heads before full-sequence attention, so
+    that q shards as whole heads against a replicated kv; decode keeps the
+    grouped products. Without a ``tp_size`` neither applies."""
     if cfg.kv_lora_rank:
         return mla_forward(p, cfg, x, positions=positions, cache=cache, window=window)
-    _no_head_padding(cfg)
     b, s, _ = x.shape
     dh = cfg.resolved_head_dim
-    h, hkv = cfg.num_heads, cfg.num_kv_heads
-    q = apply_rope(mm(x, p["wq"]).reshape(b, s, h, dh), positions, cfg.rope_theta)
-    k = apply_rope(mm(x, p["wk"]).reshape(b, s, hkv, dh), positions, cfg.rope_theta)
-    v = mm(x, p["wv"]).reshape(b, s, hkv, dh)
+    h, hkv = cfg.padded_q_heads, cfg.padded_kv_heads
+    q = apply_rope(tiled(mm(x, p["wq"]), 2, h).reshape(b, s, h, dh), positions, cfg.rope_theta)
+    k = apply_rope(tiled(mm(x, p["wk"]), 2, hkv).reshape(b, s, hkv, dh), positions,
+                   cfg.rope_theta)
+    v = tiled(mm(x, p["wv"]), 2, hkv).reshape(b, s, hkv, dh)
+    tp = cfg.tp_size
+    repeat_mode = bool(tp and hkv % tp and (h // hkv) % tp and h % tp == 0 and h != hkv)
+
+    def maybe_repeat(kk, vv):
+        if repeat_mode:
+            return (torch.repeat_interleave(kk, h // hkv, dim=2),
+                    torch.repeat_interleave(vv, h // hkv, dim=2))
+        return kk, vv
 
     def project_out(o):
-        return mm(o.reshape(b, s, h * dh), p["wo"]).to(x.dtype)
+        """Slice away the padded (dead) heads, keeping the real GQA
+        grouping: the padded layout is (hkv_pad, g_pad, dh); the real heads
+        are those with kv < hkv_real and g < g_real."""
+        h_real, hkv_real = cfg.num_heads, cfg.num_kv_heads
+        if h != h_real or hkv != hkv_real:
+            o5 = tiled(o, 2, hkv).reshape(b, s, hkv, h // hkv, dh)
+            o = reshaped(o5[:, :, :hkv_real, :h_real // hkv_real], (b, s, h_real, dh))
+        return mm(reshaped(o, (b, s, h_real * dh)), p["wo"]).to(x.dtype)
 
     if cache is None:  # full-sequence causal (+ optional sliding window)
-        return project_out(attention_core(q, k, v, causal=True, window=window)), None
+        kr, vr = maybe_repeat(k, v)
+        return project_out(attention_core(q, kr, vr, causal=True, window=window)), None
 
     L = cache["k"].shape[1]
     pos = cache["pos"]
@@ -285,7 +410,8 @@ def attention_forward(
     new_cache = {"k": ck, "v": cv, "kpos": kpos, "pos": pos + s}
     if s > 1:
         # prefill (pos == 0 by convention): attend over the fresh k/v
-        o = attention_core(q, k, v, causal=True, window=window)
+        kr, vr = maybe_repeat(k, v)
+        o = attention_core(q, kr, vr, causal=True, window=window)
     else:
         o = _decode_attention(q, ck, cv, kpos, pos, window)
     return project_out(o), new_cache
@@ -331,7 +457,7 @@ def mla_forward(
     b, s, _ = x.shape
     h, dh = cfg.num_heads, cfg.resolved_head_dim
     rd = cfg.rope_head_dim
-    q = mm(x, p["wq"]).reshape(b, s, h, dh + rd)
+    q = tiled(mm(x, p["wq"]), 2, h).reshape(b, s, h, dh + rd)
     q_rope = apply_rope(q[..., dh:], positions, cfg.rope_theta)
     qh = torch.cat([q[..., :dh], q_rope], dim=-1)
     ckv = mm(x, p["w_dkv"])  # [B, S, r]
@@ -339,13 +465,13 @@ def mla_forward(
 
     def expand_kv(ckv_all, krope_all):
         skv = ckv_all.shape[1]
-        k_nope = mm(ckv_all, p["w_uk"]).reshape(b, skv, h, dh)
-        v = mm(ckv_all, p["w_uv"]).reshape(b, skv, h, dh)
+        k_nope = tiled(mm(ckv_all, p["w_uk"]), 2, h).reshape(b, skv, h, dh)
+        v = tiled(mm(ckv_all, p["w_uv"]), 2, h).reshape(b, skv, h, dh)
         k_rope = krope_all[:, :, None, :].expand(b, skv, h, rd).to(k_nope.dtype)
         return torch.cat([k_nope, k_rope], dim=-1), v
 
     def project_out(o):
-        return mm(o.reshape(b, s, h * dh), p["wo"]).to(x.dtype)
+        return mm(reshaped(o, (b, s, h * dh)), p["wo"]).to(x.dtype)
 
     if cache is None:
         k, v = expand_kv(ckv, krope)

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.transformer.config import ArchConfig
@@ -286,6 +287,49 @@ def _remat_layer(lp: Params, cfg: ArchConfig, kind: str, x, positions):
     return x, aux
 
 
+def _sharded_embedding(table, ids):
+    """The rows of a DTensor ``table`` (vocabulary-sharded on a mesh, the
+    dry run) for the DTensor ``ids``, where an index would gather the whole
+    table: through ``local_map``, each shard looks up the ids in its slice
+    of the vocabulary (zeros for the others), one entry of a new dim 2
+    sharded as the vocabulary was; their sum is the lookup, a partial sum
+    over the vocabulary's axes. The table's gradient is a partial sum over
+    the axes that shard the ids and not the table."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    tp, ip = list(table.placements), list(ids.placements)
+    vocab_axes = [i for i, pl in enumerate(tp) if pl == Shard(0)]
+    ids_in = [Replicate() if i in vocab_axes else pl for i, pl in enumerate(ip)]
+    out = [Shard(2) if i in vocab_axes else pl for i, pl in enumerate(ids_in)]
+    table_grad = [Partial() if isinstance(a, Replicate) and isinstance(b, Shard) else a
+                  for a, b in zip(tp, ids_in)]
+
+    def lookup(tl, il):
+        shard = 0
+        for i in vocab_axes:
+            shard = shard * mesh.size(i) + mesh.get_local_rank(i)
+        t = il - shard * tl.shape[0]
+        ok = (t >= 0) & (t < tl.shape[0])
+        rows = F.embedding(torch.where(ok, t, 0), tl)
+        return torch.where(ok[..., None], rows, torch.zeros_like(rows))[:, :, None]
+
+    per_shard = local_map(lookup, out_placements=out, in_placements=(tp, ids_in),
+                          in_grad_placements=(table_grad, ids_in), device_mesh=mesh,
+                          redistribute_inputs=True)(table, ids)
+    return per_shard.sum(dim=2)
+
+
+def _batch_layout(x, inputs):
+    """On a mesh, the residual stream in the reference's layout: the
+    inputs' (the batch over the data axes), every other dim replicated; a
+    partial sum is reduced there. A plain tensor is returned as it is."""
+    if not hasattr(x, "device_mesh") or x.placements == inputs.placements:
+        return x
+    return x.redistribute(x.device_mesh, inputs.placements)
+
+
 def forward(
     params: Params,
     cfg: ArchConfig,
@@ -306,7 +350,9 @@ def forward(
     if remat and cache is not None:
         raise ValueError("remat is for training, without a cache")
     dtype = getattr(torch, cfg.dtype)
-    if cfg.input_mode == "tokens":
+    if cfg.input_mode == "tokens" and hasattr(params["embed"], "device_mesh"):
+        x = _batch_layout(_sharded_embedding(params["embed"], inputs), inputs).to(dtype)
+    elif cfg.input_mode == "tokens":
         x = params["embed"][inputs].to(dtype)
     else:
         x = inputs.to(dtype)
@@ -322,6 +368,7 @@ def forward(
         else:
             x, nc, aux = _layer_forward(params["layers"][li], cfg, kind, x, positions,
                                         None if cache is None else cache[li])
+        x = _batch_layout(x, inputs)
         if aux is not None:
             aux_total = aux_total + aux
         if new_caches is not None:
@@ -358,6 +405,55 @@ class _LogitTerms(torch.autograd.Function):
         return grad.scatter_add_(-1, targets[..., None], g_tgt[..., None]), None
 
 
+def _sharded_logit_terms(logits, targets):
+    """``_LogitTerms``' (logsumexp, target logit) for a DTensor ``logits``
+    whose vocabulary dim may be sharded (a tied or sharded head on a mesh),
+    as the reference's partitioned loss computes them: each shard's max,
+    sum of exponentials and target logit (0 where the target lies in
+    another shard) through ``local_map``, one entry each of a new last dim
+    sharded as the vocabulary was; only those [B, S, shards] entries are
+    reduced across the shards, never the logits (DTensor would gather the
+    vocabulary for ``logsumexp`` and ``gather``, forward and backward). A
+    partial sum of the logits (a head contracted over a sharded d_model) is
+    reduced first."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = logits.device_mesh
+    vdim = logits.ndim - 1
+    logits = logits.redistribute(mesh, [Replicate() if isinstance(pl, Partial) else pl
+                                        for pl in logits.placements])
+    lp = list(logits.placements)
+    vocab_axes = [i for i, pl in enumerate(lp) if pl == Shard(vdim)]
+    rest = [Replicate() if i in vocab_axes else pl for i, pl in enumerate(lp)]
+    per_shard = [Shard(vdim) if i in vocab_axes else pl for i, pl in enumerate(lp)]
+    targets = targets.redistribute(mesh, rest)
+
+    def shard_index():
+        shard = 0
+        for i in vocab_axes:
+            shard = shard * mesh.size(i) + mesh.get_local_rank(i)
+        return shard
+
+    def max_and_target(lg, tg):
+        t = tg - shard_index() * lg.shape[-1]
+        ok = (t >= 0) & (t < lg.shape[-1])
+        g = torch.gather(lg, -1, torch.where(ok, t, 0)[..., None])
+        return (lg.detach().amax(dim=-1, keepdim=True),
+                torch.where(ok[..., None], g, torch.zeros_like(g)))
+
+    def sum_exp(lg, m):
+        return torch.exp(lg - m).sum(dim=-1, keepdim=True)
+
+    m, tgt = local_map(max_and_target, out_placements=(per_shard, per_shard),
+                       in_placements=(lp, rest), device_mesh=mesh)(logits, targets)
+    m = m.amax(dim=-1, keepdim=True).redistribute(mesh, rest)
+    s = local_map(sum_exp, out_placements=per_shard, in_placements=(lp, rest),
+                  device_mesh=mesh)(logits, m)
+    logz = (m + torch.log(s.sum(dim=-1, keepdim=True)))[..., 0]
+    return logz, tgt.sum(dim=-1)
+
+
 def lm_loss(
     params: Params,
     cfg: ArchConfig,
@@ -373,6 +469,9 @@ def lm_loss(
     loss, plus ``z_loss`` times the mean squared ``logsumexp``. Returns
     (loss, (nll, aux))."""
     logits, aux, _ = forward(params, cfg, inputs, remat=remat)
-    logz, tgt_logit = _LogitTerms.apply(logits, targets.long())
+    if hasattr(logits, "device_mesh"):  # a DTensor (the dry run)
+        logz, tgt_logit = _sharded_logit_terms(logits, targets.long())
+    else:
+        logz, tgt_logit = _LogitTerms.apply(logits, targets.long())
     nll = (logz - tgt_logit).mean()
     return nll + aux + z_loss * torch.square(logz).mean(), (nll, aux)

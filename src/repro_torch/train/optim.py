@@ -117,15 +117,26 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
     scale, gnorm = _clip_scale(grads, cfg.grad_clip)
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["mu"]),
                           tree_leaves(state["nu"])):
-        p, m, v = p.view(-1), m.view(-1), v.view(-1)  # views: written in place
-        g = g.reshape(-1)
-        for lo in range(0, p.numel(), _SLICE):
-            ps, ms, vs = (t[lo:lo + _SLICE] for t in (p, m, v))
-            gs = g[lo:lo + _SLICE].float() * scale
+        for ps, gs, ms, vs in _slices(p, g, m, v):
+            gs = gs.float() * scale
             ms.mul_(b1).add_((1 - b1) * gs)
             vs.mul_(b2).add_((1 - b2) * torch.square(gs))
             ps.copy_(upd(ps, ms, vs))
     return params, {**state, "step": step}, {"lr": lr, "grad_norm": gnorm}
+
+
+def _slices(p, g, m, v):
+    """(param, grad, mu, nu) slices of ``_SLICE`` elements of one leaf,
+    views written in place; a DTensor leaf (sharded on a mesh, each
+    device's shard already a slice of it) whole, as flattening a sharded
+    dim would gather it."""
+    if hasattr(p, "device_mesh"):
+        yield p, g, m, v
+        return
+    p, m, v = p.view(-1), m.view(-1), v.view(-1)
+    g = g.reshape(-1)
+    for lo in range(0, p.numel(), _SLICE):
+        yield (t[lo:lo + _SLICE] for t in (p, g, m, v))
 
 
 @torch.no_grad()

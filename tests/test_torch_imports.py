@@ -36,8 +36,11 @@ MODULES = [
     "repro_torch.kernels.ops",
     "repro_torch.kernels.ref",
     "repro_torch.kernels.ssd_scan",
+    "repro_torch.launch.dryrun",
+    "repro_torch.launch.mesh",
     "repro_torch.launch.roofline",
     "repro_torch.launch.serve",
+    "repro_torch.launch.shardings",
     "repro_torch.launch.specs",
     "repro_torch.launch.train",
     "repro_torch.models.gnn",
@@ -65,6 +68,23 @@ def test_import_loads_neither_jax_nor_repro():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == ""
+
+
+def test_the_dry_run_loads_no_jax_and_no_process_group():
+    """Importing the dry run creates no process group: ``run_one`` makes
+    its fake group and destroys it."""
+    code = (
+        "import sys, torch.distributed as dist\n"
+        "import repro_torch.launch.dryrun\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(','.join(bad), dist.is_initialized())\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
 
 
 def test_the_sampling_workers_path_loads_no_torch():

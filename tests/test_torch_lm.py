@@ -417,8 +417,14 @@ def test_specs_and_what_is_not_ported():
     assert specs.resolve_config(gemma, "long_500k").window == gemma.long_context_window
     assert specs.resolve_config(gemma, "prefill_32k") == gemma
     assert specs.SHAPES == jax_specs.SHAPES
-    with pytest.raises(NotImplementedError):
-        specs.resolve_config(gemma, "prefill_32k", model_axis=4)
+    # a mesh's model axis: head padding as the reference resolves it
+    jgemma = jax_get_config("gemma-2b")
+    for model_axis in (4, 16):
+        for shape in specs.SHAPES:
+            got = specs.resolve_config(gemma, shape, model_axis=model_axis)
+            want = jax_specs.resolve_config(jgemma, shape, model_axis=model_axis)
+            assert dataclasses.asdict(got) == dataclasses.asdict(want)
+            assert got.tp_size == model_axis
     gen = torch.Generator().manual_seed(0)
     # RG-LRU builds (it raised before it was ported), with the JAX tree's size
     for reduced in (True, False):

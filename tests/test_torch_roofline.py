@@ -161,7 +161,8 @@ def test_kernel_roofline_peak_follows_dtype():
 
 def test_hardware():
     hw = rf.hardware(H100)
-    assert hw == {"peak_flops_bf16": 989e12, "peak_flops_f32": 67e12, "hbm_bw": 3.35e12}
+    assert hw == {"peak_flops_bf16": 989e12, "peak_flops_f32": 67e12, "hbm_bw": 3.35e12,
+                  "nvlink_bw": 450e9, "nvlink_ranks": 8, "ib_bw": 50e9}
     hw["hbm_bw"] = 0.0  # a copy: the table stays
     assert rf.HW[H100]["hbm_bw"] == 3.35e12
     with pytest.raises(ValueError, match="unknown card"):
