@@ -21,8 +21,12 @@ three at full width:
   ``infer_layerwise(kernel_autotune=True, kernel_cache_dir=...)`` for SAGE
   and GAT, whose layer stores must equal the untuned passes' bit for bit,
   with every launch reading a winner, each (op, bucket, dtype)'s heuristic
-  and winner printed with their times; a fresh process must read every
-  winner from the artifact (``measured == 0``); a CPU device must raise;
+  and winner printed with their times; the SAGE pass runs inside
+  ``repro_torch.analysis.recompile_guard`` (one tuner sweep per new (op,
+  bucket, dtype) key), then again through the same engine inside a second
+  guard (0 sweeps, 0 new keys), both printed on lines of their own; a
+  fresh process must read every winner from the artifact (``measured ==
+  0``); a CPU device must raise;
 * training: ``system.trainer(model, train_ids).train(max_steps=...)``,
   20 SAGE steps and 10 GAT steps (batch 256, prefetch 2, AdamW lr 1e-3,
   weight decay 1e-4), then the first batch's loss and every gradient
@@ -74,7 +78,8 @@ three at full width:
   twice, and no worker left;
 * the production-mesh dry run (``repro_torch.launch.dryrun``, on this
   machine's host, no kernel): ``run_one`` for mixtral-8x7b x ``train_4k``
-  and x ``decode_32k`` on the (16, 16) mesh of a fake 256-rank group, each
+  and x ``decode_32k`` and deepseek-v2-lite-16b x ``decode_32k`` on the
+  (16, 16) mesh of a fake 256-rank group, each
   device's peak and argument bytes printed against the card's memory
   (``total_memory``), with the roofline's dominant term and the collective
   bytes; then the accounting held on the card at world 1, in a fresh
@@ -1213,6 +1218,34 @@ def autotune_fresh_process(cache: str, keys: list) -> dict:
     return got
 
 
+def guard_repeat(system, run, cache: str, first, swept: int) -> dict:
+    """``recompile_guard`` over the tuned SAGE pass (``first``: one sweep
+    for each of its new (op, bucket, dtype) keys, ``swept`` of them in the
+    tuner's record), then the same pass again through the same engine
+    inside a second guard: no sweep and no new key. Prints both guards."""
+    from repro_torch.analysis import recompile_guard
+
+    if not first.compiles == first.new_shapes == swept > 0:
+        fail(f"guard sage first pass: {first.compiles} sweeps for {first.new_shapes} new keys "
+             f"({swept} swept)")
+    log(f"  guard sage first tuned pass: {first.compiles} sweeps for {first.new_shapes} new "
+        f"(op, bucket, dtype) keys, bound {first.bound}")
+    engine = system.infer_engine
+    t0 = time.perf_counter()
+    with recompile_guard(system) as again:
+        system.infer_layerwise(run["fns"], str(WORKDIR / "sage_tuned"), out_dims=[256, 256, 256],
+                               device="cuda", kernel_autotune=True, kernel_cache_dir=cache)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    if system.infer_engine is not engine or (again.compiles, again.new_shapes) != (0, 0):
+        fail(f"guard sage repeat pass: {again.compiles} sweeps, {again.new_shapes} new keys "
+             f"(same engine: {system.infer_engine is engine})")
+    log(f"  guard sage repeat tuned pass: {again.compiles} sweeps, {again.new_shapes} new keys, "
+        f"bound {again.bound}; wall {wall_s:.2f} s")
+    return {"first": dataclasses.asdict(first), "repeat": dataclasses.asdict(again),
+            "repeat_wall_s": wall_s}
+
+
 def autotune_phase(system, passes: dict) -> dict:
     """``infer_layerwise(kernel_autotune=True, kernel_cache_dir=...)`` for
     each model of ``passes`` (run_model's untuned passes): its layer stores
@@ -1220,6 +1253,7 @@ def autotune_phase(system, passes: dict) -> dict:
     a winner; each (op, bucket, dtype)'s heuristic and winner with their
     times; then the artifact from a fresh process, the refusal on a CPU
     device, and the table dropped so later phases launch as before."""
+    from repro_torch.analysis import recompile_guard
     from repro_torch.kernels import autotune as at
     from repro_torch.kernels import fused_gnn
 
@@ -1244,7 +1278,8 @@ def autotune_phase(system, passes: dict) -> dict:
         before = set(at.sweeps())
         fused_gnn.reset_launches()
         t0 = time.perf_counter()
-        with mock.patch.object(fused_gnn, "get_tuned", counted):
+        with mock.patch.object(fused_gnn, "get_tuned", counted), \
+                recompile_guard(system) as guard:
             system.infer_layerwise(run["fns"], str(WORKDIR / f"{kind}_tuned"),
                                    out_dims=[256, 256, 256], device="cuda",
                                    kernel_autotune=True, kernel_cache_dir=cache)
@@ -1275,6 +1310,8 @@ def autotune_phase(system, passes: dict) -> dict:
                 f"lean {w['lean']} {v['winner_ms']:.4f} ms ({v['candidates']} candidates, "
                 f"sweep {v['sweep_s']:.3f} s)")
         sweep_s = sum(v["sweep_s"] for v in new.values())
+        if kind == "sage":
+            info["guard"] = guard_repeat(system, run, cache, guard, len(new))
         info["passes"][kind] = {
             "untuned_wall_s": run["wall_s"], "tuned_wall_s": wall_s,
             "untuned_slice_device_span_ms": run["slice_ms"],
@@ -3492,7 +3529,8 @@ def time_ssd(call, launches: int, hw: dict) -> dict:
 # the production-mesh dry run
 # ---------------------------------------------------------------------------
 
-DRYRUN = (("mixtral-8x7b", "train_4k"), ("mixtral-8x7b", "decode_32k"))
+DRYRUN = (("mixtral-8x7b", "train_4k"), ("mixtral-8x7b", "decode_32k"),
+          ("deepseek-v2-lite-16b", "decode_32k"))
 WORLD1 = ("gemma-2b", {"seq": 2048, "batch": 4, "kind": "decode"})
 ALLOC_ROUND = 512  # the caching allocator's rounding of a block, bytes
 

@@ -51,7 +51,8 @@ from repro_torch.core.storage import (
 from repro_torch.device import resolve_device
 from repro_torch.graph.graph import HeteroGraph
 from repro_torch.graph.reorder import reorder_permutation
-from repro_torch.kernels.autotune import autotune_for_slice
+from repro_torch.kernels.autotune import autotune_for_slice, tuned_key
+from repro_torch.kernels.autotune import stats as tune_stats
 
 # domain-separation tag for the engine's sample-request RNG keys, so they
 # never alias a loader/trainer request stream on a shared service (the same
@@ -291,6 +292,8 @@ class LayerwiseInferenceEngine:
         self.last_result: InferenceResult | None = None
         self._shapes_seen: set = set()  # (layer, Bp, Ep) seen this run
         self._shapes_lifetime: set = set()  # every (layer, Bp, Ep) ever run
+        self._tuned_keys: set = set()  # every (op, bucket, dtype) key tuned for
+        self._sweeps = 0  # sweeps measured while tuning for this engine
 
     # -- shape bucketing ------------------------------------------------
     def _vertex_bucket(self, b: int) -> int:
@@ -325,6 +328,16 @@ class LayerwiseInferenceEngine:
     def shape_count(self) -> int:
         """Distinct (layer, vertex-bucket, edge-bucket) triples ever run."""
         return len(self._shapes_lifetime)
+
+    def sweep_count(self) -> int:
+        """Tuner sweeps measured (``autotune.stats()['measured']``) while
+        this engine tuned its slices: 0 for an untuned engine."""
+        return self._sweeps
+
+    def tuned_key_count(self) -> int:
+        """Distinct (op, bucket, dtype) tuner keys this engine has tuned
+        for, each a table, artifact or sweep answer."""
+        return len(self._tuned_keys)
 
     # -- tiered storage -------------------------------------------------
     def _build_cache(self, store: DFSTier) -> HybridCache:
@@ -519,12 +532,16 @@ class LayerwiseInferenceEngine:
             # the slice's launches read the winners (a CPU device raises)
             shapes_of = getattr(self.layer_fns[k], "kernel_shapes", None)
             if shapes_of is not None:
+                shapes = shapes_of(ep, bp, h_nbr.shape[1])
+                measured = tune_stats()["measured"]
                 autotune_for_slice(
-                    shapes_of(ep, bp, h_nbr.shape[1]),
+                    shapes,
                     h_nbr.dtype,
                     cache_dir=self.kernel_cache_dir,
                     device=self.device,
                 )
+                self._sweeps += tune_stats()["measured"] - measured
+                self._tuned_keys.update(tuned_key(op, sh, h_nbr.dtype) for op, sh in shapes)
         if key not in self._shapes_seen:
             self._shapes_seen.add(key)
             result.slice_shapes += 1

@@ -4,8 +4,8 @@ structure (so the loss actually decreases).
 A copy of ``repro/data/tokens.py::SyntheticTokenStream`` with its imports
 rewritten (numpy only), so that a seed gives the reference's batches bit
 for bit. The reference's ``lm_input_specs`` (``jax.ShapeDtypeStruct``
-stand-ins for its dry run) is left out: the dry run has no counterpart in
-the port.
+stand-ins for its dry run) is left out here: its counterpart is the port's
+dry run's ``launch/specs.py::input_specs`` (``meta`` tensor stand-ins).
 """
 from __future__ import annotations
 

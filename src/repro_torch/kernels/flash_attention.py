@@ -186,6 +186,8 @@ def flash_attention(
     return _forward(q, k, v, None, dict(causal=causal, window=window, kv_offset=kv_offset))
 
 
+# glint: disable=KRN001 -- card-only backward entry: on the CPU autograd differentiates
+# the plain forward (twin: ref.attention_backward_ref); CPU tensors raise (tested)
 def flash_attention_backward(
     q: torch.Tensor,
     k: torch.Tensor,

@@ -437,7 +437,7 @@ def sort_digit_bits(num_segments: int) -> int:
     return max(1, -(-int(num_segments).bit_length() // sort_passes(num_segments)))
 
 
-def launch_segment_sort(seg, num_segments, keys, perm, idx=None, idx_out=None) -> int:
+def launch_segment_sort(seg, num_segments: int, keys, perm, idx=None, idx_out=None) -> int:
     """Launch the passes of ``csrc/segment_sort.cu`` on checked CUDA
     tensors: seg [E] int32 in, the sorted keys and the permutation out
     (``keys``, ``perm`` int32 [E]); with ``idx`` [E], also ``idx_out =
@@ -750,6 +750,8 @@ class _GatSoftmaxAggregate(torch.autograd.Function):
         return dlogit, dmsg, None, None
 
 
+# glint: disable=KRN001 -- card-only backward of _GatSoftmaxAggregate: on the CPU autograd
+# differentiates the plain forward (twin: ref.gat_softmax_aggregate_backward_ref)
 def gat_softmax_aggregate_backward(grad, logits, msg, seg, index, out, stats):
     """(d logits [E, H] float32, d msg [E, H, dh]) of the all-heads
     forward on the card, from the tensors it kept (float32 logits [E, H],

@@ -204,6 +204,8 @@ def ssd_scan_fused(
     return _forward(x, a, dt, B, C, init_state)
 
 
+# glint: disable=KRN001 -- card-only backward entry: on the CPU autograd differentiates
+# the plain forward (twin: ref.ssd_backward_ref); CPU tensors raise (tested)
 def ssd_scan_backward(
     x: torch.Tensor,
     a: torch.Tensor,

@@ -224,7 +224,7 @@ def trace_step(cfg, shape, mesh, *, weight_dtype=torch.float32) -> dict:
         output_bytes = _storage_bytes(tree_leaves(list(out)))
     if argument_bytes != spec_bytes:
         raise RuntimeError(f"argument bytes {argument_bytes} differ from the specs' {spec_bytes}")
-    coll = rec.result()
+    coll = rec.totals()
     mesh_shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
     return {
         "trace_s": trace_s,

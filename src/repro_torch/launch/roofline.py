@@ -387,7 +387,7 @@ class CollectiveRecorder(TorchDispatchMode):
             self.on_output(out, held)
         return out
 
-    def result(self) -> dict:
+    def totals(self) -> dict:
         """The reference's ``parse_collectives`` keys, and the bytes by
         group size (``bytes_by_group_ranks``)."""
         return {"bytes": dict(self.bytes), "counts": dict(self.counts),

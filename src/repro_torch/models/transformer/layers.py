@@ -38,6 +38,7 @@ __all__ = [
     "attention_core",
     "tiled",
     "reshaped",
+    "mesh_axes",
     "init_attention",
     "attention_forward",
     "init_mla",
@@ -55,8 +56,39 @@ Params = dict[str, Any]
 
 
 def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Matmul with the weight cast to the activation dtype."""
+    """Matmul with the weight cast to the activation dtype. A DTensor
+    whose leading dims are sharded on more than one dim (a cache sharded
+    on batch and sequence) goes through :func:`_rowwise_mm`."""
+    if hasattr(x, "device_mesh") and _leading_dims_sharded(x) > 1:
+        return _rowwise_mm(x, w)
     return x @ w.to(x.dtype)
+
+
+def _leading_dims_sharded(x) -> int:
+    """How many distinct dims of ``x`` other than the last are sharded."""
+    from torch.distributed.tensor import Shard
+
+    return len({pl.dim % x.ndim for pl in x.placements if isinstance(pl, Shard)} - {x.ndim - 1})
+
+
+def _rowwise_mm(x, w):
+    """``x @ w`` for a DTensor ``x`` whose rows are sharded on several
+    leading dims: the weight is replicated (an explicit redistribution,
+    recorded like any other) and each device multiplies its own rows, the
+    result keeping ``x``'s placements; the weight's gradient is a partial
+    sum over the axes that shard ``x``. DTensor's matmul flattens the
+    leading dims first, and PyTorch 2.11 refuses that flatten of a dim
+    sharded after the first."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, pls = x.device_mesh, list(x.placements)
+    rep = [Replicate()] * mesh.ndim
+    w_grad = [Partial() if isinstance(pl, Shard) else Replicate() for pl in pls]
+    w = w.to(x.dtype)
+    w = w.redistribute(mesh, rep) if hasattr(w, "device_mesh") else w
+    return local_map(lambda xl, wl: xl @ wl, out_placements=pls, in_placements=(pls, rep),
+                     in_grad_placements=(pls, w_grad), device_mesh=mesh)(x, w)
 
 
 def dense_init(generator: torch.Generator, shape, scale: float | None = None, *, device=None):
@@ -208,26 +240,37 @@ def _blockwise_attention(q, k, v, *, causal, window, q_offset):
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
 
 
-def _sharded_attention(q, k, v, **kw):
-    """Full-sequence attention on DTensors, each device attending its own
-    batch rows and heads through ``local_map``, as GSPMD runs head-sharded
-    attention (no collective), where DTensor would reshard the products'
-    merged batch and head dims. q, k and v are first placed as the sharding
-    rules lay them out: the batch over the data axes (when it divides
-    them), q's heads over ``model`` when they divide it, k's and v's when
-    theirs do, else replicated there (an explicit redistribution, recorded
-    like any other). Each device then takes the kv heads its q heads read;
-    with kv replicated and q sharded, kv's gradient is a partial sum over
-    ``model``."""
+def mesh_axes(mesh, batch: int):
+    """(the ``model`` axis's index, the placement on every other axis of a
+    batch of ``batch`` rows): Shard(0) when the data axes divide the batch,
+    else Replicate()."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = mesh.mesh_dim_names
+    model = names.index("model")
+    data = math.prod(mesh.size(i) for i, n in enumerate(names) if n != "model")
+    return model, Shard(0) if batch % data == 0 else Replicate()
+
+
+def _sharded_attention(q, k, v, core=None, extra=(), **kw):
+    """Attention on DTensors, each device attending its own batch rows and
+    heads through ``local_map``, as GSPMD runs head-sharded attention (no
+    collective), where DTensor would reshard the products' merged batch and
+    head dims (and PyTorch 2.11 refuses to flatten them). q, k and v are
+    first placed as the sharding rules lay them out: the batch over the data
+    axes (when it divides them), q's heads over ``model`` when they divide
+    it, k's and v's when theirs do, else replicated there (an explicit
+    redistribution, recorded like any other). Each device then takes the kv
+    heads its q heads read; with kv replicated and q sharded, kv's gradient
+    is a partial sum over ``model``. ``core(q, k, v, *extra, **kw)`` runs
+    per device (default :func:`attention_core`); the tensors of ``extra``
+    (decode's key positions) are replicated."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = q.device_mesh
-    names = mesh.mesh_dim_names
-    data = [i for i, n in enumerate(names) if n != "model"]
-    model = names.index("model")
-    b, h, hkv = q.shape[0], q.shape[2], k.shape[2]
-    on_batch = Shard(0) if b % math.prod(mesh.size(i) for i in data) == 0 else Replicate()
+    h, hkv = q.shape[2], k.shape[2]
+    model, on_batch = mesh_axes(mesh, q.shape[0])
 
     def layout(heads):
         return [Shard(2) if i == model and heads % mesh.size(model) == 0
@@ -238,8 +281,11 @@ def _sharded_attention(q, k, v, **kw):
     k, v = k.redistribute(mesh, kp), v.redistribute(mesh, kp)
     q_only = qp[model] != kp[model]  # q's heads sharded, kv's replicated
     kv_grad = [Partial() if i == model and q_only else pl for i, pl in enumerate(kp)]
+    rep = [Replicate()] * mesh.ndim
+    extra = [e.redistribute(mesh, rep) if hasattr(e, "device_mesh") else e for e in extra]
+    extra_pl = tuple(rep if hasattr(e, "device_mesh") else None for e in extra)
 
-    def local(ql, kl, vl):
+    def local(ql, kl, vl, *el):
         if q_only:  # kl holds every kv head: take those this device's q heads read
             g = h // hkv
             first = mesh.get_local_rank(model) * ql.shape[2]
@@ -249,10 +295,11 @@ def _sharded_attention(q, k, v, **kw):
             else:  # q heads that split kv groups: each q head's own kv head
                 idx = (first + torch.arange(ql.shape[2], device=ql.device)) // g
                 kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
-        return attention_core(ql, kl, vl, **kw)
+        return (core or attention_core)(ql, kl, vl, *el, **kw)
 
-    return local_map(local, out_placements=qp, in_placements=(qp, kp, kp),
-                     in_grad_placements=(qp, kv_grad, kv_grad), device_mesh=mesh)(q, k, v)
+    return local_map(local, out_placements=qp, in_placements=(qp, kp, kp) + extra_pl,
+                     in_grad_placements=(qp, kv_grad, kv_grad) + extra_pl,
+                     device_mesh=mesh)(q, k, v, *extra)
 
 
 def attention_core(q, k, v, *, causal=True, window=0, q_offset=0):
@@ -293,18 +340,101 @@ def _decode_attention(q, k_all, v_all, kpos, pos, window):
     """Dense attention with an explicit key-position mask, for decode
     where the cache may be a rolling window buffer (slot order is not
     position order). q: [B, 1, H, D]; k_all/v_all: [B, L, Hkv, D]; kpos:
-    [L] int32 absolute positions (-1 = empty slot)."""
+    [L] int32 absolute positions (-1 = empty slot). On DTensors each device
+    attends its own batch rows: over its own heads (:func:`_sharded_attention`),
+    or, with the cache sharded on its sequence, over its own keys
+    (:func:`_split_decode_attention`)."""
+    if hasattr(q, "device_mesh"):
+        if _seq_sharded(k_all):
+            return _split_decode_attention(q, k_all, v_all, kpos, pos, window)
+        return _sharded_attention(
+            q, k_all, v_all, lambda ql, kl, vl, kp: _decode_attention(ql, kl, vl, kp, pos, window),
+            extra=(kpos,))
+    b, sq, h, _ = q.shape
+    s = _decode_scores(q, k_all, kpos, pos, window)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v_all)
+    return reshaped(o, (b, sq, h, v_all.shape[-1]))
+
+
+def _decode_scores(q, k_all, kpos, pos, window):
+    """Masked float32 scores [B, Hkv, G, Sq, L] of q [B, Sq, H, D] against
+    keys [B, L, Hkv, D] at absolute positions ``kpos`` [L]."""
     b, sq, h, d = q.shape
     hkv = k_all.shape[2]
-    q5 = tiled(q, 2, hkv).reshape(b, sq, hkv, h // hkv, d)
+    q5 = q.reshape(b, sq, hkv, h // hkv, d)
     s = torch.einsum("bqhgd,bkhd->bhgqk", q5, k_all).float() / (d**0.5)
     mask = (kpos >= 0) & (kpos <= pos)
     if window > 0:
         mask &= kpos > pos - window
-    s = torch.where(mask, s, _NEG_INF)
-    p = torch.softmax(s, dim=-1).to(q.dtype)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v_all)
-    return reshaped(o, (b, sq, h, v_all.shape[-1]))
+    return torch.where(mask, s, _NEG_INF)
+
+
+def _decode_partials(q, k, v, kpos, pos, window):
+    """Decode attention over a slice of the keys, unnormalised: the slice's
+    max score, sum of exponentials and exponential-weighted values per
+    (row, head), each [B, Hkv, G, Sq, 1 or Dv] float32."""
+    s = _decode_scores(q, k, kpos, pos, window)
+    mx = s.amax(-1, keepdim=True)
+    p = torch.exp(s - mx)
+    return mx, p.sum(-1, keepdim=True), torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
+
+
+def _combine_partials(mx, l, o, dtype):
+    """The attention output [B, Sq, H, Dv] in ``dtype`` from the partials of
+    :func:`_decode_partials` stacked over the key slices (dim 0)."""
+    w = torch.exp(mx - mx.amax(0))
+    out = (o * w).sum(0) / (l * w).sum(0)  # [B, Hkv, G, Sq, Dv]
+    b, hkv, g, sq, dv = out.shape
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hkv * g, dv).to(dtype)
+
+
+def _seq_sharded(k) -> bool:
+    """A DTensor cache [B, L, Hkv, D] whose sequence dim is sharded."""
+    from torch.distributed.tensor import Shard
+
+    return any(isinstance(pl, Shard) and pl.dim % k.ndim == 1 for pl in k.placements)
+
+
+def _split_decode_attention(q, k_all, v_all, kpos, pos, window):
+    """Decode attention on DTensors whose cache is sharded on its sequence
+    over ``model`` (a head count that does not divide it: MQA, MLA's
+    latent): each device scores its batch rows' queries, replicated over
+    ``model``, against its own slice of the keys, keeping the unnormalised
+    partials of :func:`_decode_partials`; those small partials are gathered
+    over ``model`` and combined (:func:`_combine_partials`), so the cache
+    never moves, as a contraction over a sharded dim runs under GSPMD. The
+    rounding differs from the plain path's (float32 P.V), which a trace
+    does not see."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    model, on_batch = mesh_axes(mesh, q.shape[0])
+    chunk = -(-k_all.shape[1] // mesh.size(model))  # torch.chunk's split of the keys
+    qp = [Replicate() if i == model else on_batch for i in range(mesh.ndim)]
+    kp = [Shard(1) if i == model else on_batch for i in range(mesh.ndim)]
+    rep = [Replicate()] * mesh.ndim
+    # the partials gain a leading dim of one entry a ``model`` rank
+    sliced = [Shard(0) if i == model else (Shard(1) if isinstance(on_batch, Shard) else on_batch)
+              for i in range(mesh.ndim)]
+    gathered = [Replicate() if i == model else pl for i, pl in enumerate(sliced)]
+    q = q.redistribute(mesh, qp)
+    k_all, v_all = k_all.redistribute(mesh, kp), v_all.redistribute(mesh, kp)
+    if hasattr(kpos, "device_mesh"):
+        kpos = kpos.redistribute(mesh, rep)
+
+    def partials(ql, kl, vl, kposl):
+        first = mesh.get_local_rank(model) * chunk
+        parts = _decode_partials(ql, kl, vl, kposl[first:first + kl.shape[1]], pos, window)
+        return tuple(t[None] for t in parts)
+
+    kpos_pl = rep if hasattr(kpos, "device_mesh") else None
+    parts = local_map(partials, out_placements=(sliced,) * 3,
+                      in_placements=(qp, kp, kp, kpos_pl), device_mesh=mesh)(q, k_all, v_all, kpos)
+    parts = [t.redistribute(mesh, gathered) for t in parts]
+    return local_map(lambda mx, l, o: _combine_partials(mx, l, o, q.dtype), out_placements=qp,
+                     in_placements=(gathered,) * 3, device_mesh=mesh)(*parts)
 
 
 def _cache_write(cache_tensor, new, pos: int, rolling_len: int):

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ops import ssd_scan
 from repro_torch.models.transformer.config import ArchConfig, SSMConfig
-from repro_torch.models.transformer.layers import Params, dense_init, gelu, mm
+from repro_torch.models.transformer.layers import Params, dense_init, gelu, mesh_axes, mm
 
 __all__ = ["init_mamba2", "mamba2_forward", "init_rglru", "rglru_forward", "linear_scan"]
 
@@ -50,12 +50,66 @@ def init_mamba2(generator: torch.Generator, cfg: ArchConfig, device=None) -> Par
     }
 
 
+def _pad_front_sharded(x, n: int):
+    """A DTensor ``x`` [B, S, C] with ``n`` zero rows before its first along
+    dim 1, each device padding its own shard (``local_map``; dim 1 first
+    unsharded if a mesh axis splits it). PyTorch 2.11's sharding rule for
+    the pad gives placements shorter than the mesh and fails."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    pls = [Replicate() if isinstance(pl, Shard) and pl.dim % x.ndim == 1 else pl
+           for pl in x.placements]
+    x = x.redistribute(x.device_mesh, pls) if list(x.placements) != pls else x
+    # glint: disable=TRH002 -- n is the conv width less one, a weight shape, not data
+    return local_map(lambda t: F.pad(t, (0, 0, n, 0)), out_placements=pls,
+                     in_placements=(pls,), device_mesh=x.device_mesh)(x)
+
+
+def _sharded_ssd_scan(x, dt, A, B_, C, *, chunk: int, init_state=None):
+    """:func:`ssd_scan` on DTensors, each device scanning its own batch rows
+    (and heads, when the heads and the groups both divide the model axis;
+    else every ``model`` rank scans them all) through ``local_map``, as
+    GSPMD runs a scan over unsharded sequence. The inputs are first placed
+    so (an explicit redistribution, recorded like any other); A's gradient
+    is a partial sum over the axes that shard the batch. PyTorch 2.11 has
+    no sharding rule for the flip in the chunked scan's cumsum
+    backward."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    model, on_batch = mesh_axes(mesh, x.shape[0])
+    heads = x.shape[2] % mesh.size(model) == 0 and B_.shape[2] % mesh.size(model) == 0
+
+    def layout(dim, batch):  # ``dim``: the head (group) dim
+        return [(Shard(dim) if heads else Replicate()) if i == model else batch
+                for i in range(mesh.ndim)]
+
+    xp, sp, ap = layout(2, on_batch), layout(1, on_batch), layout(0, Replicate())
+    a_grad = layout(0, Partial() if isinstance(on_batch, Shard) else Replicate())
+    args, pls, grads = [x, dt, A, B_, C], [xp, xp, ap, xp, xp], [xp, xp, a_grad, xp, xp]
+    if init_state is not None:
+        args, pls, grads = args + [init_state], pls + [sp], grads + [sp]
+    args = [t.redistribute(mesh, pl) for t, pl in zip(args, pls)]
+
+    def local(xl, dtl, al, bl, cl, *il):
+        return ssd_scan(xl, dtl, al, bl, cl, chunk=chunk, init_state=il[0] if il else None)
+
+    return local_map(local, out_placements=(xp, sp), in_placements=tuple(pls),
+                     in_grad_placements=tuple(grads), device_mesh=mesh)(*args)
+
+
 def _causal_conv(x, w, state=None):
     """Depthwise causal conv1d. x: [B, S, C]; w: [W, C] (float32, so the
     taps sum in float32 as in the JAX package); state: [B, W-1, C] trailing
     context (decode). Returns (y in x's dtype, new_state)."""
     width = w.shape[0]
-    if state is None:
+    if state is None and hasattr(x, "device_mesh"):
+        xp = _pad_front_sharded(x, width - 1)
+    elif state is None:
+        # glint: disable=TRH002 -- conv kernel width is an architecture
+        # constant (weight shape), not a data-dependent length
         xp = F.pad(x, (0, 0, width - 1, 0))
     else:
         xp = torch.cat([state.to(x.dtype), x], dim=1)
@@ -100,7 +154,8 @@ def mamba2_forward(
         )
         y = torch.einsum("bhpn,bhn->bhp", state, Ch)[:, None]
     else:
-        y, state = ssd_scan(xh, dt, A, Bg, Cg, chunk=s.chunk, init_state=init_state)
+        scan = _sharded_ssd_scan if hasattr(xh, "device_mesh") else ssd_scan
+        y, state = scan(xh, dt, A, Bg, Cg, chunk=s.chunk, init_state=init_state)
     y = y + p["D"][None, None, :, None] * xh.float()
     y = y.reshape(b, S, d_in).to(x.dtype)
     # gated RMSNorm, then out

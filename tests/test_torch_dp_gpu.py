@@ -169,7 +169,8 @@ def _same(a, b):
 
 @pytest.mark.gpu
 def test_workers_forked_after_cuda_answer_bitwise_and_respawn(system, cuda):
-    live = torch.randn(1 << 20, device=cuda)  # a live context and allocation
+    live = torch.randn(1 << 20, device=cuda,  # a live context and allocation
+                       generator=torch.Generator(cuda).manual_seed(0))
     torch.cuda.synchronize()
     remote = torch_api.GLISPSystem.build(
         system.graph, torch_api.GLISPConfig(**dict(CONFIG, dist_transport="mp"))

@@ -312,7 +312,7 @@ def test_recorder_counts_a_known_all_gather():
                 rec = CollectiveRecorder(fake_mode=fake)
                 with rec:
                     r = t.redistribute(mesh, [Replicate(), Replicate()])
-                print(json.dumps([rec.result(), rec.flops, list(r.to_local().shape)]))
+                print(json.dumps([rec.totals(), rec.flops, list(r.to_local().shape)]))
         print(torch.distributed.is_initialized())
     """, 120)
     res, flops, local = json.loads(out.splitlines()[0])

@@ -15,6 +15,9 @@ PORT = REPO / "src" / "repro_torch"
 
 MODULES = [
     "repro_torch",
+    "repro_torch.analysis",
+    "repro_torch.analysis.__main__",
+    "repro_torch.analysis.runtime",
     "repro_torch.api",
     "repro_torch.api.registry",
     "repro_torch.configs",
