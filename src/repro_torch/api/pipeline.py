@@ -41,6 +41,13 @@ any ``inflight`` depth (tested for the reference in tests/test_api.py and
 tests/test_service.py).
 Note that in process mode the sampling-server stats live in the worker, so
 read workload counters with ``prefetch=0`` pipelines.
+
+Spans (``repro_torch.tracing``): the producer makes each batch inside one
+``pipeline.produce`` root (``sampling.submit``, ``sampling.wait``,
+``batch.assemble``, and in process mode ``pipeline.put``); the consumer
+takes each inside one ``pipeline.next`` root (``pipeline.receive``,
+``batch.to_device``). A forked worker's root summaries ride to the
+consumer with the batches; ``sample_time`` sums the producer's roots.
 """
 from __future__ import annotations
 
@@ -49,12 +56,12 @@ import logging
 import multiprocessing as mp
 import os
 import queue as queue_mod
-import time
 import traceback
 import warnings
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core.sampling.service import DEFAULT_DIRECTION, SamplingSpec
 from repro_torch.core.storage import as_feature_source
 from repro_torch.data.graph_loader import SeedBatchLoader
@@ -175,7 +182,9 @@ class BatchPipeline:
             partition_of=partition_of,
             balance_partitions=balance_partitions,
         )
-        self.sample_time = 0.0  # producer-side host time (sampling + padding)
+        # producer-side host seconds (sampling + padding): the
+        # ``pipeline.produce`` roots less their hand-off to the queue
+        self.sample_time = 0.0
         self.ticket_timeout = ticket_timeout
         self.worker_respawns = int(worker_respawns)
         self.respawn_count = 0  # workers respawned over this pipeline's life
@@ -198,7 +207,8 @@ class BatchPipeline:
         return key
 
     def _submit_ahead(self, seeds: np.ndarray) -> None:
-        ticket = self._submit(seeds, self.spec, key=self._next_key())
+        with tracing.span("sampling.submit"):
+            ticket = self._submit(seeds, self.spec, key=self._next_key())
         self._pending.append((seeds, ticket))
 
     def _take_sample(self, seeds: np.ndarray):
@@ -208,26 +218,30 @@ class BatchPipeline:
         unwindowed streams are bit-identical."""
         if self._pending and np.array_equal(self._pending[0][0], seeds):
             _, ticket = self._pending.popleft()
+        elif self._submit is not None:
+            with tracing.span("sampling.submit"):
+                ticket = self._submit(seeds, self.spec, key=self._next_key())
+        else:
+            with tracing.span("sampling.wait"):
+                return self._sample(
+                    seeds, self.fanouts, weighted=self.weighted, direction=self.direction
+                )
+        with tracing.span("sampling.wait"):
             return ticket.result(timeout=self.ticket_timeout)
-        if self._submit is not None:
-            ticket = self._submit(seeds, self.spec, key=self._next_key())
-            return ticket.result(timeout=self.ticket_timeout)
-        return self._sample(
-            seeds, self.fanouts, weighted=self.weighted, direction=self.direction
-        )
 
     def make_batch(self, seeds: np.ndarray) -> GNNBatch:
         """One seed batch through sampling + padding (numpy, no prefetch)."""
         sub = self._take_sample(seeds)
-        return subgraph_to_batch(
-            sub,
-            self.feature_source,
-            self.graph.labels,
-            self.num_layers,
-            edge_types=self.graph.edge_types,
-            vertex_quantum=self.vertex_quantum,
-            edge_quantum=self.edge_quantum,
-        )
+        with tracing.span("batch.assemble"):
+            return subgraph_to_batch(
+                sub,
+                self.feature_source,
+                self.graph.labels,
+                self.num_layers,
+                edge_types=self.graph.edge_types,
+                vertex_quantum=self.vertex_quantum,
+                edge_quantum=self.edge_quantum,
+            )
 
     def _seed_stream(self, epochs: int):
         for _ in range(epochs):
@@ -286,9 +300,7 @@ class BatchPipeline:
                         nxt = next(stream, None)
                         if nxt is None:
                             break
-                        t0 = time.perf_counter()
                         self._submit_ahead(nxt)
-                        self.sample_time += time.perf_counter() - t0
                         queue.append(nxt)
                     if not queue:
                         return
@@ -297,25 +309,42 @@ class BatchPipeline:
                     seeds = next(stream, None)
                     if seeds is None:
                         return
-                t0 = time.perf_counter()
-                batch = self.make_batch(seeds)
-                self.sample_time += time.perf_counter() - t0
-                yield seeds, batch
+                yield seeds, self.make_batch(seeds)
         finally:
             self._drop_pending()
+
+    def _count(self, root: tracing.Root) -> None:
+        """Add one ``pipeline.produce`` root to ``sample_time``."""
+        self.sample_time += (root.dur_ns - root.self_ns.get("pipeline.put", 0)) / 1e9
+
+    def _produce_roots(self, epochs: int):
+        """``_produce_np`` with each batch made inside its own
+        ``pipeline.produce`` root, closed before the batch is handed on."""
+        items = self._produce_np(epochs)
+        try:
+            while True:
+                with tracing.span("pipeline.produce", root=True) as root:
+                    item = next(items, None)
+                    if item is None:
+                        root.drop()
+                        return
+                self._count(root.summary)
+                yield item
+        finally:
+            items.close()
 
     def host_batches(self, epochs: int):
         """Yield ``(seeds, GNNBatch)`` with numpy fields, before any copy
         to a device (the data-parallel trainer merges shards on the host);
         closing the generator stops the producer."""
         if self.prefetch <= 0:
-            return self._produce_np(epochs)
+            return self._produce_roots(epochs)
         if self.workers == "process" and _FORK_AVAILABLE:
             return self._process_batches(epochs)
         # thread mode: prefetch_iterator stops and joins its producer when
         # the generator is closed/abandoned, so the shared loader/backend
         # state is never mutated concurrently with a later epoch
-        return prefetch_iterator(self._produce_np(epochs), self.prefetch)
+        return prefetch_iterator(self._produce_roots(epochs), self.prefetch)
 
     def batches(self, epochs: int = 1):
         """Yield ``(seeds, GNNBatch)`` with tensors on the pipeline's
@@ -323,8 +352,17 @@ class BatchPipeline:
         The copies to the device are made here, in the consumer."""
         stream = self.host_batches(epochs)
         try:
-            for seeds, batch in stream:
-                yield seeds, batch.to(self.device)
+            while True:
+                with tracing.span("pipeline.next") as root:
+                    with tracing.span("pipeline.receive"):
+                        item = next(stream, None)
+                    if item is None:
+                        root.drop()
+                        return
+                    seeds, batch = item
+                    with tracing.span("batch.to_device"):
+                        batch = batch.to(self.device)
+                yield seeds, batch
         finally:
             stream.close()
 
@@ -333,6 +371,7 @@ class BatchPipeline:
 
     # -- process-mode plumbing -----------------------------------------
     def _worker_loop(self):  # runs in the forked child: numpy only, no CUDA
+        tracing.forked()
         if self.worker_cores and hasattr(os, "sched_setaffinity"):
             try:
                 # dedicate host cores to sampling (the consumer keeps the
@@ -353,9 +392,18 @@ class BatchPipeline:
                 self._data_q.put(("fwd",))
                 continue
             try:
-                for seeds, batch in self._produce_np(cmd[1], skip=cmd[2]):
-                    self._data_q.put(("item", seeds, batch))
-                self._data_q.put(("done", self.sample_time))
+                # a batch's root closes after its put, so its summary rides
+                # with the next message
+                items = self._produce_np(cmd[1], skip=cmd[2])
+                while True:
+                    with tracing.span("pipeline.produce") as root:
+                        item = next(items, None)
+                        if item is None:
+                            root.drop()
+                            break
+                        with tracing.span("pipeline.put"):
+                            self._data_q.put(("item", *item, tracing.take()))
+                self._data_q.put(("done", tracing.take()))
             except BaseException as exc:  # noqa: BLE001 - re-raised in parent
                 self._data_q.put(
                     ("error", f"{type(exc).__name__}: {exc}\n{traceback.format_exc()}")
@@ -452,6 +500,13 @@ class BatchPipeline:
                     )
                 self._respawn_worker(code, epochs, delivered)
 
+    def _absorb(self, roots: list) -> None:
+        """Keep a forked worker's root summaries; count its batches'."""
+        tracing.absorb(roots)
+        for root in roots:
+            if root.name == "pipeline.produce":
+                self._count(root)
+
     def _process_batches(self, epochs: int):
         self._ensure_worker()
         self._cancel.clear()
@@ -463,14 +518,15 @@ class BatchPipeline:
                 msg = self._read_or_respawn(epochs, delivered)
                 if msg[0] == "done":
                     finished = True
-                    self.sample_time = msg[1]  # worker's cumulative clock
+                    self._absorb(msg[1])
                     self._run_history.append(epochs)
                     return
                 if msg[0] == "error":
                     finished = True
                     self.close()
                     raise RuntimeError(f"prefetch worker failed:\n{msg[1]}")
-                _, seeds, batch = msg
+                _, seeds, batch, roots = msg
+                self._absorb(roots)
                 delivered += 1
                 yield seeds, batch
         finally:
@@ -486,8 +542,10 @@ class BatchPipeline:
                         # worker died mid-drain: the run was already being
                         # abandoned, nothing left to recover
                         break
+                    if msg[0] == "item":
+                        self._absorb(msg[3])
                     if msg[0] == "done":
-                        self.sample_time = msg[1]
+                        self._absorb(msg[1])
                         # an abandoned run still advanced the worker's
                         # loader/key state; record it so a later respawn
                         # replays it (bit-identity is only contracted for

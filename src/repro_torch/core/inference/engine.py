@@ -33,6 +33,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.inference.cache import CacheStats
 from repro_torch.core.sampling.service import (
     DEFAULT_DIRECTION,
@@ -360,70 +361,88 @@ class LayerwiseInferenceEngine:
 
     # ------------------------------------------------------------------
     def run(self) -> InferenceResult:
-        g = self.g
-        num_parts = self.client.router.num_parts
-        owner = assign_inference_owners(self.client.router.mask, num_parts, self.seed)
-        deg = g.out_degrees() + g.in_degrees()
-        perm = reorder_permutation(
-            self.reorder_alg,
-            global_ids=np.arange(g.num_vertices, dtype=np.int64),
-            degrees=deg,
-            partition_ids=owner,
-        )
-        newid = np.empty(g.num_vertices, dtype=np.int64)
-        newid[perm] = np.arange(g.num_vertices)
+        """One layerwise pass over every vertex: one ``engine.pass`` root
+        span, an ``engine.layer`` span a layer."""
+        with tracing.span("engine.pass"):
+            g = self.g
+            num_parts = self.client.router.num_parts
+            owner = assign_inference_owners(self.client.router.mask, num_parts, self.seed)
+            deg = g.out_degrees() + g.in_degrees()
+            perm = reorder_permutation(
+                self.reorder_alg,
+                global_ids=np.arange(g.num_vertices, dtype=np.int64),
+                degrees=deg,
+                partition_ids=owner,
+            )
+            newid = np.empty(g.num_vertices, dtype=np.int64)
+            newid[perm] = np.arange(g.num_vertices)
 
-        # layer-0 store: input features in newid order
-        store_prev = DFSTier(
-            f"{self.workdir}/layer0",
-            g.num_vertices,
-            self.feats.shape[1],
-            self.chunk_rows,
-        )
-        store_prev.write_rows(newid, self.feats)
-
-        result = InferenceResult(
-            final_store=store_prev, newid=newid, owner=owner
-        )
-        stores = [store_prev]
-
-        # inference order within each worker follows the reorder ids
-        part_verts = []
-        for p in range(num_parts):
-            verts = np.flatnonzero(owner == p)
-            part_verts.append(verts[np.argsort(newid[verts], kind="stable")])
-
-        submit = getattr(self.client, "submit", None)
-        self._shapes_seen.clear()  # slice_shapes counts per-run shapes
-        for k, layer_fn in enumerate(self.layer_fns):
-            stats = LayerStats()
-            slice_fn = self._slice_fn(layer_fn)
-            needs_etype = getattr(layer_fn, "needs_etype", False)
-            store_next = DFSTier(
-                f"{self.workdir}/layer{k + 1}",
+            # layer-0 store: input features in newid order
+            store_prev = DFSTier(
+                f"{self.workdir}/layer0",
                 g.num_vertices,
-                self.out_dims[k],
+                self.feats.shape[1],
                 self.chunk_rows,
             )
-            # one-hop sampled neighbors for every worker: submit ALL workers'
-            # requests up front so the service schedules them in one round
-            # (balanced dispatch across servers); explicit keys make the
-            # sample independent of any other traffic on a shared service
-            tickets = None
-            if submit is not None:
-                spec = SamplingSpec(
-                    fanouts=(self.fanouts[k],), direction=self.direction
-                )
-                tickets = [
-                    submit(
-                        part_verts[p],
-                        spec,
-                        key=(self.seed, k, p, _ENGINE_KEY_TAG),
-                    )
-                    for p in range(num_parts)
-                ]
+            store_prev.write_rows(newid, self.feats)
+
+            result = InferenceResult(
+                final_store=store_prev, newid=newid, owner=owner
+            )
+            stores = [store_prev]
+
+            # inference order within each worker follows the reorder ids
+            part_verts = []
             for p in range(num_parts):
-                verts = part_verts[p]
+                verts = np.flatnonzero(owner == p)
+                part_verts.append(verts[np.argsort(newid[verts], kind="stable")])
+
+            self._shapes_seen.clear()  # slice_shapes counts per-run shapes
+            for k, layer_fn in enumerate(self.layer_fns):
+                with tracing.span("engine.layer"):
+                    store_prev = self._run_layer(k, layer_fn, part_verts, newid, store_prev,
+                                                 result)
+                stores.append(store_prev)
+            result.final_store = store_prev
+            self.layer_stores = stores
+            self.last_result = result
+            return result
+
+    def _run_layer(self, k, layer_fn, part_verts, newid, store_prev, result) -> DFSTier:
+        """Layer ``k`` of a pass: every partition's vertices through the
+        layer's slice, into a new store (returned)."""
+        g = self.g
+        num_parts = len(part_verts)
+        submit = getattr(self.client, "submit", None)
+        stats = LayerStats()
+        slice_fn = self._slice_fn(layer_fn)
+        needs_etype = getattr(layer_fn, "needs_etype", False)
+        store_next = DFSTier(
+            f"{self.workdir}/layer{k + 1}",
+            g.num_vertices,
+            self.out_dims[k],
+            self.chunk_rows,
+        )
+        # one-hop sampled neighbors for every worker: submit ALL workers'
+        # requests up front so the service schedules them in one round
+        # (balanced dispatch across servers); explicit keys make the
+        # sample independent of any other traffic on a shared service
+        tickets = None
+        if submit is not None:
+            spec = SamplingSpec(
+                fanouts=(self.fanouts[k],), direction=self.direction
+            )
+            tickets = [
+                submit(
+                    part_verts[p],
+                    spec,
+                    key=(self.seed, k, p, _ENGINE_KEY_TAG),
+                )
+                for p in range(num_parts)
+            ]
+        for p in range(num_parts):
+            verts = part_verts[p]
+            with tracing.span("engine.sample_wait"):
                 if tickets is not None:
                     sub = tickets[p].result(timeout=self.ticket_timeout)
                     tickets[p] = None  # release the hop data once consumed
@@ -431,75 +450,71 @@ class LayerwiseInferenceEngine:
                     sub = self.client.sample_khop(
                         verts, [self.fanouts[k]], direction=self.direction
                     )
-                hop = sub.hops[0]
-                # static cache fill: all local rows + sampled neighbor rows,
-                # with the partition's own rows as the fill-plan focus window
-                cache = self._build_cache(store_prev)
-                rows_needed = newid[
-                    np.unique(np.concatenate([verts, hop.dst]))
-                ]
+            hop = sub.hops[0]
+            # static cache fill: all local rows + sampled neighbor rows,
+            # with the partition's own rows as the fill-plan focus window
+            cache = self._build_cache(store_prev)
+            rows_needed = newid[
+                np.unique(np.concatenate([verts, hop.dst]))
+            ]
+            with tracing.span("storage.cache_fill"):
                 cache.fill(
                     cache.plan_fill(rows_needed, focus_rows=newid[verts])
                 )
-                # process in inference order batches
-                order = np.argsort(hop.src, kind="stable")
-                h_src_sorted = hop.src[order]
-                h_dst_sorted = hop.dst[order]
-                # edge types are gathered only for layers that consume them
-                if needs_etype and hop.eid is not None:
-                    h_et_sorted = g.edge_types[hop.eid[order]].astype(np.int32)
-                elif needs_etype:
-                    h_et_sorted = np.zeros(h_src_sorted.shape[0], np.int32)
+            # process in inference order batches
+            order = np.argsort(hop.src, kind="stable")
+            h_src_sorted = hop.src[order]
+            h_dst_sorted = hop.dst[order]
+            # edge types are gathered only for layers that consume them
+            if needs_etype and hop.eid is not None:
+                h_et_sorted = g.edge_types[hop.eid[order]].astype(np.int32)
+            elif needs_etype:
+                h_et_sorted = np.zeros(h_src_sorted.shape[0], np.int32)
+            else:
+                h_et_sorted = None
+            starts = np.searchsorted(h_src_sorted, verts)
+            ends = np.searchsorted(h_src_sorted, verts, side="right")
+            for lo in range(0, verts.shape[0], self.batch_size):
+                vb = verts[lo : lo + self.batch_size]
+                s_ = starts[lo : lo + self.batch_size]
+                e_ = ends[lo : lo + self.batch_size]
+                counts = e_ - s_
+                if self.mode == "reference":
+                    nbr_rows = np.concatenate(
+                        [h_dst_sorted[a:b] for a, b in zip(s_, e_)]
+                    ) if vb.shape[0] else np.zeros(0, np.int64)
                 else:
-                    h_et_sorted = None
-                starts = np.searchsorted(h_src_sorted, verts)
-                ends = np.searchsorted(h_src_sorted, verts, side="right")
-                for lo in range(0, verts.shape[0], self.batch_size):
-                    vb = verts[lo : lo + self.batch_size]
-                    s_ = starts[lo : lo + self.batch_size]
-                    e_ = ends[lo : lo + self.batch_size]
-                    counts = e_ - s_
-                    if self.mode == "reference":
-                        nbr_rows = np.concatenate(
-                            [h_dst_sorted[a:b] for a, b in zip(s_, e_)]
-                        ) if vb.shape[0] else np.zeros(0, np.int64)
-                    else:
-                        nbr_rows = csr_gather(h_dst_sorted, s_, counts)
-                    et = (
-                        csr_gather(h_et_sorted, s_, counts)
-                        if h_et_sorted is not None
-                        else None
+                    nbr_rows = csr_gather(h_dst_sorted, s_, counts)
+                et = (
+                    csr_gather(h_et_sorted, s_, counts)
+                    if h_et_sorted is not None
+                    else None
+                )
+                # non-decreasing by construction: the kernels' CSR rows
+                seg = np.repeat(np.arange(vb.shape[0]), counts)
+                h_self = cache.read_rows(newid[vb])
+                h_nbr = (
+                    cache.read_rows(newid[nbr_rows])
+                    if nbr_rows.shape[0]
+                    else np.zeros((0, store_prev.dim), store_prev.dtype)
+                )
+                if slice_fn is not None:
+                    h_new = self._run_slice(
+                        k, slice_fn, h_self, h_nbr, seg, et, result, stats
                     )
-                    # non-decreasing by construction: the kernels' CSR rows
-                    seg = np.repeat(np.arange(vb.shape[0]), counts)
-                    h_self = cache.read_rows(newid[vb])
-                    h_nbr = (
-                        cache.read_rows(newid[nbr_rows])
-                        if nbr_rows.shape[0]
-                        else np.zeros((0, store_prev.dim), store_prev.dtype)
+                elif needs_etype:
+                    h_new = np.asarray(
+                        layer_fn(k, h_self, h_nbr, seg, et)
                     )
-                    if slice_fn is not None:
-                        h_new = self._run_slice(
-                            k, slice_fn, h_self, h_nbr, seg, et, result, stats
-                        )
-                    elif needs_etype:
-                        h_new = np.asarray(
-                            layer_fn(k, h_self, h_nbr, seg, et)
-                        )
-                    else:
-                        h_new = np.asarray(layer_fn(k, h_self, h_nbr, seg))
-                    store_next.write_rows(newid[vb], h_new)
-                    stats.vertices_computed += vb.shape[0]
-                    stats.edges_aggregated += int(nbr_rows.shape[0])
-                stats.absorb(cache.stats)
-                cache.evict()  # release this partition's cache residency
-            result.layer_stats.append(stats)
-            stores.append(store_next)
-            store_prev = store_next
-        result.final_store = store_prev
-        self.layer_stores = stores
-        self.last_result = result
-        return result
+                else:
+                    h_new = np.asarray(layer_fn(k, h_self, h_nbr, seg))
+                store_next.write_rows(newid[vb], h_new)
+                stats.vertices_computed += vb.shape[0]
+                stats.edges_aggregated += int(nbr_rows.shape[0])
+            stats.absorb(cache.stats)
+            cache.evict()  # release this partition's cache residency
+        result.layer_stats.append(stats)
+        return store_next
 
     # -- online serving entry point --------------------------------------
     def run_layer_batch(self, k, h_self, h_nbr, seg, et=None) -> np.ndarray:
@@ -557,14 +572,19 @@ class LayerwiseInferenceEngine:
             buf[: a.shape[0]] = torch.from_numpy(a).to(dev)
             return buf
 
-        out = slice_fn(
-            padded(h_self, bp, 0),
-            padded(h_nbr, ep, 0),
-            padded(seg.astype(np.int32, copy=False), ep, -1),
-            padded(np.zeros(0, np.int32) if et is None else et.astype(np.int32, copy=False),
-                   ep, 0),
-        )
-        return out[:b].cpu().numpy()
+        with tracing.span("engine.slice"):
+            with tracing.span("slice.copy_in"):
+                inputs = (
+                    padded(h_self, bp, 0),
+                    padded(h_nbr, ep, 0),
+                    padded(seg.astype(np.int32, copy=False), ep, -1),
+                    padded(np.zeros(0, np.int32) if et is None
+                           else et.astype(np.int32, copy=False), ep, 0),
+                )
+            with tracing.span("slice.compute"):  # the launches; nothing waits here
+                out = slice_fn(*inputs)
+            with tracing.span("slice.result"):  # the copy back waits for the kernels
+                return out[:b].cpu().numpy()
 
 
 def samplewise_inference(

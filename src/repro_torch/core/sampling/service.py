@@ -50,6 +50,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core.faults import CircuitBreaker, InjectedFault, RetryPolicy, as_injector
 from repro_torch.graph.graph import GraphPartition, HeteroGraph
 
@@ -204,7 +205,8 @@ class ServiceStats(ServerStats):
     # measurement: per-round MAX across servers / per-round SUM
     modeled_parallel_work: float = 0.0
     modeled_total_work: float = 0.0
-    # measured: scheduling rounds driven and their wall-clock total
+    # measured: scheduling rounds driven and their wall-clock total (the
+    # service's ``sampling.round`` spans)
     rounds: int = 0
     measured_round_seconds: float = 0.0
 
@@ -740,25 +742,21 @@ def execute_hop(
     parts_s, parts_n, parts_x, parts_e = [], [], [], []
     lost = 0
     for j, (p, ci, chunk, srv) in enumerate(jobs):
-        if handles is not None:
-            served = collect_dispatch(handles[j])
-            if served is None:
-                lost += 1
-                continue
-            srv_used, res = served
-        elif dispatch is not None:
-            served = dispatch(p, ci, chunk)
-            if served is None:
-                lost += 1
-                continue
-            srv_used, res = served
-        else:
-            rng = rng_for(p, ci) if rng_for is not None else None
-            srv_used = srv
-            res = _gather_once(
-                srv, chunk, fanout, direction,
-                weighted=weighted, replace=replace, rng=rng,
-            )
+        with tracing.span("sampling.gather"):  # one server's part of the hop
+            if handles is not None:
+                served = collect_dispatch(handles[j])
+            elif dispatch is not None:
+                served = dispatch(p, ci, chunk)
+            else:
+                rng = rng_for(p, ci) if rng_for is not None else None
+                served = srv, _gather_once(
+                    srv, chunk, fanout, direction,
+                    weighted=weighted, replace=replace, rng=rng,
+                )
+        if served is None:
+            lost += 1
+            continue
+        srv_used, res = served
         if on_dispatch is not None:
             on_dispatch(p, chunk, srv_used)
         if weighted:
@@ -1088,41 +1086,46 @@ class SamplingService:
             active = list(self._inflight)
             if not active:
                 return
-            t0 = time.perf_counter()
-            # remote mode: work is booked in the worker processes; the
-            # snapshots riding on collected results give per-partition
-            # (= per worker host) sums with no extra round-trip.  The
-            # parallel-work MAX is then over hosts rather than over
-            # individual replica servers — the right granularity, since a
-            # partition's replicas share one host either way.
-            if self.dispatcher is not None:
-                w0 = self.dispatcher.snapshot_workloads()
-            else:
-                w0 = [srv.stats.work_units for srv in self._all_servers]
-            # dispatch log keyed by the SERVING server (primary or a
-            # failover replica), so coalescing rebates hit the stats that
-            # were actually charged
-            log: dict[int, tuple[SamplingServer, list]] = {}
-
-            def on_dispatch(p, chunk, srv):
-                log.setdefault(id(srv), (srv, []))[1].append(chunk)
-
-            for st in active:
-                self._execute_hop(st, on_dispatch)
-            if self.coalesce:
-                self._coalesce_credit(log)
-            if self.dispatcher is not None:
-                w1 = self.dispatcher.snapshot_workloads()
-            else:
-                w1 = [srv.stats.work_units for srv in self._all_servers]
-            deltas = [b - a for a, b in zip(w0, w1)]
-            self.modeled_parallel_work += max(deltas) if deltas else 0.0
-            self.modeled_total_work += sum(deltas)
+            with tracing.span("sampling.round") as rnd:
+                self._run_round(active)
             self.rounds += 1
-            self.measured_round_seconds += time.perf_counter() - t0
+            self.measured_round_seconds += rnd.seconds
             self._inflight = [st for st in self._inflight if not st.done]
         finally:
             self._lock.release()
+
+    def _run_round(self, active: list) -> None:
+        """Advance each of ``active`` one hop and book the round's work."""
+        # remote mode: work is booked in the worker processes; the
+        # snapshots riding on collected results give per-partition
+        # (= per worker host) sums with no extra round-trip.  The
+        # parallel-work MAX is then over hosts rather than over
+        # individual replica servers — the right granularity, since a
+        # partition's replicas share one host either way.
+        if self.dispatcher is not None:
+            w0 = self.dispatcher.snapshot_workloads()
+        else:
+            w0 = [srv.stats.work_units for srv in self._all_servers]
+        # dispatch log keyed by the SERVING server (primary or a
+        # failover replica), so coalescing rebates hit the stats that
+        # were actually charged
+        log: dict[int, tuple[SamplingServer, list]] = {}
+
+        def on_dispatch(p, chunk, srv):
+            log.setdefault(id(srv), (srv, []))[1].append(chunk)
+
+        for st in active:
+            with tracing.span("sampling.hop"):
+                self._execute_hop(st, on_dispatch)
+        if self.coalesce:
+            self._coalesce_credit(log)
+        if self.dispatcher is not None:
+            w1 = self.dispatcher.snapshot_workloads()
+        else:
+            w1 = [srv.stats.work_units for srv in self._all_servers]
+        deltas = [b - a for a, b in zip(w0, w1)]
+        self.modeled_parallel_work += max(deltas) if deltas else 0.0
+        self.modeled_total_work += sum(deltas)
 
     def _dispatch_gather(self, p: int, ci: int, chunk: np.ndarray, key, hop, spec):
         """Fault-tolerant dispatch of one chunk to partition ``p``.

@@ -24,6 +24,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core.faults import InjectedFault, RetryPolicy, as_injector
 from repro_torch.core.storage.policies import EvictionPolicy, resolve_policy
 from repro_torch.core.storage.store import ChunkReadError, DFSTier, IOCost, chunk_runs
@@ -382,13 +383,14 @@ class HybridCache:
         """Gather rows through the stack, grouped by chunk via one argsort;
         one ``_get_chunk`` per distinct chunk, so accounting is identical
         to a scalar read loop."""
-        rows = np.asarray(rows, dtype=np.int64)
-        out = np.empty((rows.shape[0], self.store.dim), dtype=self.store.dtype)
-        for c, pos, crows in chunk_runs(rows, self.store.chunk_rows):
-            block = self._get_chunk(c)
-            out[pos] = block[crows - c * self.store.chunk_rows]
-        self.stats.rows_served += rows.shape[0]
-        return out
+        with tracing.span("storage.cache_read"):
+            rows = np.asarray(rows, dtype=np.int64)
+            out = np.empty((rows.shape[0], self.store.dim), dtype=self.store.dtype)
+            for c, pos, crows in chunk_runs(rows, self.store.chunk_rows):
+                block = self._get_chunk(c)
+                out[pos] = block[crows - c * self.store.chunk_rows]
+            self.stats.rows_served += rows.shape[0]
+            return out
 
     def write_rows(self, rows: np.ndarray, values: np.ndarray) -> None:
         """Write-through: rows go to the authoritative store; stale cached

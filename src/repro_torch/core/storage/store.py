@@ -23,6 +23,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.utils import ceil_div
 
 try:  # xxhash is faster when available; the container may not ship it
@@ -56,10 +57,11 @@ def block_checksum(block: np.ndarray) -> int:
     """Content checksum of one chunk block (xxhash64 when available,
     else crc32).  Computed over the raw bytes of the C-contiguous array,
     so any bit flip in the stored payload is detected."""
-    data = np.ascontiguousarray(block)
-    if xxhash is not None:
-        return xxhash.xxh64(data.tobytes()).intdigest()
-    return zlib.crc32(data.tobytes())
+    with tracing.span("storage.checksum"):
+        data = np.ascontiguousarray(block)
+        if xxhash is not None:
+            return xxhash.xxh64(data.tobytes()).intdigest()
+        return zlib.crc32(data.tobytes())
 
 
 def _corrupt_block(block: np.ndarray) -> np.ndarray:
@@ -188,22 +190,23 @@ class DFSTier:
         ``assume_sorted`` hint, so nothing is sorted twice).  A write that
         covers every row of a chunk skips the read-modify-write and stores
         the values slice directly (workers write disjoint row ranges)."""
-        rows = np.asarray(rows, dtype=np.int64)
-        values = np.asarray(values)
-        order = np.argsort(rows, kind="stable")
-        rows, values = rows[order], values[order]
-        for c, pos, crows in chunk_runs(rows, self.chunk_rows, assume_sorted=True):
-            base = c * self.chunk_rows
-            nrows = min(self.chunk_rows, self.num_rows - base)
-            off = crows - base
-            if off.shape[0] == nrows and np.array_equal(
-                off, np.arange(nrows, dtype=np.int64)
-            ):
-                block = np.ascontiguousarray(values[pos], dtype=self.dtype)
-            else:
-                block = self._read_chunk_raw(c, allow_missing=True)
-                block[off] = values[pos]
-            self._write_chunk_raw(c, block)
+        with tracing.span("storage.store_write"):
+            rows = np.asarray(rows, dtype=np.int64)
+            values = np.asarray(values)
+            order = np.argsort(rows, kind="stable")
+            rows, values = rows[order], values[order]
+            for c, pos, crows in chunk_runs(rows, self.chunk_rows, assume_sorted=True):
+                base = c * self.chunk_rows
+                nrows = min(self.chunk_rows, self.num_rows - base)
+                off = crows - base
+                if off.shape[0] == nrows and np.array_equal(
+                    off, np.arange(nrows, dtype=np.int64)
+                ):
+                    block = np.ascontiguousarray(values[pos], dtype=self.dtype)
+                else:
+                    block = self._read_chunk_raw(c, allow_missing=True)
+                    block[off] = values[pos]
+                self._write_chunk_raw(c, block)
 
     def write_chunk(self, c: int, block: np.ndarray) -> None:
         self._write_chunk_raw(c, np.ascontiguousarray(block, dtype=self.dtype))
@@ -216,14 +219,16 @@ class DFSTier:
         fn = self._chunk_file(c)
         tmp = fn + ".tmp"
         try:
-            with open(tmp, "wb") as fh:
-                if self.compress:
-                    np.savez_compressed(fh, block=block)
-                else:
-                    np.save(fh, block)
-                fh.flush()
-                os.fsync(fh.fileno())
-            os.replace(tmp, fn)
+            with tracing.span("storage.chunk_write"):
+                with open(tmp, "wb") as fh:
+                    if self.compress:
+                        np.savez_compressed(fh, block=block)
+                    else:
+                        np.save(fh, block)
+                    fh.flush()
+                    with tracing.span("storage.fsync"):
+                        os.fsync(fh.fileno())
+                os.replace(tmp, fn)
         except BaseException:
             try:
                 os.remove(tmp)
@@ -243,10 +248,11 @@ class DFSTier:
                 f"chunk {c} of {type(self).__name__} missing: no file at {fn}"
             )
         try:
-            if self.compress:
-                with np.load(fn) as z:
-                    return z["block"]
-            return np.load(fn)
+            with tracing.span("storage.chunk_read"):
+                if self.compress:
+                    with np.load(fn) as z:
+                        return z["block"]
+                return np.load(fn)
         except (ValueError, EOFError, KeyError, OSError) as exc:
             raise ChunkReadError(
                 f"chunk {c} of {type(self).__name__} unreadable "

@@ -24,6 +24,7 @@ from typing import Protocol, runtime_checkable
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core.storage.store import (
     ChunkReadError,
     _corrupt_block,
@@ -245,7 +246,8 @@ class DiskTier(_ChunkTierBase):
                 f"chunk {c} of DiskTier missing: no file at {fn}"
             )
         try:
-            block = np.load(fn)
+            with tracing.span("storage.chunk_read"):
+                block = np.load(fn)
         except (ValueError, EOFError, OSError) as exc:
             raise ChunkReadError(
                 f"chunk {c} of DiskTier unreadable "
@@ -268,9 +270,10 @@ class DiskTier(_ChunkTierBase):
         fn = self._chunk_file(c)
         tmp = fn + ".tmp"
         try:
-            with open(tmp, "wb") as fh:
-                np.save(fh, block)
-            os.replace(tmp, fn)
+            with tracing.span("storage.chunk_write"):
+                with open(tmp, "wb") as fh:
+                    np.save(fh, block)
+                os.replace(tmp, fn)
         except BaseException:
             try:
                 os.remove(tmp)

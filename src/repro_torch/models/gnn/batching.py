@@ -26,6 +26,7 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.sampling.service import SampledSubgraph
 from repro_torch.core.storage import as_feature_source
 from repro_torch.utils import round_up
@@ -101,7 +102,8 @@ def subgraph_to_batch(
     verts = sub.all_vertices()  # unique sorted gids
     vpad = _bucket(verts.shape[0], vertex_quantum)
     table = np.zeros((vpad, src.dim), dtype=np.float32)
-    table[: verts.shape[0]] = src.gather(verts)
+    with tracing.span("batch.features"):
+        table[: verts.shape[0]] = src.gather(verts)
     valid = np.zeros(vpad, dtype=bool)
     valid[: verts.shape[0]] = True
 

@@ -44,12 +44,12 @@ the step raises; nothing falls back to the plain versions.
 from __future__ import annotations
 
 import copy
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.api.pipeline import BatchPipeline
 from repro_torch.device import resolve_device
 from repro_torch.models.gnn.batching import GNNBatch, sorted_order
@@ -75,6 +75,7 @@ class DPTrainLog:
     # host seconds of each step: its shards' sampling and the merged step
     # (the reference twin's step excluded)
     wall: list = field(default_factory=list)
+    # host seconds of the ``trainer.shards`` and ``trainer.compute`` spans
     sample_time: float = 0.0
     compute_time: float = 0.0
 
@@ -298,21 +299,20 @@ class DataParallelGNNTrainer:
         step = 0
         try:
             while max_steps is None or step < max_steps:
-                t0 = time.perf_counter()
-                items = [next(s, None) for s in streams]
-                if any(it is None for it in items):
-                    break  # a shard ran dry: drop the ragged tail
-                shard_batches = [b for _, b in items]
-                if len({b.seed_pos.shape[0] for b in shard_batches}) != 1:
-                    break  # unequal final partial batches: ragged tail
-                stacked = stack_batches(shard_batches)
-                merged = merge_shards(stacked)
-                t1 = time.perf_counter()
-                self.log.sample_time += t1 - t0
-                loss = float(self.merged_step(merged.to(self.device)))
-                t2 = time.perf_counter()
-                self.log.compute_time += t2 - t1
-                self.log.wall.append(t2 - t0)
+                with tracing.span("trainer.shards") as shards:
+                    items = [next(s, None) for s in streams]
+                    if any(it is None for it in items):
+                        break  # a shard ran dry: drop the ragged tail
+                    shard_batches = [b for _, b in items]
+                    if len({b.seed_pos.shape[0] for b in shard_batches}) != 1:
+                        break  # unequal final partial batches: ragged tail
+                    stacked = stack_batches(shard_batches)
+                    merged = merge_shards(stacked)
+                self.log.sample_time += shards.seconds
+                with tracing.span("trainer.compute") as compute:
+                    loss = float(self.merged_step(merged.to(self.device)))
+                self.log.compute_time += compute.seconds
+                self.log.wall.append(shards.seconds + compute.seconds)
                 if step % log_every == 0:
                     self.log.steps.append(step)
                     self.log.losses.append(loss)

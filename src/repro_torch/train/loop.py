@@ -34,12 +34,12 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.api.pipeline import BatchPipeline
 from repro_torch.core.sampling.service import DEFAULT_DIRECTION
 from repro_torch.data.graph_loader import SeedBatchLoader
@@ -67,6 +67,8 @@ class TrainLog:
     losses: list = field(default_factory=list)
     accs: list = field(default_factory=list)
     wall: list = field(default_factory=list)
+    # host seconds: the producer's (``BatchPipeline.sample_time``) and the
+    # ``trainer.compute`` spans (each step and the read of its loss)
     sample_time: float = 0.0
     compute_time: float = 0.0
 
@@ -75,14 +77,22 @@ def descend(params, loss_fn, opt_state, opt_cfg: AdamWConfig):
     """One optimizer step in place: clear the gradients of ``params`` (a
     tree of leaf tensors), ``loss_fn().backward()``, then AdamW into the
     same tensors and moments. Returns the loss (0-d, detached, not waited
-    for) and the new optimizer state."""
-    for p in tree_leaves(params):
-        p.grad = None
-    loss = loss_fn()
-    loss.backward()
-    grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, params)
-    _, opt_state, _ = adamw_update(params, grads, opt_state, opt_cfg)
-    return loss.detach(), opt_state
+    for) and the new optimizer state. The step is a ``trainer.step`` span
+    with ``trainer.forward``, ``trainer.backward`` and ``trainer.update``
+    inside: the host's time issuing each, since nothing here waits on the
+    device."""
+    with tracing.span("trainer.step"):
+        for p in tree_leaves(params):
+            p.grad = None
+        with tracing.span("trainer.forward"):
+            loss = loss_fn()
+        with tracing.span("trainer.backward"):
+            loss.backward()
+        with tracing.span("trainer.update"):
+            grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad,
+                             params)
+            _, opt_state, _ = adamw_update(params, grads, opt_state, opt_cfg)
+        return loss.detach(), opt_state
 
 
 class GNNTrainer:
@@ -212,10 +222,9 @@ class GNNTrainer:
                 # (the batch itself is identical by keyed construction)
                 step += 1
                 continue
-            t1 = time.perf_counter()
-            loss = float(self.train_step(batch))
-            t2 = time.perf_counter()
-            self.log.compute_time += t2 - t1
+            with tracing.span("trainer.compute") as compute:
+                loss = float(self.train_step(batch))
+            self.log.compute_time += compute.seconds
             if step % log_every == 0:
                 self.log.steps.append(step)
                 self.log.losses.append(loss)
@@ -289,11 +298,11 @@ class LMTrainer:
     def train(self, steps: int, log_every: int = 10):
         for s in range(steps):
             inp, tgt = self.stream.next_batch()
-            t0 = time.perf_counter()
-            _, nll = self.train_step(torch.as_tensor(inp, device=self.device).long(),
-                                     torch.as_tensor(tgt, device=self.device).long())
-            nll = float(nll)
-            self.log.compute_time += time.perf_counter() - t0
+            with tracing.span("trainer.compute") as compute:
+                _, nll = self.train_step(torch.as_tensor(inp, device=self.device).long(),
+                                         torch.as_tensor(tgt, device=self.device).long())
+                nll = float(nll)
+            self.log.compute_time += compute.seconds
             if s % log_every == 0 or s == steps - 1:
                 self.log.steps.append(s)
                 self.log.losses.append(nll)

@@ -54,6 +54,7 @@ MODULES = [
     "repro_torch.train",
     "repro_torch.train.data_parallel",
     "repro_torch.train.loop",
+    "repro_torch.tracing",
 ] + [f"repro_torch.configs.{p.stem}" for p in sorted((PORT / "configs").glob("[!_]*.py"))]
 
 
@@ -96,6 +97,7 @@ def test_the_sampling_workers_path_loads_no_torch():
     code = (
         "import sys\n"
         "import repro_torch.dist, repro_torch.dist.worker, repro_torch.core.sampling.service\n"
+        "import repro_torch.tracing\n"
         "print(','.join(sorted(m for m in sys.modules if m.split('.')[0] == 'torch')))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
