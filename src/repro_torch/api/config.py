@@ -116,7 +116,7 @@ class GLISPConfig:
     # sampling-server replicas per partition (replica 0 is the primary);
     # >1 enables failover when a dispatch exhausts its retries
     server_replicas: int = 1
-    # crash budget for the forked prefetch worker (see BatchPipeline)
+    # crash budget for the forked batch producers (see BatchPipeline)
     worker_respawns: int = 1
     # auto-checkpoint every N training steps into checkpoint_dir; 0 = off
     checkpoint_every: int = 0

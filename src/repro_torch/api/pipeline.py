@@ -2,9 +2,9 @@
 
 Counterpart of ``repro/api/pipeline.py``: the same host code (numpy),
 with batches copied to the model's device in the consumer
-(:meth:`GNNBatch.to`, pinned non-blocking copies). The forked prefetch
-worker stays numpy-only and never touches ``torch.cuda``, which is what
-makes forking a process that has initialised CUDA safe.
+(:meth:`GNNBatch.to`, pinned non-blocking copies). The forked producers
+stay numpy-only and never touch ``torch.cuda``, which is what makes
+forking a process that has initialised CUDA safe.
 
 ``BatchPipeline`` composes ``SeedBatchLoader`` + the sampling service +
 ``subgraph_to_batch`` behind one iterator, with two *independent* overlap
@@ -24,22 +24,33 @@ axes:
 
 Two worker modes:
 
-``process`` (default on POSIX) — a persistent forked worker owns the
-    sampling state and streams batches through a bounded queue.  CPython's
-    GIL makes a *thread* producer serialize against the consumer's Python
-    sections (numpy only releases the GIL for a handful of ops), so a
-    separate process is the only way host sampling truly runs beside the
-    training step — the same reason DGL/PyTorch dataloaders use worker
-    processes.
-``thread`` — in-process double buffering via a daemon thread.  Zero-copy
-    hand-off, but overlap is limited to the consumer's GIL-released windows.
+``process`` (default on POSIX) — ``W`` persistent forked producers own
+    copies of the sampling state and split the one keyed stream between
+    them: producer ``j`` makes the batches ``j, j + W, j + 2W, ...`` and
+    passes over the others' seed positions and request keys without
+    sampling them; the consumer takes batch ``i`` from producer ``i mod
+    W``'s bounded queue.  CPython's GIL makes a *thread* producer
+    serialize against the consumer's Python sections (numpy only
+    releases the GIL for a handful of ops), so separate processes are
+    the only way host sampling truly runs beside the training step — the
+    same reason DGL/PyTorch dataloaders use worker processes.  ``W``
+    (:attr:`BatchPipeline.producers`) follows the usable cores: the
+    ``worker_cores`` when given, else the process's CPU affinity less one
+    core for the consumer, at most ``MAX_PRODUCERS``; one over a raw
+    client, whose draws are not keyed.
+``thread`` — in-process double buffering via one daemon thread.
+    Zero-copy hand-off, but overlap is limited to the consumer's
+    GIL-released windows.
 
-Determinism: one persistent producer (process or thread) runs exactly the
-serial code path on the same initial state, and sampling randomness is keyed
-per request, so the batch stream is bit-identical to ``prefetch=0`` AND to
-any ``inflight`` depth (tested for the reference in tests/test_api.py and
-tests/test_service.py).
-Note that in process mode the sampling-server stats live in the worker, so
+Determinism: every producer (process or thread) runs the serial code path
+from the same initial state, and sampling randomness is keyed per request
+``(seed, batch_index)``, so the batch stream is bit-identical to
+``prefetch=0`` for ANY number of producers and ANY ``inflight`` depth
+(tested for the reference in tests/test_api.py and tests/test_service.py,
+for the port in tests/test_torch_train.py). A process-mode run stopped
+early stops its producers and leaves the pipeline where the serial one
+stops after the batches delivered, so the next run is bit-identical too.
+Note that in process mode the sampling-server stats live in the workers, so
 read workload counters with ``prefetch=0`` pipelines.
 
 Spans (``repro_torch.tracing``): the producer makes each batch inside one
@@ -47,17 +58,20 @@ Spans (``repro_torch.tracing``): the producer makes each batch inside one
 ``batch.assemble``, and in process mode ``pipeline.put``); the consumer
 takes each inside one ``pipeline.next`` root (``pipeline.receive``,
 ``batch.to_device``). A forked worker's root summaries ride to the
-consumer with the batches; ``sample_time`` sums the producer's roots.
+consumer with the batches; ``sample_time`` sums every producer's roots.
 """
 from __future__ import annotations
 
 import collections
+import itertools
 import logging
 import multiprocessing as mp
 import os
 import queue as queue_mod
+import time
 import traceback
 import warnings
+from typing import NamedTuple
 
 import numpy as np
 
@@ -76,6 +90,21 @@ _log = logging.getLogger(__name__)
 _FORK_AVAILABLE = os.name == "posix" and "fork" in mp.get_all_start_methods()
 
 _KEY_MASK = (1 << 64) - 1
+
+# Producers beyond this many wait on the consumer: on an 8-core H100 host at
+# the benchmark's papers100M size one producer makes 6.6 batches/s and four
+# make 31.5, while the consumer's own share of a batch (reading and
+# unpickling 19 MB, to_device, a step's issue: 40-80 ms) holds training to
+# 10-25 batches/s; six producers trained no faster than four.
+MAX_PRODUCERS = 4
+
+
+class _Producer(NamedTuple):
+    """One forked producer: its process and its two queues."""
+
+    proc: mp.Process
+    cmd_q: object  # SimpleQueue: commands to the producer
+    data_q: object  # Queue: its batches, in its order
 
 
 class BatchPipeline:
@@ -107,11 +136,11 @@ class BatchPipeline:
     ):
         """Batches come out as tensors on ``device``.  ``ticket_timeout`` bounds every blocking ``ticket.result()``
         wait (None = wait forever, explicitly).  ``worker_respawns`` is the
-        crash budget for the forked prefetch worker: a worker found dead
-        mid-run is respawned up to this many times, replaying the keyed
-        seed stream past the batches already delivered — the resumed
-        stream is bit-identical by construction (see ``_respawn_worker``).
-        ``worker_respawns=0`` restores the old fail-fast behavior."""
+        crash budget for the forked producers: a producer found dead
+        mid-run is respawned up to this many times (all producers
+        together), replaying the keyed seed stream past the batches
+        already delivered — the resumed stream is bit-identical by
+        construction (see ``_read``). ``worker_respawns=0`` fails fast."""
         if workers not in ("auto", "process", "thread"):
             raise ValueError(
                 f"workers must be 'auto', 'process' or 'thread', got {workers!r}"
@@ -194,11 +223,8 @@ class BatchPipeline:
         self._key_base = int(seed) & _KEY_MASK
         self._req_counter = 0
         self._pending = collections.deque()  # (seeds, SampleTicket) in order
-        self._proc = None
-        self._cmd_q = None
-        self._data_q = None
-        self._cancel = None  # mp.Event: stop the worker's current run early
-        self._run_history: list[int] = []  # epochs of fully produced runs
+        self._producers: list = []  # _Producer, in process mode
+        self._cancel = None  # mp.Event: stop the producers' current run early
 
     # ------------------------------------------------------------------
     def _next_key(self) -> tuple:
@@ -245,10 +271,7 @@ class BatchPipeline:
 
     def _seed_stream(self, epochs: int):
         for _ in range(epochs):
-            for seeds in self.loader.epoch():
-                if self._cancel is not None and self._cancel.is_set():
-                    return
-                yield seeds
+            yield from self.loader.epoch()
 
     def _drop_pending(self) -> None:
         """Cancel in-flight window tickets so abandoned requests stop
@@ -257,39 +280,49 @@ class BatchPipeline:
             _, ticket = self._pending.popleft()
             ticket.cancel()
 
-    def _forward_run(self, epochs: int) -> None:
-        """Replay one completed run WITHOUT sampling: consume the seed
-        stream (advancing the loader's per-epoch permutation RNG) and burn
-        one request key per batch, leaving the producer state exactly
-        where a real run would have left it.  Used by a respawned worker
-        to fast-forward to the crashed run."""
-        for _ in self._seed_stream(epochs):
+    def _forward(self, epochs: int, positions: int | None = None) -> None:
+        """Consume the first ``positions`` batch positions of a run of
+        ``epochs`` (all of them when None) WITHOUT sampling: the seed
+        stream (advancing the loader's per-epoch permutation RNG) and one
+        request key a position, where a serial run over them leaves the
+        producer state."""
+        for _ in itertools.islice(self._seed_stream(epochs), positions):
             if self._submit is not None:
                 self._next_key()
 
-    def _produce_np(self, epochs: int, skip: int = 0):
-        """The serial producer: pure numpy, safe inside the forked worker.
+    def _produce_np(self, epochs: int, skip: int = 0, index: int = 0, count: int = 1):
+        """The serial producer: pure numpy, safe inside a forked worker.
         With ``inflight >= 2`` and a service backend it keeps a window of
         sample requests in flight ahead of the batch being padded.
-        ``skip`` fast-forwards past the first ``skip`` batches (already
-        delivered before a worker crash) without sampling them — stream
-        positions and request keys are consumed so batch ``i`` keeps key
-        ``(seed, i)`` and the remainder is bit-identical.
 
-        The bit-identity contract (any prefetch/inflight depth, shared or
-        private service) applies to runs driven to completion: abandoning a
-        run mid-epoch leaves the seed loader — and, pre-dating this PR, any
-        prefetch look-ahead — at an implementation-defined position, so a
-        SUBSEQUENT run on the same pipeline resumes from wherever the
-        producer stopped."""
+        It makes the batches ``i`` with ``i >= skip`` and ``i % count ==
+        index`` (producer ``index`` of ``count``); every other position only
+        consumes its seeds and its request key, without sampling, so batch
+        ``i`` keeps key ``(seed, i)`` and each batch made is bit-identical
+        to the serial stream's.
+
+        The bit-identity contract (any prefetch/inflight depth, any number
+        of producers, shared or private service) covers runs driven to
+        completion, and in process mode also a run stopped early: the next
+        run starts where the serial pipeline stopped after the batches
+        delivered (``_abandon``). A thread producer stopped early leaves
+        the loader wherever it had run ahead to."""
         self._drop_pending()  # stale tickets from an abandoned run
-        stream = self._seed_stream(epochs)
-        for _ in range(skip):
-            if next(stream, None) is None:
-                break
-            if self._submit is not None:
-                self._next_key()
-        windowed = self.inflight > 1 and self._submit is not None
+        keyed = self._submit is not None
+        windowed = self.inflight > 1 and keyed
+
+        def mine():
+            for pos, seeds in enumerate(self._seed_stream(epochs)):
+                if self._cancel is not None and self._cancel.is_set():
+                    return
+                if pos >= skip and pos % count == index:
+                    if windowed:
+                        self._submit_ahead(seeds)
+                    yield seeds
+                elif keyed:
+                    self._next_key()
+
+        stream = mine()
         # bounded by construction: the refill loop below never grows it past
         # self.inflight (validated positive), so no maxlen is needed
         queue: collections.deque = collections.deque()  # glint: disable=PRJ005 -- see above
@@ -300,7 +333,6 @@ class BatchPipeline:
                         nxt = next(stream, None)
                         if nxt is None:
                             break
-                        self._submit_ahead(nxt)
                         queue.append(nxt)
                     if not queue:
                         return
@@ -370,7 +402,27 @@ class BatchPipeline:
         return self.batches(1)
 
     # -- process-mode plumbing -----------------------------------------
-    def _worker_loop(self):  # runs in the forked child: numpy only, no CUDA
+    @property
+    def producers(self) -> int:
+        """How many forked producers a process-mode run splits the stream
+        over: the usable cores (``worker_cores`` when given, else the
+        process's CPU affinity less one core for the consumer), at most
+        ``MAX_PRODUCERS``, at least one. One in thread and serial mode, and
+        over a raw client, whose draws follow the call order, not keys."""
+        if not (self.workers == "process" and _FORK_AVAILABLE and self.prefetch > 0
+                and self._submit is not None):
+            return 1
+        if self.worker_cores:
+            usable = len(set(self.worker_cores))
+        elif hasattr(os, "sched_getaffinity"):
+            usable = len(os.sched_getaffinity(0)) - 1
+        else:
+            usable = (os.cpu_count() or 1) - 1
+        return max(1, min(usable, MAX_PRODUCERS))
+
+    def _worker_loop(self, index: int, count: int, cmd_q, data_q):
+        """Producer ``index`` of ``count``, in the forked child: numpy
+        only, no CUDA."""
         tracing.forked()
         if self.worker_cores and hasattr(os, "sched_setaffinity"):
             try:
@@ -382,19 +434,13 @@ class BatchPipeline:
         while True:
             # glint: disable=PRJ004 -- SimpleQueue has no timeout kwarg; an
             # idle worker is stopped via close(), which escalates to kill()
-            cmd = self._cmd_q.get()
+            cmd = cmd_q.get()
             if cmd[0] == "stop":
                 return
-            if cmd[0] == "forward":
-                # replay a prior completed run without sampling (respawn
-                # fast-forward); ack so the parent can sequence commands
-                self._forward_run(cmd[1])
-                self._data_q.put(("fwd",))
-                continue
             try:
                 # a batch's root closes after its put, so its summary rides
                 # with the next message
-                items = self._produce_np(cmd[1], skip=cmd[2])
+                items = self._produce_np(cmd[1], skip=cmd[2], index=index, count=count)
                 while True:
                     with tracing.span("pipeline.produce") as root:
                         item = next(items, None)
@@ -402,103 +448,81 @@ class BatchPipeline:
                             root.drop()
                             break
                         with tracing.span("pipeline.put"):
-                            self._data_q.put(("item", *item, tracing.take()))
-                self._data_q.put(("done", tracing.take()))
+                            data_q.put(("item", *item, tracing.take()))
+                data_q.put(("done", tracing.take()))
             except BaseException as exc:  # noqa: BLE001 - re-raised in parent
-                self._data_q.put(
+                data_q.put(
                     ("error", f"{type(exc).__name__}: {exc}\n{traceback.format_exc()}")
                 )
 
-    def _ensure_worker(self):
-        if self._proc is not None and self._proc.is_alive():
-            return
+    def _fork(self, index: int) -> None:
+        """Fork producer ``index`` from this process's state, with fresh
+        queues; its finished batches wait in ``prefetch // W`` slots (one
+        at least), so about ``max(prefetch, W)`` in all."""
         ctx = mp.get_context("fork")
-        self._cmd_q = ctx.SimpleQueue()
-        self._data_q = ctx.Queue(maxsize=max(1, self.prefetch))
-        self._cancel = ctx.Event()
+        count = len(self._producers)
+        cmd_q = ctx.SimpleQueue()
+        data_q = ctx.Queue(maxsize=max(1, self.prefetch // count))
         with warnings.catch_warnings():
             # fork + threads can deadlock; the child touches only numpy
             # state, never CUDA, which is the supported pattern
             warnings.simplefilter("ignore", RuntimeWarning)
             warnings.simplefilter("ignore", DeprecationWarning)
-            self._proc = ctx.Process(target=self._worker_loop, daemon=True)
-            self._proc.start()
+            proc = ctx.Process(target=self._worker_loop, args=(index, count, cmd_q, data_q),
+                               daemon=True)
+            proc.start()
+        self._producers[index] = _Producer(proc, cmd_q, data_q)
 
-    def _next_msg(self):
-        """Queue read that notices a dead worker instead of hanging."""
+    def _ensure_producers(self) -> None:
+        """Fork ``producers`` producers unless every one is alive."""
+        if self._producers and all(p.proc.is_alive() for p in self._producers):
+            return
+        self.close()
+        self._cancel = mp.get_context("fork").Event()
+        self._producers = [None] * self.producers
+        for index in range(len(self._producers)):
+            self._fork(index)
+
+    def _read(self, index: int, epochs: int, delivered: int):
+        """The next message of producer ``index``. A dead producer is
+        respawned (crash budget permitting) and resumes the run at the
+        ``delivered``-th batch: the parent still holds the state the run
+        started from, and every batch before that one has reached the
+        consumer, so the resumed stream is bit-identical to an uncrashed
+        one by construction (keys ``(seed, batch_index)``)."""
         while True:
+            producer = self._producers[index]
             try:
-                return self._data_q.get(timeout=1.0)
+                return producer.data_q.get(timeout=1.0)
             except queue_mod.Empty:
-                if self._proc is None or not self._proc.is_alive():
-                    code = self._proc.exitcode if self._proc is not None else None
-                    self.close()
-                    raise RuntimeError(
-                        f"prefetch worker died (exit code {code}) without "
-                        "reporting an error — likely killed (OOM?) or crashed "
-                        "in native code"
-                    )
-
-    def _respawn_worker(self, code, epochs: int, delivered: int) -> None:
-        """Fork a fresh worker and fast-forward it to the crashed run.
-
-        The fresh child forks from THIS process's pristine producer state
-        (the parent never advances the loader/key state in process mode),
-        so it replays every previously completed run via cheap ``forward``
-        commands, then re-enters the crashed run skipping the ``delivered``
-        batches already yielded.  Because sampling randomness is keyed
-        ``(seed, batch_index)`` and the skip path consumes exactly the
-        stream positions and keys a real run would, the resumed stream is
-        bit-identical to an uncrashed one by construction."""
-        self._respawns_left -= 1
-        self.respawn_count += 1
-        _log.warning(
-            "prefetch worker died (exit code %s); respawning (%d left in "
-            "crash budget) and replaying %d delivered batch(es)",
-            code,
-            self._respawns_left,
-            delivered,
-        )
-        self._proc = None  # force a fresh fork (with fresh, empty queues)
-        self._ensure_worker()
-        self._cancel.clear()
-        for past_epochs in self._run_history:
-            self._cmd_q.put(("forward", past_epochs))
-            try:
-                msg = self._data_q.get(timeout=60.0)
-            except queue_mod.Empty:
-                msg = None
-            if msg is None or msg[0] != "fwd":
+                if producer.proc.is_alive():
+                    continue
+            code = producer.proc.exitcode
+            if self._respawns_left <= 0:
                 self.close()
                 raise RuntimeError(
-                    "respawned prefetch worker failed to replay run history"
-                )
-        self._cmd_q.put(("produce", epochs, delivered))
-
-    def _read_or_respawn(self, epochs: int, delivered: int):
-        """Queue read; a dead worker is respawned (crash budget permitting)
-        and told to resume past the batches already delivered."""
-        while True:
-            try:
-                return self._data_q.get(timeout=1.0)
-            except queue_mod.Empty:
-                if self._proc is not None and self._proc.is_alive():
-                    continue
-                code = self._proc.exitcode if self._proc is not None else None
-                if self._respawns_left <= 0:
-                    self.close()
-                    raise RuntimeError(
-                        f"prefetch worker died (exit code {code}) without "
-                        "reporting an error — likely killed (OOM?) or crashed "
-                        "in native code"
-                        + (
-                            f" — crash budget of {self.worker_respawns} "
-                            "respawn(s) exhausted"
-                            if self.worker_respawns
-                            else ""
-                        )
+                    f"prefetch worker died (exit code {code}) without "
+                    "reporting an error — likely killed (OOM?) or crashed "
+                    "in native code"
+                    + (
+                        f" — crash budget of {self.worker_respawns} "
+                        "respawn(s) exhausted"
+                        if self.worker_respawns
+                        else ""
                     )
-                self._respawn_worker(code, epochs, delivered)
+                )
+            self._respawns_left -= 1
+            self.respawn_count += 1
+            _log.warning(
+                "prefetch worker %d died (exit code %s); respawning (%d left in "
+                "crash budget) past %d delivered batch(es)",
+                index,
+                code,
+                self._respawns_left,
+                delivered,
+            )
+            self._fork(index)
+            self._producers[index].cmd_q.put(("produce", epochs, delivered))
 
     def _absorb(self, roots: list) -> None:
         """Keep a forked worker's root summaries; count its batches'."""
@@ -508,77 +532,104 @@ class BatchPipeline:
                 self._count(root)
 
     def _process_batches(self, epochs: int):
-        self._ensure_worker()
+        """Batch ``i`` of the run from producer ``i mod W``. After the run
+        the parent moves its own state to where the run left the stream
+        (``_forward``), so later forks start from there."""
+        self._ensure_producers()
         self._cancel.clear()
-        self._cmd_q.put(("produce", epochs, 0))
+        for producer in self._producers:
+            producer.cmd_q.put(("produce", epochs, 0))
+        count = len(self._producers)
+        running = set(range(count))  # producers that have not ended the run
         delivered = 0
         finished = False
         try:
             while True:
-                msg = self._read_or_respawn(epochs, delivered)
-                if msg[0] == "done":
-                    finished = True
-                    self._absorb(msg[1])
-                    self._run_history.append(epochs)
-                    return
-                if msg[0] == "error":
-                    finished = True
-                    self.close()
-                    raise RuntimeError(f"prefetch worker failed:\n{msg[1]}")
-                _, seeds, batch, roots = msg
+                index = delivered % count
+                kind, *rest = self._read(index, epochs, delivered)
+                if kind != "item":
+                    break
+                seeds, batch, roots = rest
                 self._absorb(roots)
                 delivered += 1
                 yield seeds, batch
+            # the stream ended at its `delivered`-th batch: so does every
+            # producer's share of it
+            for other in [index] + sorted(running - {index}):
+                if other != index:
+                    kind, *rest = self._read(other, epochs, delivered)
+                running.discard(other)
+                if kind != "done":
+                    raise RuntimeError(f"prefetch worker failed:\n{rest[0]}")
+                self._absorb(rest[0])
+            finished = True
         finally:
-            if not finished and self._proc is not None:
-                # consumer stopped early (e.g. max_steps): cancel the run
-                # and drain the few in-flight items so the worker is idle
-                # (not sampling concurrently) before the next command
-                self._cancel.set()
-                while True:
-                    try:
-                        msg = self._next_msg()
-                    except RuntimeError:
-                        # worker died mid-drain: the run was already being
-                        # abandoned, nothing left to recover
-                        break
-                    if msg[0] == "item":
-                        self._absorb(msg[3])
-                    if msg[0] == "done":
-                        self._absorb(msg[1])
-                        # an abandoned run still advanced the worker's
-                        # loader/key state; record it so a later respawn
-                        # replays it (bit-identity is only contracted for
-                        # runs driven to completion — see _produce_np)
-                        self._run_history.append(epochs)
-                        break
-                    if msg[0] == "error":
-                        self.close()
-                        raise RuntimeError(
-                            f"prefetch worker failed:\n{msg[1]}"
-                        )
+            if finished:
+                self._forward(epochs)
+            else:
+                self._abandon(epochs, delivered, running)
+
+    def _abandon(self, epochs: int, delivered: int, running: set) -> None:
+        """End a run that stopped early (e.g. max_steps) or failed: cancel
+        it, drain the producers still making batches (their roots kept),
+        stop them all, and leave the parent where a serial pipeline stops
+        after ``delivered`` batches, so the next run's stream does not
+        depend on how far the producers had run ahead."""
+        if self._cancel is not None:
+            self._cancel.set()
+        error = None
+        for index in sorted(running):
+            if index >= len(self._producers):
+                break  # closed: a producer died past the crash budget
+            producer = self._producers[index]
+            while True:
+                try:
+                    kind, *rest = producer.data_q.get(timeout=1.0)
+                except queue_mod.Empty:
+                    if producer.proc.is_alive():
+                        continue
+                    break  # died mid-drain: nothing left to recover
+                if kind == "item":
+                    self._absorb(rest[2])
+                    continue
+                if kind == "done":
+                    self._absorb(rest[0])
+                elif error is None:
+                    error = rest[0]
+                break
+        self.close()
+        # a serial windowed producer has pulled inflight - 1 batches ahead
+        windowed = self.inflight > 1 and self._submit is not None and delivered > 0
+        self._forward(epochs, delivered + self.inflight - 1 if windowed else delivered)
+        if error is not None:
+            raise RuntimeError(f"prefetch worker failed:\n{error}")
 
     def close(self, timeout: float = 2.0) -> None:
-        """Stop the worker process (no-op for thread/serial modes).
+        """Stop every producer process (no-op for thread/serial modes).
 
         Bounded: a graceful ``stop`` + join escalates to ``terminate()``
-        (SIGTERM) and finally ``kill()`` (SIGKILL), so close() returns even
-        when the worker is wedged in native code or ignoring SIGTERM."""
-        proc, self._proc = self._proc, None
-        if proc is not None and proc.is_alive():
+        (SIGTERM) and finally ``kill()`` (SIGKILL), each step within one
+        ``timeout`` for all the producers, so close() returns even when a
+        producer is wedged in native code or ignoring SIGTERM."""
+        producers = [p for p in self._producers if p is not None and p.proc.is_alive()]
+        self._producers = []
+        for producer in producers:
             try:
-                self._cmd_q.put(("stop",))
-                proc.join(timeout=timeout)
+                producer.cmd_q.put(("stop",))
             except (OSError, ValueError) as exc:
                 # command queue already torn down (closed pipe / released
-                # semaphore); fall through to terminate() below
+                # semaphore); terminate() below stops it
                 _log.debug("graceful worker stop failed: %s", exc)
-            if proc.is_alive():
-                proc.terminate()
-                proc.join(timeout=timeout)
-            if proc.is_alive():
-                proc.kill()
-                proc.join(timeout=timeout)
+        for escalate in (None, "terminate", "kill"):
+            left = [p.proc for p in producers if p.proc.is_alive()]
+            if not left:
+                return
+            for proc in left:
+                if escalate is not None:
+                    getattr(proc, escalate)()
+            deadline = time.monotonic() + timeout
+            for proc in left:
+                proc.join(timeout=max(0.0, deadline - time.monotonic()))
 
     def __del__(self):  # best effort; daemon children die with the parent
         try:

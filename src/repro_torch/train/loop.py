@@ -4,7 +4,7 @@ Counterpart of ``repro/train/loop.py::GNNTrainer``: the GLISP batch
 pipeline (``repro_torch.api.pipeline.BatchPipeline``) feeds padded
 minibatches, on the model's device, into an eager step: forward,
 ``loss.backward()``, the hand-written AdamW update. With ``prefetch >= 1``
-host-side sampling runs in a forked worker (or a thread) and overlaps the
+host-side sampling runs in forked producers (or a thread) and overlaps the
 device step. ``checkpoint_every > 0`` auto-saves an atomic checkpoint every
 N steps; ``resume()`` restores it and ``train()`` fast-forwards the
 (deterministic, keyed) batch stream to the saved step. Every operation of

@@ -211,7 +211,9 @@ def test_a_forked_producer_sends_its_roots_and_opens_no_range(system, monkeypatc
         pipe.close()
     produced = tracing.roots("pipeline.produce")
     assert len(produced) == len(got) == 6
-    assert len({r.pid for r in produced}) == 1 and produced[0].pid != parent
+    # one pid per producer that made a batch, none the parent's
+    pids = {r.pid for r in produced}
+    assert len(pids) == min(pipe.producers, 6) and parent not in pids
     for r in produced:
         assert {"sampling.wait", "batch.assemble", "batch.features", "pipeline.put"} <= set(
             r.self_ns)
@@ -224,6 +226,29 @@ def test_a_forked_producer_sends_its_roots_and_opens_no_range(system, monkeypatc
     assert {"span:pipeline.next", "span:pipeline.receive", "span:batch.to_device"} <= names
     assert "span:pipeline.produce" not in names
     assert len(tracing.roots("pipeline.next")) == 6
+    assert pipe.sample_time == pytest.approx(
+        sum(r.dur_ns - r.self_ns["pipeline.put"] for r in produced) / 1e9)
+
+
+@pytest.mark.parametrize("cores", [(0,), (0, 1), (0, 1, 2)])
+def test_each_forked_producer_sends_its_own_roots(system, cores):
+    """W producers (W = len(worker_cores)): batch i's root comes from
+    producer i mod W, each producer's roots from its own pid, and
+    ``sample_time`` sums them all."""
+    pipe = torch_api.BatchPipeline(system.backend, system.graph, np.arange(0, 1200, 3), (5, 3),
+                                   2, batch_size=64, prefetch=2, worker_cores=cores,
+                                   device="cpu")
+    try:
+        got = list(pipe.batches(1))
+    finally:
+        pipe.close()
+    produced = tracing.roots("pipeline.produce")
+    assert len(produced) == len(got) == 6
+    pids = [r.pid for r in produced]
+    assert len(set(pids)) == len(cores) and os.getpid() not in pids
+    assert all(pids[i] == pids[i % len(cores)] for i in range(6))
+    for r in produced:
+        assert {"sampling.wait", "batch.assemble", "pipeline.put"} <= set(r.self_ns)
     assert pipe.sample_time == pytest.approx(
         sum(r.dur_ns - r.self_ns["pipeline.put"] for r in produced) / 1e9)
 

@@ -11,6 +11,10 @@ oracle sums in edge order); one AdamW step rtol 1e-6 (the same float32
 formula); a loss trajectory rtol 1e-4. Batch fields, checkpoints and
 resumed runs are compared bit for bit.
 """
+import multiprocessing as mp
+import os
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -279,20 +283,174 @@ def test_resume_is_bit_identical(port_system, tmp_path):
     assert torch.equal(whole.opt_state["step"], resumed.opt_state["step"])
 
 
-@pytest.mark.parametrize("workers", ["process", "thread"])
-def test_prefetch_gives_the_serial_stream(port_system, workers):
-    """A forked (or threaded) producer yields the batches and losses of the
-    serial pipeline, bit for bit."""
+def _same_batches(a, b):
+    """Two lists of ``(seeds, GNNBatch)``, bit for bit."""
+    assert len(a) == len(b)
+    for (sa, ba), (sb, bb) in zip(a, b):
+        assert np.array_equal(sa, sb)
+        for name, va in vars(ba).items():
+            vb = getattr(bb, name)
+            for x, y in zip(va if isinstance(va, list) else [va],
+                            vb if isinstance(vb, list) else [vb]):
+                assert (x is None and y is None) or torch.equal(torch.as_tensor(x),
+                                                                torch.as_tensor(y)), name
+
+
+# W forked producers set through worker_cores of size W; the first two
+# cases keep the pipeline's own choice of W
+STREAMS = [pytest.param("process", None, 2, id="process"),
+           pytest.param("thread", None, 2, id="thread")] + [
+    pytest.param("process", tuple(range(w)), inflight, id=f"process-W{w}-inflight{inflight}")
+    for w in (1, 2, 3) for inflight in (1, 2)]
+
+
+@pytest.mark.parametrize("workers,cores,inflight", STREAMS)
+def test_prefetch_gives_the_serial_stream(port_system, workers, cores, inflight):
+    """A forked (or threaded) producer, or W forked producers, yields the
+    batches and losses of the serial pipeline, bit for bit; after forked
+    producers stop early (``max_steps``), the next run is the serial one's
+    too."""
     ids = np.arange(0, 1200, 2)
-    serial = port_system.trainer(_model(), ids, batch_size=64, prefetch=0)
-    ahead = port_system.trainer(_model(), ids, batch_size=64, prefetch=2)
+    serial = port_system.trainer(_model(), ids, batch_size=64, prefetch=0, inflight=inflight)
+    ahead = port_system.trainer(_model(), ids, batch_size=64, prefetch=2, inflight=inflight,
+                                worker_cores=cores)
     ahead.pipeline.workers = workers
+    if cores is not None:
+        assert ahead.pipeline.producers == len(cores)
     try:
         a = serial.train(max_steps=3, log_every=1).losses
         b = ahead.train(max_steps=3, log_every=1).losses
+        if workers == "process":
+            _same_batches(list(serial.pipeline.host_batches(1)),
+                          list(ahead.pipeline.host_batches(1)))
     finally:
         ahead.pipeline.close()
     assert a == b
+
+
+def _pipe(system, prefetch, cores=None, inflight=2, cls=None, **kw):
+    return (cls or torch_api.BatchPipeline)(
+        system.backend, system.graph, np.arange(0, 1200, 2), (5, 3), LAYERS, batch_size=64,
+        prefetch=prefetch, inflight=inflight, worker_cores=cores, device="cpu", **kw)
+
+
+def _run(pipe, epochs, stop=None):
+    """A run's host batches; ``stop`` closes it after that many."""
+    out, stream = [], pipe.host_batches(epochs)
+    try:
+        for item in stream:
+            out.append(item)
+            if len(out) == stop:
+                break
+    finally:
+        stream.close()
+    return out
+
+
+@pytest.mark.parametrize("w", [1, 2, 3])
+@pytest.mark.parametrize("stop", [1, 7])
+def test_a_run_stopped_early_leaves_the_serial_pipelines_state(port_system, w, stop):
+    """W producers stopped after ``stop`` batches, then a two-epoch run on
+    the same pipeline: the batches of a serial pipeline driven the same
+    way, whatever W (so the same as with one producer)."""
+    serial = _pipe(port_system, 0)
+    want = _run(serial, 1, stop) + _run(serial, 2)
+    pipe = _pipe(port_system, 2, tuple(range(w)))
+    try:
+        got = _run(pipe, 1, stop)
+        assert not pipe._producers  # stopped early: the producers were stopped
+        got += _run(pipe, 2)
+        assert len(pipe._producers) == w  # a run to its end keeps them
+        _same_batches(want, got)
+        assert pipe.respawn_count == 0
+    finally:
+        pipe.close()
+
+
+class _StallingProducer(torch_api.BatchPipeline):
+    """Producer 1 stalls in its second batch until it is killed; the
+    producer respawned in its place does not stall."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.stalled = mp.get_context("fork").Event()
+        self._index = None
+        self._made = 0
+
+    def _worker_loop(self, index, *a):
+        self._index = index
+        super()._worker_loop(index, *a)
+
+    def make_batch(self, seeds):
+        if self._index == 1 and not self.stalled.is_set():
+            self._made += 1
+            if self._made == 2:
+                self.stalled.set()
+                time.sleep(120)
+        return super().make_batch(seeds)
+
+
+def test_a_killed_producer_is_respawned_and_the_stream_stays_serial(port_system):
+    """One of three producers is killed mid-run (while it makes a batch,
+    nothing of it in flight): it alone is respawned, past the batches
+    delivered, and the run is the serial stream bit for bit."""
+    want = _run(_pipe(port_system, 0), 2)
+    pipe = _pipe(port_system, 2, (0, 1, 2), cls=_StallingProducer)
+    got, stream = [], pipe.host_batches(2)
+    try:
+        for item in stream:
+            got.append(item)
+            if len(got) == 3:
+                assert pipe.stalled.wait(timeout=60)
+                others = [p.proc.pid for i, p in enumerate(pipe._producers) if i != 1]
+                victim = pipe._producers[1].proc
+                victim.kill()
+                victim.join(timeout=10)
+        assert pipe.respawn_count == 1 and not victim.is_alive()
+        assert [p.proc.pid for i, p in enumerate(pipe._producers) if i != 1] == others
+    finally:
+        stream.close()
+        pipe.close()
+    _same_batches(want, got)
+
+
+def test_close_leaves_no_producer_alive(port_system):
+    pipe = _pipe(port_system, 2, (0, 1, 2))
+    stream = pipe.host_batches(1)
+    next(stream)
+    procs = [p.proc for p in pipe._producers]
+    assert len(procs) == 3 and all(p.is_alive() for p in procs)
+    pipe.close()
+    assert not any(p.is_alive() for p in procs) and not pipe._producers
+    stream.close()  # the abandoned run finds nothing left to drain
+    pipe.close()  # idempotent
+
+
+@pytest.mark.parametrize("affinity,cores,workers,prefetch,want", [
+    ({0}, None, "process", 2, 1),  # one usable core
+    ({0, 1}, None, "process", 2, 1),  # one core for the consumer
+    ({0, 1, 2, 3}, None, "process", 2, 3),
+    (set(range(64)), None, "process", 2, "cap"),
+    ({0}, (0, 1), "process", 2, 2),  # worker_cores are the producers' own
+    (set(range(64)), None, "thread", 2, 1),
+    (set(range(64)), None, "process", 0, 1),
+])
+def test_producers_follow_the_usable_cores(port_system, monkeypatch, affinity, cores,
+                                           workers, prefetch, want):
+    from repro_torch.api import pipeline as pipeline_mod
+
+    monkeypatch.setattr(os, "sched_getaffinity", lambda pid: affinity)
+    pipe = _pipe(port_system, prefetch, cores)
+    pipe.workers = workers
+    assert pipe.producers == (pipeline_mod.MAX_PRODUCERS if want == "cap" else want)
+
+
+def test_a_raw_client_keeps_one_producer(small_graph, partitioned):
+    """A raw client's draws follow the call order, not keys: one producer."""
+    pipe = torch_api.BatchPipeline(_torch_client(small_graph, partitioned), small_graph,
+                                   np.arange(64), (5, 3), LAYERS, batch_size=32, prefetch=2,
+                                   worker_cores=(0, 1, 2), device="cpu")
+    assert pipe.workers == "process" and pipe.producers == 1
 
 
 def test_facade_loader_trainer_and_train(port_system):
