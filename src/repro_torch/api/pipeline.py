@@ -29,15 +29,31 @@ Two worker modes:
     them: producer ``j`` makes the batches ``j, j + W, j + 2W, ...`` and
     passes over the others' seed positions and request keys without
     sampling them; the consumer takes batch ``i`` from producer ``i mod
-    W``'s bounded queue.  CPython's GIL makes a *thread* producer
-    serialize against the consumer's Python sections (numpy only
-    releases the GIL for a handful of ops), so separate processes are
-    the only way host sampling truly runs beside the training step — the
-    same reason DGL/PyTorch dataloaders use worker processes.  ``W``
+    W``.  CPython's GIL makes a *thread* producer serialize against the
+    consumer's Python sections (numpy only releases the GIL for a handful
+    of ops), so separate processes are the only way host sampling truly
+    runs beside the training step — the same reason DGL/PyTorch
+    dataloaders use worker processes.  ``W``
     (:attr:`BatchPipeline.producers`) follows the usable cores: the
     ``worker_cores`` when given, else the process's CPU affinity less one
     core for the consumer, at most ``MAX_PRODUCERS``; one over a raw
     client, whose draws are not keyed.
+
+    A batch crosses in shared memory, not through a pipe: each producer
+    owns a ring of ``max(2, prefetch // W)`` slots in an anonymous shared
+    mapping made before its fork (not ``/dev/shm``, which containers often
+    cap), each slot as large as the largest batch the pipeline can make
+    (:attr:`BatchPipeline.slot_bytes`, from :func:`largest_batch`). The
+    producer waits for a free slot, writes the batch's arrays into it and
+    sends only the seeds, the slot and each array's offset, shape and
+    dtype through its queue; a batch larger than a slot raises there. The
+    consumer copies the batch out once and frees the slot at once: into
+    fresh arrays in :meth:`host_batches`, into one of two reused pinned
+    buffers in :meth:`batches` to a CUDA device, which
+    :meth:`GNNBatch.to` then copies to the card without pinning again. No
+    yielded batch shares memory with a slot or with a later batch: a
+    pinned buffer is written again only after the event recorded behind
+    its last batch's copies to the card has passed.
 ``thread`` — in-process double buffering via one daemon thread.
     Zero-copy hand-off, but overlap is limited to the consumer's
     GIL-released windows.
@@ -55,33 +71,39 @@ read workload counters with ``prefetch=0`` pipelines.
 
 Spans (``repro_torch.tracing``): the producer makes each batch inside one
 ``pipeline.produce`` root (``sampling.submit``, ``sampling.wait``,
-``batch.assemble``, and in process mode ``pipeline.put``); the consumer
-takes each inside one ``pipeline.next`` root (``pipeline.receive``,
-``batch.to_device``). A forked worker's root summaries ride to the
-consumer with the batches; ``sample_time`` sums every producer's roots.
+``batch.assemble``, and in process mode ``pipeline.put``, the wait for a
+free slot, then ``pipeline.write``, the copy into it); the consumer takes
+each inside one ``pipeline.next`` root (``pipeline.receive``: the message
+and the copy out of the slot; ``batch.to_device``). A forked worker's root
+summaries ride to the consumer with the batches; ``sample_time`` sums
+every producer's roots less their waits for a slot.
 """
 from __future__ import annotations
 
 import collections
 import itertools
 import logging
+import math
+import mmap
 import multiprocessing as mp
 import os
 import queue as queue_mod
 import time
 import traceback
 import warnings
+from dataclasses import fields
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from repro_torch import tracing
 from repro_torch.core.sampling.service import DEFAULT_DIRECTION, SamplingSpec
 from repro_torch.core.storage import as_feature_source
 from repro_torch.data.graph_loader import SeedBatchLoader
 from repro_torch.device import resolve_device
-from repro_torch.models.gnn.batching import GNNBatch, subgraph_to_batch
-from repro_torch.utils import prefetch_iterator
+from repro_torch.models.gnn.batching import GNNBatch, largest_batch, subgraph_to_batch
+from repro_torch.utils import prefetch_iterator, round_up
 
 __all__ = ["BatchPipeline"]
 
@@ -91,20 +113,141 @@ _FORK_AVAILABLE = os.name == "posix" and "fork" in mp.get_all_start_methods()
 
 _KEY_MASK = (1 << 64) - 1
 
-# Producers beyond this many wait on the consumer: on an 8-core H100 host at
-# the benchmark's papers100M size one producer makes 6.6 batches/s and four
-# make 31.5, while the consumer's own share of a batch (reading and
-# unpickling 19 MB, to_device, a step's issue: 40-80 ms) holds training to
-# 10-25 batches/s; six producers trained no faster than four.
-MAX_PRODUCERS = 4
+# At most this many producers. On an 8-core H100 host at the benchmark's
+# papers100M size the consumer's share of a batch is 6-8 ms to take it out
+# of its slot and 1 ms to issue its copies, beside the step's 8-13 ms, so
+# the producers (120-220 ms a batch each) set the pace. W = 4 / 5 / 6 in
+# turns (30 s, 3 seeds a cell): SAGE 5971-6304 / 7523-7940 / 9262-9487
+# seeds/s, GAT 6063-7093 / 7432-7908 / 8613-10834. Five won every pair
+# against four in both cells and spread no wider (IQR over median 0.053
+# against 0.054 SAGE, 0.061 against 0.169 GAT); six won too, but spread
+# 0.229 in GAT, and leaves the consumer one core of the eight.
+MAX_PRODUCERS = 5
+
+_ALIGN = 64  # bytes: where each of a slot's arrays may start
+
+
+def _held(value) -> tuple:
+    """The arrays a batch field holds: a list's, one, or none."""
+    return tuple(value) if isinstance(value, list) else () if value is None else (value,)
+
+
+def _arrays(batch: GNNBatch):
+    """``batch``'s arrays, field by field, each list in order."""
+    for f in fields(batch):
+        yield from _held(getattr(batch, f.name))
+
+
+def _plan(batch: GNNBatch):
+    """Where ``batch``'s arrays lie in a slot, one after another at
+    ``_ALIGN``-byte steps: ``[(field, listed, [(offset, shape, dtype),
+    ...]), ...]``; and the bytes they span."""
+    plan, end = [], 0
+    for f in fields(batch):
+        value = getattr(batch, f.name)
+        places = []
+        for a in _held(value):
+            offset = round_up(end, _ALIGN)
+            end = offset + a.nbytes
+            places.append((offset, a.shape, a.dtype.str))
+        plan.append((f.name, isinstance(value, list), places))
+    return plan, end
+
+
+def _views(buf: np.ndarray, plan) -> GNNBatch:
+    """The batch that ``plan`` lays out in the bytes ``buf``, as views."""
+
+    def view(offset, shape, dtype):
+        dtype = np.dtype(dtype)
+        return buf[offset:offset + math.prod(shape) * dtype.itemsize].view(dtype).reshape(shape)
+
+    return GNNBatch(**{
+        name: [view(*p) for p in places] if listed else view(*places[0]) if places else None
+        for name, listed, places in plan})
+
+
+def write_batch(buf: np.ndarray, batch: GNNBatch) -> tuple:
+    """Copy ``batch``'s arrays into the bytes ``buf`` as ``_plan`` lays
+    them out; return the plan and the bytes used. A batch that does not
+    fit raises ``ValueError`` before anything is written."""
+    plan, used = _plan(batch)
+    if used > buf.shape[0]:
+        raise ValueError(f"a batch of {used} bytes does not fit a slot of {buf.shape[0]} bytes")
+    for src, dst in zip(_arrays(batch), _arrays(_views(buf, plan))):
+        np.copyto(dst, src)
+    return plan, used
+
+
+class _Ring:
+    """One producer's slots for finished batches: an anonymous shared
+    mapping, made before the fork so that the producer writes the pages
+    the consumer reads, and a count of free slots, which the consumer
+    raises as it copies each batch out. Slots are taken and freed in turn."""
+
+    def __init__(self, ctx, slots: int, slot_bytes: int):
+        self.slots, self.slot_bytes = slots, slot_bytes
+        self._map = mmap.mmap(-1, slots * slot_bytes)
+        self._buf = np.frombuffer(self._map, np.uint8)
+        self.free = ctx.Semaphore(slots)
+        self._next = 0  # the producer's next slot
+
+    def _slot(self, index: int) -> np.ndarray:
+        return self._buf[index * self.slot_bytes:(index + 1) * self.slot_bytes]
+
+    def write(self, batch: GNNBatch) -> tuple:
+        """In the producer, a free slot taken: write ``batch`` into the next
+        slot; return where it lies, ``(slot, plan, used)``."""
+        slot = self._next
+        self._next = (slot + 1) % self.slots
+        return (slot, *write_batch(self._slot(slot), batch))
+
+    def read(self, where: tuple, out: np.ndarray) -> GNNBatch:
+        """In the consumer: copy the batch at ``where`` into the bytes
+        ``out`` and free its slot; the batch as views of ``out``."""
+        slot, plan, used = where
+        np.copyto(out[:used], self._slot(slot)[:used])
+        self.free.release()
+        return _views(out, plan)
+
+    def close(self) -> None:
+        """Unmap the slots (no view of them outlives ``write`` or ``read``)."""
+        self._buf = None
+        self._map.close()
+
+
+class _Pinned:
+    """Pinned host buffers that a CUDA consumer copies batches into out of
+    the rings, in turn, so that ``GNNBatch.to`` copies them to the card
+    without pinning afresh. A buffer is written again only once the event
+    recorded after its last batch's copies has passed."""
+
+    def __init__(self, nbytes: int, count: int = 2):
+        self._tensors = [torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+                         for _ in range(count)]
+        self._events = [None] * count
+        self._turn = 0
+
+    def buffer(self, used: int) -> np.ndarray:
+        """The next buffer, once the card has read its last batch."""
+        if self._events[self._turn] is not None:
+            self._events[self._turn].synchronize()
+        return self._tensors[self._turn].numpy()
+
+    def moved(self, device) -> None:
+        """The copies of the batch in the last buffer given are issued."""
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))
+        self._events[self._turn] = event
+        self._turn = (self._turn + 1) % len(self._tensors)
 
 
 class _Producer(NamedTuple):
-    """One forked producer: its process and its two queues."""
+    """One forked producer: its process, its two queues and its ring."""
 
     proc: mp.Process
     cmd_q: object  # SimpleQueue: commands to the producer
-    data_q: object  # Queue: its batches, in its order
+    data_q: object  # Queue: where its batches lie, in its order
+    ring: _Ring
 
 
 class BatchPipeline:
@@ -225,6 +368,7 @@ class BatchPipeline:
         self._pending = collections.deque()  # (seeds, SampleTicket) in order
         self._producers: list = []  # _Producer, in process mode
         self._cancel = None  # mp.Event: stop the producers' current run early
+        self._pinned = None  # _Pinned: a CUDA consumer's staging buffers
 
     # ------------------------------------------------------------------
     def _next_key(self) -> tuple:
@@ -371,8 +515,8 @@ class BatchPipeline:
         closing the generator stops the producer."""
         if self.prefetch <= 0:
             return self._produce_roots(epochs)
-        if self.workers == "process" and _FORK_AVAILABLE:
-            return self._process_batches(epochs)
+        if self._forked:
+            return self._process_batches(epochs, lambda used: np.empty(used, np.uint8))
         # thread mode: prefetch_iterator stops and joins its producer when
         # the generator is closed/abandoned, so the shared loader/backend
         # state is never mutated concurrently with a later epoch
@@ -381,8 +525,17 @@ class BatchPipeline:
     def batches(self, epochs: int = 1):
         """Yield ``(seeds, GNNBatch)`` with tensors on the pipeline's
         device; sampling runs ahead of the consumer when ``prefetch >= 1``.
-        The copies to the device are made here, in the consumer."""
-        stream = self.host_batches(epochs)
+        The copies to the device are made here, in the consumer: from
+        forked producers to a CUDA device, out of the slot into a reused
+        pinned buffer, and from there to the card."""
+        pinned = None
+        if self._forked and self.device.type == "cuda":
+            if self._pinned is None:
+                self._pinned = _Pinned(self.slot_bytes)
+            pinned = self._pinned
+            stream = self._process_batches(epochs, pinned.buffer)
+        else:
+            stream = self.host_batches(epochs)
         try:
             while True:
                 with tracing.span("pipeline.next") as root:
@@ -394,6 +547,8 @@ class BatchPipeline:
                     seeds, batch = item
                     with tracing.span("batch.to_device"):
                         batch = batch.to(self.device)
+                        if pinned is not None:
+                            pinned.moved(self.device)
                 yield seeds, batch
         finally:
             stream.close()
@@ -403,14 +558,18 @@ class BatchPipeline:
 
     # -- process-mode plumbing -----------------------------------------
     @property
+    def _forked(self) -> bool:
+        """Whether a run's batches come from forked producers."""
+        return self.prefetch > 0 and self.workers == "process" and _FORK_AVAILABLE
+
+    @property
     def producers(self) -> int:
         """How many forked producers a process-mode run splits the stream
         over: the usable cores (``worker_cores`` when given, else the
         process's CPU affinity less one core for the consumer), at most
         ``MAX_PRODUCERS``, at least one. One in thread and serial mode, and
         over a raw client, whose draws follow the call order, not keys."""
-        if not (self.workers == "process" and _FORK_AVAILABLE and self.prefetch > 0
-                and self._submit is not None):
+        if not (self._forked and self._submit is not None):
             return 1
         if self.worker_cores:
             usable = len(set(self.worker_cores))
@@ -420,7 +579,16 @@ class BatchPipeline:
             usable = (os.cpu_count() or 1) - 1
         return max(1, min(usable, MAX_PRODUCERS))
 
-    def _worker_loop(self, index: int, count: int, cmd_q, data_q):
+    @property
+    def slot_bytes(self) -> int:
+        """Bytes of one ring slot: the span of the largest batch this
+        pipeline can make (:func:`largest_batch`), in whole pages."""
+        biggest = largest_batch(self.feature_source.num_rows, self.feature_source.dim,
+                                self.loader.batch, self.fanouts, self.num_layers,
+                                self.vertex_quantum, self.edge_quantum)
+        return round_up(_plan(biggest)[1], mmap.PAGESIZE)
+
+    def _worker_loop(self, index: int, count: int, ring: _Ring, cmd_q, data_q):
         """Producer ``index`` of ``count``, in the forked child: numpy
         only, no CUDA."""
         tracing.forked()
@@ -447,8 +615,12 @@ class BatchPipeline:
                         if item is None:
                             root.drop()
                             break
+                        seeds, batch = item
                         with tracing.span("pipeline.put"):
-                            data_q.put(("item", *item, tracing.take()))
+                            ring.free.acquire()
+                        with tracing.span("pipeline.write"):
+                            where = ring.write(batch)
+                        data_q.put(("item", seeds, where, tracing.take()))
                 data_q.put(("done", tracing.take()))
             except BaseException as exc:  # noqa: BLE001 - re-raised in parent
                 data_q.put(
@@ -457,21 +629,25 @@ class BatchPipeline:
 
     def _fork(self, index: int) -> None:
         """Fork producer ``index`` from this process's state, with fresh
-        queues; its finished batches wait in ``prefetch // W`` slots (one
-        at least), so about ``max(prefetch, W)`` in all."""
+        queues and a fresh ring of ``prefetch // W`` slots (two at least:
+        one filled while the consumer reads another); a producer holds at
+        most one more finished batch, waiting for a slot."""
         ctx = mp.get_context("fork")
         count = len(self._producers)
+        slots = max(2, self.prefetch // count)
+        ring = _Ring(ctx, slots, self.slot_bytes)
         cmd_q = ctx.SimpleQueue()
-        data_q = ctx.Queue(maxsize=max(1, self.prefetch // count))
+        # the ring bounds the items queued; one more for the end of a run
+        data_q = ctx.Queue(maxsize=slots + 1)
         with warnings.catch_warnings():
             # fork + threads can deadlock; the child touches only numpy
             # state, never CUDA, which is the supported pattern
             warnings.simplefilter("ignore", RuntimeWarning)
             warnings.simplefilter("ignore", DeprecationWarning)
-            proc = ctx.Process(target=self._worker_loop, args=(index, count, cmd_q, data_q),
-                               daemon=True)
+            proc = ctx.Process(target=self._worker_loop,
+                               args=(index, count, ring, cmd_q, data_q), daemon=True)
             proc.start()
-        self._producers[index] = _Producer(proc, cmd_q, data_q)
+        self._producers[index] = _Producer(proc, cmd_q, data_q, ring)
 
     def _ensure_producers(self) -> None:
         """Fork ``producers`` producers unless every one is alive."""
@@ -521,6 +697,7 @@ class BatchPipeline:
                 self._respawns_left,
                 delivered,
             )
+            producer.ring.close()
             self._fork(index)
             self._producers[index].cmd_q.put(("produce", epochs, delivered))
 
@@ -531,8 +708,9 @@ class BatchPipeline:
             if root.name == "pipeline.produce":
                 self._count(root)
 
-    def _process_batches(self, epochs: int):
-        """Batch ``i`` of the run from producer ``i mod W``. After the run
+    def _process_batches(self, epochs: int, out):
+        """Batch ``i`` of the run from producer ``i mod W``, copied out of
+        its slot into ``out(used)``, bytes the consumer owns. After the run
         the parent moves its own state to where the run left the stream
         (``_forward``), so later forks start from there."""
         self._ensure_producers()
@@ -549,7 +727,8 @@ class BatchPipeline:
                 kind, *rest = self._read(index, epochs, delivered)
                 if kind != "item":
                     break
-                seeds, batch, roots = rest
+                seeds, where, roots = rest
+                batch = self._producers[index].ring.read(where, out(where[2]))
                 self._absorb(roots)
                 delivered += 1
                 yield seeds, batch
@@ -590,6 +769,7 @@ class BatchPipeline:
                         continue
                     break  # died mid-drain: nothing left to recover
                 if kind == "item":
+                    producer.ring.free.release()
                     self._absorb(rest[2])
                     continue
                 if kind == "done":
@@ -611,7 +791,8 @@ class BatchPipeline:
         (SIGTERM) and finally ``kill()`` (SIGKILL), each step within one
         ``timeout`` for all the producers, so close() returns even when a
         producer is wedged in native code or ignoring SIGTERM."""
-        producers = [p for p in self._producers if p is not None and p.proc.is_alive()]
+        forked = [p for p in self._producers if p is not None]
+        producers = [p for p in forked if p.proc.is_alive()]
         self._producers = []
         for producer in producers:
             try:
@@ -623,13 +804,15 @@ class BatchPipeline:
         for escalate in (None, "terminate", "kill"):
             left = [p.proc for p in producers if p.proc.is_alive()]
             if not left:
-                return
+                break
             for proc in left:
                 if escalate is not None:
                     getattr(proc, escalate)()
             deadline = time.monotonic() + timeout
             for proc in left:
                 proc.join(timeout=max(0.0, deadline - time.monotonic()))
+        for producer in forked:
+            producer.ring.close()
 
     def __del__(self):  # best effort; daemon children die with the parent
         try:

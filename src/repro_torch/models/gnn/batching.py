@@ -17,7 +17,10 @@ numpy:
 Summing in CSR order changes the float sum order against the JAX oracle,
 which sums in edge order: results agree at float tolerance, not bitwise.
 :meth:`GNNBatch.to` moves a batch to a device with pinned, non-blocking
-copies.
+copies; an array already in pinned memory (the batch pipeline's staging
+buffers) is copied from where it lies, without pinning it again.
+:func:`largest_batch` gives the shapes of the largest batch a sampling
+plan can make, which sizes the pipeline's shared-memory slots.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from repro_torch.core.sampling.service import SampledSubgraph
 from repro_torch.core.storage import as_feature_source
 from repro_torch.utils import round_up
 
-__all__ = ["GNNBatch", "subgraph_to_batch", "sorted_order"]
+__all__ = ["GNNBatch", "largest_batch", "subgraph_to_batch", "sorted_order"]
 
 
 @dataclass
@@ -58,13 +61,14 @@ class GNNBatch:
     def to(self, device) -> "GNNBatch":
         """This batch with every array as a tensor on ``device``. Host
         arrays are copied through pinned memory without blocking when the
-        device is a CUDA card; the copies are ordered on the current
+        device is a CUDA card (an array that already lies in pinned memory
+        is not pinned again); the copies are ordered on the current
         stream, before any kernel that reads them."""
         dev = torch.device(device)
 
         def move(a):
             t = torch.from_numpy(np.ascontiguousarray(a))
-            if dev.type == "cuda":
+            if dev.type == "cuda" and not t.is_pinned():
                 t = t.pin_memory()
             return t.to(dev, non_blocking=True)
 
@@ -86,6 +90,48 @@ def sorted_order(pos: np.ndarray) -> np.ndarray:
     """int32 permutation that stable-sorts ``pos`` with padding (< 0) last."""
     key = np.where(pos < 0, np.iinfo(np.int32).max, pos)
     return np.argsort(key, kind="stable").astype(np.int32)
+
+
+def largest_batch(
+    num_vertices: int,
+    feat_dim: int,
+    batch_size: int,
+    fanouts,
+    num_layers: int,
+    vertex_quantum: int = 256,
+    edge_quantum: int = 1024,
+) -> GNNBatch:
+    """A batch of the largest shapes :func:`subgraph_to_batch` can give for
+    ``batch_size`` seeds sampled with ``fanouts`` on a graph of
+    ``num_vertices``, as zero-stride arrays that hold no memory. A hop's
+    frontier is at most the graph and the seeds times the fanouts before
+    it; each frontier vertex brings at most its hop's fanout in edges; the
+    table holds at most the seeds and every edge's far end."""
+    frontier, edges = batch_size, []
+    for f in fanouts:
+        edges.append(frontier * f)
+        frontier = min(num_vertices, frontier * f)
+    vpad = _bucket(min(num_vertices, batch_size + sum(edges)), vertex_quantum)
+    epads = [_bucket(sum(edges[: num_layers - k]), edge_quantum) for k in range(num_layers)]
+
+    def empty(shape, dtype):
+        return np.broadcast_to(np.zeros((), dtype), shape)
+
+    def per_layer(dtype):
+        return [empty((e,), dtype) for e in epads]
+
+    return GNNBatch(
+        feats=empty((vpad, feat_dim), np.float32),
+        valid=empty((vpad,), bool),
+        seed_pos=empty((batch_size,), np.int32),
+        labels=empty((batch_size,), np.int32),
+        layer_dst=per_layer(np.int32),
+        layer_src=per_layer(np.int32),
+        layer_etype=per_layer(np.int32),
+        layer_cnt=[empty((vpad, 1), np.float32) for _ in epads],
+        layer_dst_order=per_layer(np.int32),
+        layer_src_order=per_layer(np.int32),
+    )
 
 
 def subgraph_to_batch(

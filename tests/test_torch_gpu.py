@@ -1562,3 +1562,70 @@ def test_backward_kernels_route_by_dtype(cuda, dtype):
         for kern in kernels:
             assert any(prefix + "mma_" + kern in n for n in names) == tc, (kern, names)
             assert any(prefix + kern + "<" in n for n in names) != tc, (kern, names)
+
+
+def _host_batches(pipe, epochs):
+    stream = pipe.host_batches(epochs)
+    try:
+        return list(stream)
+    finally:
+        stream.close()
+
+
+def test_a_batch_moves_the_same_bits_from_pinned_and_pageable_memory(cuda, monkeypatch):
+    """``GNNBatch.to`` gives the same tensors from a pageable batch and from
+    one whose arrays lie in a pinned buffer, and pins only the pageable
+    one's arrays."""
+    from repro_torch.api.pipeline import _plan, _views, write_batch
+
+    system = _small_system()
+    pipe = system.loader(np.arange(0, 1500, 2), batch_size=64, prefetch=0, device="cpu")
+    _, host = _host_batches(pipe, 1)[0]
+    pinned = torch.empty(_plan(host)[1], dtype=torch.uint8, pin_memory=True)
+    plan, _ = write_batch(pinned.numpy(), host)
+    staged = _views(pinned.numpy(), plan)
+    calls = []
+    real = torch.Tensor.pin_memory
+    monkeypatch.setattr(torch.Tensor, "pin_memory",
+                        lambda t, *a, **kw: calls.append(t) or real(t, *a, **kw))
+    a = host.to(cuda)
+    pinned_calls = len(calls)
+    b = staged.to(cuda)
+    torch.cuda.synchronize()
+    assert pinned_calls == sum(len(v) if isinstance(v, list) else v is not None
+                               for v in vars(host).values())
+    assert len(calls) == pinned_calls  # the staged batch pinned nothing
+    for name, va in vars(a).items():
+        vb = getattr(b, name)
+        for x, y in zip(va if isinstance(va, list) else [va], vb if isinstance(vb, list) else [vb]):
+            assert x.device.type == "cuda" and torch.equal(x, y), name
+
+
+def test_forked_producers_to_the_card_give_the_serial_stream(cuda):
+    """Three forked producers, each batch copied out of its slot into a
+    reused pinned buffer and on to the card: every batch of two epochs,
+    held to the end, is the serial stream's, bit for bit."""
+    from repro_torch.api import BatchPipeline
+
+    system = _small_system()
+
+    def pipe(prefetch, device, cores=None):
+        return BatchPipeline(system.backend, system.graph, np.arange(0, 1500, 2), (6, 4), 2,
+                             batch_size=64, prefetch=prefetch, worker_cores=cores, device=device)
+
+    want = _host_batches(pipe(0, "cpu"), 2)
+    ahead = pipe(2, "cuda", (0, 1, 2))
+    try:
+        got = list(ahead.batches(2))
+        assert all(t.is_pinned() for t in ahead._pinned._tensors)
+    finally:
+        ahead.close()
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == 22
+    for (sa, ba), (sb, bb) in zip(want, got):
+        assert np.array_equal(sa, sb)
+        for name, va in vars(ba).items():
+            vb = getattr(bb, name)
+            for x, y in zip(va if isinstance(va, list) else [va],
+                            vb if isinstance(vb, list) else [vb]):
+                assert y.device.type == "cuda" and torch.equal(torch.from_numpy(x), y.cpu()), name

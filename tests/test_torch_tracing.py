@@ -215,8 +215,8 @@ def test_a_forked_producer_sends_its_roots_and_opens_no_range(system, monkeypatc
     pids = {r.pid for r in produced}
     assert len(pids) == min(pipe.producers, 6) and parent not in pids
     for r in produced:
-        assert {"sampling.wait", "batch.assemble", "batch.features", "pipeline.put"} <= set(
-            r.self_ns)
+        assert {"sampling.wait", "batch.assemble", "batch.features", "pipeline.put",
+                "pipeline.write"} <= set(r.self_ns)
         assert sum(r.self_ns.values()) == r.dur_ns
     # a request in flight may be answered by an earlier batch's rounds
     assert {"sampling.submit", "sampling.round", "sampling.hop", "sampling.gather"} <= {
@@ -248,7 +248,8 @@ def test_each_forked_producer_sends_its_own_roots(system, cores):
     assert len(set(pids)) == len(cores) and os.getpid() not in pids
     assert all(pids[i] == pids[i % len(cores)] for i in range(6))
     for r in produced:
-        assert {"sampling.wait", "batch.assemble", "pipeline.put"} <= set(r.self_ns)
+        assert {"sampling.wait", "batch.assemble", "pipeline.put", "pipeline.write"} <= set(
+            r.self_ns)
     assert pipe.sample_time == pytest.approx(
         sum(r.dur_ns - r.self_ns["pipeline.put"] for r in produced) / 1e9)
 

@@ -11,6 +11,7 @@ oracle sums in edge order); one AdamW step rtol 1e-6 (the same float32
 formula); a loss trajectory rtol 1e-4. Batch fields, checkpoints and
 resumed runs are compared bit for bit.
 """
+import mmap
 import multiprocessing as mp
 import os
 import time
@@ -45,7 +46,13 @@ from repro_torch.kernels.ref import (  # noqa: E402
     gather_spmm_ref,
 )
 from repro_torch.models.gnn import GNNModel, load_jax_params  # noqa: E402
-from repro_torch.models.gnn.batching import GNNBatch, sorted_order, subgraph_to_batch  # noqa: E402
+from repro_torch.api.pipeline import _views, write_batch  # noqa: E402
+from repro_torch.models.gnn.batching import (  # noqa: E402
+    GNNBatch,
+    largest_batch,
+    sorted_order,
+    subgraph_to_batch,
+)
 from repro_torch.train import DataParallelGNNTrainer, GNNTrainer, optim  # noqa: E402
 from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 
@@ -404,26 +411,123 @@ def test_a_killed_producer_is_respawned_and_the_stream_stays_serial(port_system)
                 assert pipe.stalled.wait(timeout=60)
                 others = [p.proc.pid for i, p in enumerate(pipe._producers) if i != 1]
                 victim = pipe._producers[1].proc
+                old_ring = pipe._producers[1].ring
                 victim.kill()
                 victim.join(timeout=10)
         assert pipe.respawn_count == 1 and not victim.is_alive()
         assert [p.proc.pid for i, p in enumerate(pipe._producers) if i != 1] == others
+        # the respawned producer wrote into a ring of its own (the dead
+        # one's unmapped: its address may be the new ring's), and every
+        # ring ends the run with all its slots free
+        assert pipe._producers[1].ring is not old_ring and old_ring._map.closed
+        rings = _spans(p.ring for p in pipe._producers)
+        assert len(rings) == 3 and rings <= _shared_maps()
+        assert all(p.ring.free.get_value() == p.ring.slots == 2 for p in pipe._producers)
     finally:
         stream.close()
         pipe.close()
     _same_batches(want, got)
 
 
+def _shared_maps() -> set:
+    """``(start, bytes)`` of this process's anonymous shared mappings."""
+    with open("/proc/self/maps") as maps:
+        spans = [line.split()[0].split("-") for line in maps
+                 if line.rstrip().endswith("/dev/zero (deleted)")]
+    return {(int(a, 16), int(b, 16) - int(a, 16)) for a, b in spans}
+
+
+def _spans(rings) -> set:
+    """``(start, bytes)`` of each ring's mapping, while it is mapped."""
+    return {(r._buf.ctypes.data, r.slots * r.slot_bytes) for r in rings}
+
+
 def test_close_leaves_no_producer_alive(port_system):
+    """``close()`` stops every producer and unmaps every ring."""
     pipe = _pipe(port_system, 2, (0, 1, 2))
     stream = pipe.host_batches(1)
     next(stream)
     procs = [p.proc for p in pipe._producers]
+    rings = [p.ring for p in pipe._producers]
+    spans = _spans(rings)
     assert len(procs) == 3 and all(p.is_alive() for p in procs)
+    assert len(spans) == 3 and spans <= _shared_maps()
     pipe.close()
     assert not any(p.is_alive() for p in procs) and not pipe._producers
+    assert all(r._map.closed for r in rings) and not spans & _shared_maps()
     stream.close()  # the abandoned run finds nothing left to drain
     pipe.close()  # idempotent
+    assert not mp.active_children()
+
+
+@pytest.mark.parametrize("w", [1, 2, 3])
+@pytest.mark.parametrize("consumer", ["host_batches", "batches"])
+def test_no_yielded_batch_changes_while_the_rings_wrap(port_system, w, consumer):
+    """Every batch of a two-epoch run held to its end, while each
+    producer's two slots are written over and over (18 batches): the held
+    batches are the serial stream's, bit for bit. ``batches`` to the CPU
+    is the same stream as tensors."""
+    want = _run(_pipe(port_system, 0), 2)
+    pipe = _pipe(port_system, 2, tuple(range(w)))
+    try:
+        got = list(getattr(pipe, consumer)(2))
+        assert len(got) == 18 and all(p.ring.slots == 2 for p in pipe._producers)
+    finally:
+        pipe.close()
+    _same_batches(want, got)
+
+
+def _filled(batch: GNNBatch, rng) -> GNNBatch:
+    """``batch`` with every array made real and filled at random."""
+    def fill(a):
+        return (rng.random(a.shape) < 0.5 if a.dtype == bool
+                else rng.integers(-9, 9, a.shape).astype(a.dtype))
+
+    return GNNBatch(**{name: [fill(a) for a in v] if isinstance(v, list) else fill(v)
+                       for name, v in vars(batch).items()})
+
+
+def test_a_batch_at_the_slot_bound_fits_and_one_beyond_raises(port_system):
+    """The largest batch the pipeline can make fits a slot and reads back
+    bit for bit; a batch one vertex quantum larger raises before a byte
+    is written. Every real batch has the bound's fields, dtypes and
+    ranks, and no array larger than the bound's."""
+    pipe = _pipe(port_system, 0)
+    g = port_system.graph
+    bound = largest_batch(g.vertex_feats.shape[0], g.vertex_feats.shape[1], 64, (5, 3), LAYERS,
+                          pipe.vertex_quantum, pipe.edge_quantum)
+    for _, real in _run(pipe, 1):
+        for name, b in vars(bound).items():
+            r = getattr(real, name)
+            for x, y in zip(r if isinstance(r, list) else [r], b if isinstance(b, list) else [b]):
+                assert x.dtype == y.dtype and x.ndim == y.ndim, name
+                assert all(i <= j for i, j in zip(x.shape, y.shape)), name
+    rng = np.random.default_rng(0)
+    big = _filled(bound, rng)
+    slot = np.zeros(pipe.slot_bytes, np.uint8)
+    plan, used = write_batch(slot, big)
+    assert pipe.slot_bytes - mmap.PAGESIZE < used <= pipe.slot_bytes
+    _same_batches([(None, big)], [(None, _views(slot, plan))])
+    over = largest_batch(g.vertex_feats.shape[0] + pipe.vertex_quantum, g.vertex_feats.shape[1],
+                         64, (5, 3), LAYERS, pipe.vertex_quantum, pipe.edge_quantum)
+    assert over.feats.shape[0] == bound.feats.shape[0] + pipe.vertex_quantum
+    fresh = np.zeros(pipe.slot_bytes, np.uint8)
+    with pytest.raises(ValueError, match="does not fit a slot"):
+        write_batch(fresh, _filled(over, rng))
+    assert not fresh.any()
+
+
+class _SmallSlots(torch_api.BatchPipeline):
+    slot_bytes = mmap.PAGESIZE
+
+
+def test_a_batch_larger_than_its_slot_raises_in_the_run(port_system):
+    """A producer whose batch does not fit its slot fails the run with the
+    reason; nothing falls back to another way of sending it."""
+    pipe = _pipe(port_system, 2, (0, 1), cls=_SmallSlots)
+    with pytest.raises(RuntimeError, match=f"does not fit a slot of {mmap.PAGESIZE} bytes"):
+        _run(pipe, 1)
+    assert not pipe._producers
 
 
 @pytest.mark.parametrize("affinity,cores,workers,prefetch,want", [
