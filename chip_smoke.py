@@ -31,7 +31,13 @@ three at full width:
   20 SAGE steps and 10 GAT steps (batch 256, prefetch 2, AdamW lr 1e-3,
   weight decay 1e-4), then the first batch's loss and every gradient
   with kernels vs plain versions, and determinism: two 6-step runs, and a
-  run checkpointed at step 3 and resumed to 6, must end with the same bits;
+  run checkpointed at step 3 and resumed to 6, must end with the same bits.
+  The forked producers ship their batches and the consumer finishes each
+  on the card (``batching.complete_batch``): exactly one ``table_rows``,
+  one ``sorted_counts`` a layer and two sorts a layer per batch delivered;
+  the first shipped batch finished again on the card must have the bits
+  of numpy's ``finish_batch`` moved with ``.to``, field by field, and each
+  finishing wrapper those of its plain version at that batch's shapes;
 * sample-wise inference: ``repro_torch.core.inference.samplewise_inference``
   (the paper's baseline: each target's 3-hop subgraph through the whole
   model) for SAGE and GAT over 2,048 seeded targets, batch 256, with the
@@ -132,7 +138,8 @@ from ``SyntheticTokenStream`` seeded with 0). Launch counters are
 zeroed just before each path and read just after; each path must launch
 exactly the kernels it implies (per training step: SAGE 3 gathers + 2
 gather backwards; GAT 3 softmax aggregates + 3 backwards + 6 row-gather
-backwards).
+backwards; per batch finished: 1 ``table_rows``, 3 ``sorted_counts``, 6
+sorts of 3 kernels a pass).
 
 Prints the ``-Xptxas -v`` build report, every comparison with its maximum
 error, wall times, the dense forms at the small shapes beside the old scan
@@ -898,6 +905,92 @@ def time_segment_max(args, launches: int, hw: dict) -> dict:
     }
 
 
+def time_table_rows(args, launches: int, hw: dict) -> dict:
+    """``table_rows`` at the first training batch's ids, from a page-locked
+    copy of the matrix (``HostTable``) that the card reads in place. Bound
+    (``table_rows``, ``host_table``): the valid rows over PCIe; the ids and
+    the padded table written in device memory. The ids rotate over the
+    batch's and ``COPIES - 1`` sets of as many random rows, so a call finds
+    few of its rows in L2. Library yardstick: ``index_select`` on the host
+    and a copy to the card, what a producer and the consumer did before."""
+    from repro_torch.kernels import batch_finish
+    from repro_torch.kernels.ref import table_rows_ref
+
+    feats, ids = args
+    v, f = ids.shape[0], feats.shape[1]
+    valid = int((ids >= 0).sum())
+    rng = np.random.default_rng(3)
+    sets = [ids]
+    for _ in range(COPIES - 1):
+        other = torch.full_like(ids, -1)
+        other[:valid] = torch.as_tensor(np.sort(rng.choice(feats.shape[0], valid, replace=False)),
+                                        device=ids.device)
+        sets.append(other)
+    table = batch_finish.HostTable(feats)
+    try:
+        got = batch_finish.table_rows(table.tensor, ids)
+        err = check_bitwise(f"table_rows on the path's batch V={v} F={f}", got.cpu(),
+                            table_rows_ref(table.tensor, ids.cpu()))
+        turn = itertools.cycle(sets)
+        out = torch.empty_like(got)
+        host_ids = ids[:valid].cpu()
+        ms = graph_ms(lambda: batch_finish.table_rows(table.tensor, next(turn)))
+        row = {
+            "name": "table_rows",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/batch_finish.cu",
+            "replaces": "src/repro_torch/models/gnn/batching.py::finish_batch (numpy gather)",
+            "launches": launches,
+            "max_abs_err": err,
+            "ms": ms,
+            "kernel_ms": graph_ms(lambda: batch_finish.launch_table_rows(table.tensor,
+                                                                        next(turn), out)),
+            "eager_ms": time_ms(lambda: batch_finish.table_rows(table.tensor, next(turn))),
+            "plain_ms": time_ms(lambda: table_rows_ref(table.tensor, host_ids)),
+            **bound_fields(hw, "table_rows",
+                           {"rows": v, "dim": f, "rows_read": valid, "host_table": True}, ms),
+            "library_ms": time_ms(lambda: torch.index_select(table.tensor, 0, host_ids).to(
+                "cuda", non_blocking=True)),
+            "shape": {"V": v, "valid_rows": valid, "F": f, "table_rows": feats.shape[0]},
+        }
+    finally:
+        torch.cuda.synchronize()
+        table.close()
+    return row
+
+
+def time_sorted_counts(args, launches: int, hw: dict) -> dict:
+    """``sorted_counts`` at the largest layer of a training batch's sorted
+    keys. Bound (``sorted_counts``): the keys read once and a count a row
+    written. Library yardstick: ``torch.bincount`` of the valid keys."""
+    from repro_torch.kernels import batch_finish
+    from repro_torch.kernels.ref import sorted_counts_ref
+
+    keys, n = args
+    e = keys.shape[0]
+    got = batch_finish.sorted_counts(keys, n)
+    err = check_bitwise(f"sorted_counts on the path's keys E={e} n={n}", got,
+                        sorted_counts_ref(keys, n))
+    ms = graph_ms(rotating(batch_finish.sorted_counts, keys, n))
+    return {
+        "name": "sorted_counts",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/batch_finish.cu",
+        "replaces": "src/repro_torch/models/gnn/batching.py::finish_batch (np.bincount)",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "kernel_ms": graph_ms(rotating(batch_finish.launch_sorted_counts, keys,
+                                       torch.empty_like(got))),
+        "eager_ms": time_ms(rotating(batch_finish.sorted_counts, keys, n)),
+        "plain_ms": time_ms(rotating(sorted_counts_ref, keys, n)),
+        **bound_fields(hw, "sorted_counts", {"edges": e, "segments": n}, ms),
+        "library_ms": time_ms(rotating(lambda k: torch.bincount(k[k < n].long(), minlength=n),
+                                       keys)),
+        "shape": {"E": e, "valid_edges": int((keys < n).sum()), "n": n},
+    }
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: the serving path at full width
 # ---------------------------------------------------------------------------
@@ -1623,11 +1716,93 @@ def keep_largest(captured: dict, name: str, call: LargestCall) -> None:
         captured[name] = call.args
 
 
-def train_model(system, kind: str, train_ids, launches: dict, captured: dict) -> dict:
+class ShippedBatches:
+    """Wraps ``complete_batch`` where the batch pipeline calls it: keeps
+    the first shipped batch (its tensors on the card, before it is
+    finished) and the padded rows of every batch it finishes."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.first = None
+        self.vpads: list = []
+
+    def __call__(self, batch, table):
+        if self.first is None:
+            self.first = batch
+        self.vpads.append(batch.valid.shape[0])
+        return self.fn(batch, table)
+
+
+def host_batch(batch):
+    """A batch of card tensors as numpy arrays."""
+    from repro_torch.models.gnn.batching import GNNBatch
+
+    return GNNBatch(**{name: [t.cpu().numpy() for t in v] if isinstance(v, list)
+                       else None if v is None else v.cpu().numpy()
+                       for name, v in vars(batch).items()})
+
+
+def check_finished_batch(kind: str, shipped: ShippedBatches, feats: np.ndarray,
+                         finished: dict) -> dict:
+    """The run's first shipped batch finished again on the card, from a
+    fresh page-locked copy of the matrix, against numpy's ``finish_batch``
+    of it moved with ``.to``: every field bit for bit; then each finishing
+    wrapper against its plain version at that batch's shapes. Keeps the
+    ids and the largest layer's sorted keys for the kernel times."""
+    from repro_torch.kernels import batch_finish
+    from repro_torch.kernels.ref import sorted_counts_ref, table_rows_ref
+    from repro_torch.models.gnn.batching import complete_batch, finish_batch
+
+    first = shipped.first
+    want = finish_batch(host_batch(first), feats).to("cuda")
+    table = batch_finish.HostTable(feats)
+    try:
+        got = complete_batch(first, table.tensor)
+        torch.cuda.synchronize()
+        for name, va in vars(want).items():
+            vb = getattr(got, name)
+            for k, (x, y) in enumerate(zip(va if isinstance(va, list) else [va],
+                                           vb if isinstance(vb, list) else [vb])):
+                if (x is None) != (y is None):
+                    fail(f"{kind} finished batch: {name}[{k}] is None on one side only")
+                if x is not None:
+                    check_bitwise(f"{kind} first shipped batch finished on the card: "
+                                  f"{name}[{k}] {tuple(x.shape)}", y, x)
+        ids, vpad = first.vertex_ids, first.valid.shape[0]
+        check_bitwise(f"table_rows V={vpad} F={feats.shape[1]} from the pinned matrix",
+                      batch_finish.table_rows(table.tensor, ids).cpu(),
+                      table_rows_ref(table.tensor, ids.cpu()))
+        largest = None
+        for k, (d_pos, s_pos) in enumerate(zip(first.layer_dst, first.layer_src)):
+            card = batch_finish.sort_edges(d_pos, vpad, s_pos)
+            plain = batch_finish.sort_edges(d_pos.cpu(), vpad, s_pos.cpu())
+            for what, a, b in zip(("keys", "perm", "gathered src"), card, plain):
+                check_bitwise(f"sort_edges layer {k} E={d_pos.shape[0]} n={vpad}: {what}",
+                              a.cpu(), b)
+            check_bitwise(f"sorted_counts layer {k} E={d_pos.shape[0]} n={vpad}",
+                          batch_finish.sorted_counts(card[0], vpad).cpu(),
+                          sorted_counts_ref(card[0].cpu(), vpad))
+            if largest is None or card[0].shape[0] > largest[0].shape[0]:
+                largest = (card[0], vpad)
+    finally:
+        torch.cuda.synchronize()
+        table.close()
+    finished["table_rows"] = (feats, ids)
+    if "sorted_counts" not in finished or \
+            largest[0].shape[0] > finished["sorted_counts"][0].shape[0]:
+        finished["sorted_counts"] = largest
+    return {"padded_rows": vpad, "valid_rows": int((ids >= 0).sum()),
+            "edges": [int(d.shape[0]) for d in first.layer_dst]}
+
+
+def train_model(system, kind: str, train_ids, launches: dict, captured: dict,
+                finished: dict) -> dict:
     """``system.trainer(model, train_ids).train(max_steps=...)`` with the
-    config's prefetch; checks the launches and the losses, then holds the
-    first batch against the plain versions."""
-    from repro_torch.kernels import fused_gnn
+    config's prefetch; checks the launches (the model's and the finishing
+    kernels') and the losses, then holds the first batch against the plain
+    versions and the first shipped batch's finish against numpy's."""
+    from repro_torch.api import pipeline as pipeline_mod
+    from repro_torch.kernels import batch_finish, fused_gnn
     from repro_torch.models.gnn import models
 
     steps = TRAIN_STEPS[kind]
@@ -1641,11 +1816,13 @@ def train_model(system, kind: str, train_ids, launches: dict, captured: dict) ->
         "gat_softmax_aggregate_backward": LargestCall(fused_gnn.gat_softmax_aggregate_backward,
                                                       lambda a: a[2].numel()),
     }
+    shipped = ShippedBatches(pipeline_mod.complete_batch)
     fused_gnn.reset_launches()
+    batch_finish.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
-        with rec.patched(), \
+        with rec.patched(), mock.patch.object(pipeline_mod, "complete_batch", shipped), \
                 mock.patch.object(models, "gnn_gather_aggregate", calls["gather_spmm_ragged"]), \
                 mock.patch.object(fused_gnn, "gather_spmm_ragged_backward",
                                   calls["gather_spmm_ragged_backward"]), \
@@ -1662,6 +1839,20 @@ def train_model(system, kind: str, train_ids, launches: dict, captured: dict) ->
         fail(f"{kind} training launched {got}, the path implies {want}")
     for name, n in got.items():
         launches[name] += n
+    # the trainer draws one batch past max_steps, which the pipeline also finishes
+    done = len(shipped.vpads)
+    if shipped.first is None or done != steps + 1:
+        fail(f"{kind} training finished {done} shipped batches on the card for {steps} steps")
+    layers = len(shipped.first.layer_dst)
+    finish_want = {"table_rows": done, "sorted_counts": layers * done,
+                   "segment_sort": sum(2 * layers * 3 * fused_gnn.sort_passes(v)
+                                       for v in shipped.vpads)}
+    finish_got = dict(batch_finish.LAUNCHES)
+    if finish_got != finish_want:
+        fail(f"{kind} training's batch finishing launched {finish_got}, "
+             f"the batches imply {finish_want}")
+    for name, n in finish_got.items():
+        finished["launches"][name] += n
     for name, call in calls.items():
         keep_largest(captured, name, call)
     losses = tlog.losses
@@ -1689,10 +1880,14 @@ def train_model(system, kind: str, train_ids, launches: dict, captured: dict) ->
             "padded_edges": int(b.layer_dst[0].shape[0]),
         },
         "launches": got,
+        "batches_finished": done,
+        "finish_launches": finish_got,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     log(f"  train {kind}: " + json.dumps(info))
     info["first_batch_max_grad_err"] = compare_first_batch(kind, b)
+    info["first_shipped_batch"] = check_finished_batch(
+        kind, shipped, trainer.pipeline.feature_source.feats, finished)
     return info
 
 
@@ -3704,7 +3899,9 @@ def main() -> int:
                                                         replace=False))
     log(f"phase: training, {len(train_ids)} training vertices, batch "
         f"{system.config.batch_size}, prefetch {system.config.prefetch}")
-    trained = {k: train_model(system, k, train_ids, launches, captured) for k in TRAIN_STEPS}
+    finished: dict = {"launches": {"table_rows": 0, "sorted_counts": 0, "segment_sort": 0}}
+    trained = {k: train_model(system, k, train_ids, launches, captured, finished)
+               for k in TRAIN_STEPS}
     log("phase: determinism (two runs, and a checkpoint-resume run)")
     det = {k: determinism(system, k, train_ids) for k in TRAIN_STEPS}
     log(f"phase: the training launcher, gcn-products and hgt-relnet, one epoch at scale "
@@ -3738,6 +3935,9 @@ def main() -> int:
         time_gat_backward(captured["gat_softmax_aggregate_backward"],
                           launches["gat_softmax_aggregate_backward"], hw),
         time_segment_max(seg_max_call, seg_max["launches"], hw),
+        time_table_rows(finished["table_rows"], finished["launches"]["table_rows"], hw),
+        time_sorted_counts(finished["sorted_counts"], finished["launches"]["sorted_counts"],
+                           hw),
         *time_dense_forms(dense_calls, dense["launches"], hw),
         time_flash(lm_captured["gemma-2b"], lm["gemma-2b"]["launches"]["flash_attention"], hw),
         time_flash(lm_captured["deepseek-v2-lite-16b"],

@@ -43,17 +43,33 @@ Two worker modes:
     owns a ring of ``max(2, prefetch // W)`` slots in an anonymous shared
     mapping made before its fork (not ``/dev/shm``, which containers often
     cap), each slot as large as the largest batch the pipeline can make
-    (:attr:`BatchPipeline.slot_bytes`, from :func:`largest_batch`). The
+    (:meth:`BatchPipeline.slot_bytes`, from :func:`largest_batch`). The
     producer waits for a free slot, writes the batch's arrays into it and
     sends only the seeds, the slot and each array's offset, shape and
     dtype through its queue; a batch larger than a slot raises there. The
     consumer copies the batch out once and frees the slot at once: into
-    fresh arrays in :meth:`host_batches`, into one of two reused pinned
-    buffers in :meth:`batches` to a CUDA device, which
-    :meth:`GNNBatch.to` then copies to the card without pinning again. No
-    yielded batch shares memory with a slot or with a later batch: a
-    pinned buffer is written again only after the event recorded behind
-    its last batch's copies to the card has passed.
+    fresh arrays in :meth:`host_batches` and :meth:`batches` to the CPU,
+    into one of two reused pinned buffers in :meth:`batches` to a CUDA
+    device, which :meth:`GNNBatch.to` then copies to the card without
+    pinning again. No yielded batch shares memory with a slot or with a
+    later batch: a pinned buffer is written again only after the event
+    recorded behind its last batch's copies to the card has passed.
+
+    What a producer writes. In :meth:`batches` over an in-memory feature
+    matrix (``ArrayFeatureSource``) the producer stops after relabelling
+    and writes the *shipped* batch (``subgraph_to_batch(...,
+    shipped=True)``: the edge lists and the table's global vertex ids, no
+    feature rows, counts or orders); the consumer moves it with
+    :meth:`GNNBatch.to` and finishes it there (``complete_batch``): on the
+    card by hand-written kernels that read the feature rows from a
+    page-locked copy of the matrix (``HostTable``: the matrix's size at
+    float32, made at the first such run and freed by :meth:`close`), on
+    the CPU by their plain versions over the matrix itself. A slot then
+    holds the largest shipped batch (4.7 MB at the benchmark's papers100M
+    size, against 84.4 MB for a whole one). :meth:`host_batches`, a feature
+    source backed by a store, thread mode, serial mode, and a CUDA device
+    where the copy would take more than ``PINNED_TABLE_SHARE`` of the
+    host's memory keep whole batches, made in the producer.
 ``thread`` — in-process double buffering via one daemon thread.
     Zero-copy hand-off, but overlap is limited to the consumer's
     GIL-released windows.
@@ -74,7 +90,8 @@ Spans (``repro_torch.tracing``): the producer makes each batch inside one
 ``batch.assemble``, and in process mode ``pipeline.put``, the wait for a
 free slot, then ``pipeline.write``, the copy into it); the consumer takes
 each inside one ``pipeline.next`` root (``pipeline.receive``: the message
-and the copy out of the slot; ``batch.to_device``). A forked worker's root
+and the copy out of the slot; ``batch.to_device``, and inside it
+``batch.complete`` for a shipped batch). A forked worker's root
 summaries ride to the consumer with the batches; ``sample_time`` sums
 every producer's roots less their waits for a slot.
 """
@@ -99,10 +116,16 @@ import torch
 
 from repro_torch import tracing
 from repro_torch.core.sampling.service import DEFAULT_DIRECTION, SamplingSpec
-from repro_torch.core.storage import as_feature_source
+from repro_torch.core.storage import ArrayFeatureSource, as_feature_source
 from repro_torch.data.graph_loader import SeedBatchLoader
 from repro_torch.device import resolve_device
-from repro_torch.models.gnn.batching import GNNBatch, largest_batch, subgraph_to_batch
+from repro_torch.kernels.batch_finish import HostTable
+from repro_torch.models.gnn.batching import (
+    GNNBatch,
+    complete_batch,
+    largest_batch,
+    subgraph_to_batch,
+)
 from repro_torch.utils import prefetch_iterator, round_up
 
 __all__ = ["BatchPipeline"]
@@ -125,6 +148,19 @@ _KEY_MASK = (1 << 64) - 1
 MAX_PRODUCERS = 5
 
 _ALIGN = 64  # bytes: where each of a slot's arrays may start
+
+# At most this share of the host's physical memory goes to the page-locked
+# copy of the feature matrix that a CUDA consumer finishes shipped batches
+# from (beside the matrix itself, which the producers read); past it the
+# producers gather rows and write whole batches. A quarter of the card
+# host's 96 GiB is 24 GiB: the benchmark's 77 MB matrix ships, papers100M's
+# whole 57 GB (111 M x 128 float32) would not.
+PINNED_TABLE_SHARE = 0.25
+
+
+def _fresh(used: int) -> np.ndarray:
+    """``used`` bytes of fresh host memory, for a batch copied out of a slot."""
+    return np.empty(used, np.uint8)
 
 
 def _held(value) -> tuple:
@@ -369,6 +405,7 @@ class BatchPipeline:
         self._producers: list = []  # _Producer, in process mode
         self._cancel = None  # mp.Event: stop the producers' current run early
         self._pinned = None  # _Pinned: a CUDA consumer's staging buffers
+        self._table = None  # HostTable: the matrix page-locked, that the card reads rows from
 
     # ------------------------------------------------------------------
     def _next_key(self) -> tuple:
@@ -399,8 +436,9 @@ class BatchPipeline:
         with tracing.span("sampling.wait"):
             return ticket.result(timeout=self.ticket_timeout)
 
-    def make_batch(self, seeds: np.ndarray) -> GNNBatch:
-        """One seed batch through sampling + padding (numpy, no prefetch)."""
+    def make_batch(self, seeds: np.ndarray, shipped: bool = False) -> GNNBatch:
+        """One seed batch through sampling + padding (numpy, no prefetch);
+        with ``shipped``, the shipped batch."""
         sub = self._take_sample(seeds)
         with tracing.span("batch.assemble"):
             return subgraph_to_batch(
@@ -411,6 +449,7 @@ class BatchPipeline:
                 edge_types=self.graph.edge_types,
                 vertex_quantum=self.vertex_quantum,
                 edge_quantum=self.edge_quantum,
+                shipped=shipped,
             )
 
     def _seed_stream(self, epochs: int):
@@ -434,7 +473,8 @@ class BatchPipeline:
             if self._submit is not None:
                 self._next_key()
 
-    def _produce_np(self, epochs: int, skip: int = 0, index: int = 0, count: int = 1):
+    def _produce_np(self, epochs: int, skip: int = 0, index: int = 0, count: int = 1,
+                    shipped: bool = False):
         """The serial producer: pure numpy, safe inside a forked worker.
         With ``inflight >= 2`` and a service backend it keeps a window of
         sample requests in flight ahead of the batch being padded.
@@ -485,7 +525,7 @@ class BatchPipeline:
                     seeds = next(stream, None)
                     if seeds is None:
                         return
-                yield seeds, self.make_batch(seeds)
+                yield seeds, self.make_batch(seeds, shipped)
         finally:
             self._drop_pending()
 
@@ -516,7 +556,7 @@ class BatchPipeline:
         if self.prefetch <= 0:
             return self._produce_roots(epochs)
         if self._forked:
-            return self._process_batches(epochs, lambda used: np.empty(used, np.uint8))
+            return self._process_batches(epochs, _fresh)
         # thread mode: prefetch_iterator stops and joins its producer when
         # the generator is closed/abandoned, so the shared loader/backend
         # state is never mutated concurrently with a later epoch
@@ -527,15 +567,24 @@ class BatchPipeline:
         device; sampling runs ahead of the consumer when ``prefetch >= 1``.
         The copies to the device are made here, in the consumer: from
         forked producers to a CUDA device, out of the slot into a reused
-        pinned buffer, and from there to the card."""
-        pinned = None
+        pinned buffer, and from there to the card. Forked producers over
+        an in-memory feature matrix ship their batches, which are finished
+        here on the device (``batch.complete``)."""
+        pinned, table, out = None, None, _fresh
+        ships = self._ships()
         if self._forked and self.device.type == "cuda":
             if self._pinned is None:
-                self._pinned = _Pinned(self.slot_bytes)
+                self._pinned = _Pinned(self.slot_bytes(ships))
             pinned = self._pinned
-            stream = self._process_batches(epochs, pinned.buffer)
-        else:
-            stream = self.host_batches(epochs)
+            out = pinned.buffer
+        if ships and self.device.type == "cuda":
+            if self._table is None:
+                self._table = HostTable(self.feature_source.feats)
+            table = self._table.tensor
+        elif ships:
+            table = torch.from_numpy(self.feature_source.feats)
+        stream = self._process_batches(epochs, out, ships) if self._forked else \
+            self.host_batches(epochs)
         try:
             while True:
                 with tracing.span("pipeline.next") as root:
@@ -547,11 +596,27 @@ class BatchPipeline:
                     seeds, batch = item
                     with tracing.span("batch.to_device"):
                         batch = batch.to(self.device)
+                        if ships:
+                            with tracing.span("batch.complete"):
+                                batch = complete_batch(batch, table)
                         if pinned is not None:
                             pinned.moved(self.device)
                 yield seeds, batch
         finally:
             stream.close()
+
+    def _ships(self) -> bool:
+        """Whether the producers of a :meth:`batches` run ship their batches:
+        forked, over an in-memory feature matrix, and to a CUDA device only
+        while its page-locked float32 copy takes at most
+        ``PINNED_TABLE_SHARE`` of the host's physical memory."""
+        source = self.feature_source
+        if not (self._forked and isinstance(source, ArrayFeatureSource)):
+            return False
+        if self.device.type != "cuda":
+            return True
+        host = os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+        return source.num_rows * source.dim * 4 <= PINNED_TABLE_SHARE * host
 
     def __iter__(self):
         return self.batches(1)
@@ -579,13 +644,13 @@ class BatchPipeline:
             usable = (os.cpu_count() or 1) - 1
         return max(1, min(usable, MAX_PRODUCERS))
 
-    @property
-    def slot_bytes(self) -> int:
-        """Bytes of one ring slot: the span of the largest batch this
-        pipeline can make (:func:`largest_batch`), in whole pages."""
+    def slot_bytes(self, shipped: bool = False) -> int:
+        """Bytes of one ring slot: the span of the largest batch, whole or
+        ``shipped``, that this pipeline can make (:func:`largest_batch`), in
+        whole pages."""
         biggest = largest_batch(self.feature_source.num_rows, self.feature_source.dim,
                                 self.loader.batch, self.fanouts, self.num_layers,
-                                self.vertex_quantum, self.edge_quantum)
+                                self.vertex_quantum, self.edge_quantum, shipped=shipped)
         return round_up(_plan(biggest)[1], mmap.PAGESIZE)
 
     def _worker_loop(self, index: int, count: int, ring: _Ring, cmd_q, data_q):
@@ -608,7 +673,8 @@ class BatchPipeline:
             try:
                 # a batch's root closes after its put, so its summary rides
                 # with the next message
-                items = self._produce_np(cmd[1], skip=cmd[2], index=index, count=count)
+                items = self._produce_np(cmd[1], skip=cmd[2], index=index, count=count,
+                                         shipped=cmd[3])
                 while True:
                     with tracing.span("pipeline.produce") as root:
                         item = next(items, None)
@@ -627,15 +693,15 @@ class BatchPipeline:
                     ("error", f"{type(exc).__name__}: {exc}\n{traceback.format_exc()}")
                 )
 
-    def _fork(self, index: int) -> None:
+    def _fork(self, index: int, slot_bytes: int) -> None:
         """Fork producer ``index`` from this process's state, with fresh
-        queues and a fresh ring of ``prefetch // W`` slots (two at least:
-        one filled while the consumer reads another); a producer holds at
-        most one more finished batch, waiting for a slot."""
+        queues and a fresh ring of ``prefetch // W`` slots of ``slot_bytes``
+        (two at least: one filled while the consumer reads another); a
+        producer holds at most one more finished batch, waiting for a slot."""
         ctx = mp.get_context("fork")
         count = len(self._producers)
         slots = max(2, self.prefetch // count)
-        ring = _Ring(ctx, slots, self.slot_bytes)
+        ring = _Ring(ctx, slots, slot_bytes)
         cmd_q = ctx.SimpleQueue()
         # the ring bounds the items queued; one more for the end of a run
         data_q = ctx.Queue(maxsize=slots + 1)
@@ -649,17 +715,19 @@ class BatchPipeline:
             proc.start()
         self._producers[index] = _Producer(proc, cmd_q, data_q, ring)
 
-    def _ensure_producers(self) -> None:
-        """Fork ``producers`` producers unless every one is alive."""
-        if self._producers and all(p.proc.is_alive() for p in self._producers):
+    def _ensure_producers(self, slot_bytes: int) -> None:
+        """Fork ``producers`` producers unless every one is alive with slots
+        of ``slot_bytes``, the size the run's batches need."""
+        if self._producers and all(p.proc.is_alive() and p.ring.slot_bytes == slot_bytes
+                                   for p in self._producers):
             return
-        self.close()
+        self._stop_producers()
         self._cancel = mp.get_context("fork").Event()
         self._producers = [None] * self.producers
         for index in range(len(self._producers)):
-            self._fork(index)
+            self._fork(index, slot_bytes)
 
-    def _read(self, index: int, epochs: int, delivered: int):
+    def _read(self, index: int, epochs: int, delivered: int, ships: bool):
         """The next message of producer ``index``. A dead producer is
         respawned (crash budget permitting) and resumes the run at the
         ``delivered``-th batch: the parent still holds the state the run
@@ -675,7 +743,7 @@ class BatchPipeline:
                     continue
             code = producer.proc.exitcode
             if self._respawns_left <= 0:
-                self.close()
+                self._stop_producers()
                 raise RuntimeError(
                     f"prefetch worker died (exit code {code}) without "
                     "reporting an error — likely killed (OOM?) or crashed "
@@ -698,8 +766,8 @@ class BatchPipeline:
                 delivered,
             )
             producer.ring.close()
-            self._fork(index)
-            self._producers[index].cmd_q.put(("produce", epochs, delivered))
+            self._fork(index, producer.ring.slot_bytes)
+            self._producers[index].cmd_q.put(("produce", epochs, delivered, ships))
 
     def _absorb(self, roots: list) -> None:
         """Keep a forked worker's root summaries; count its batches'."""
@@ -708,15 +776,16 @@ class BatchPipeline:
             if root.name == "pipeline.produce":
                 self._count(root)
 
-    def _process_batches(self, epochs: int, out):
+    def _process_batches(self, epochs: int, out, ships: bool = False):
         """Batch ``i`` of the run from producer ``i mod W``, copied out of
-        its slot into ``out(used)``, bytes the consumer owns. After the run
-        the parent moves its own state to where the run left the stream
-        (``_forward``), so later forks start from there."""
-        self._ensure_producers()
+        its slot into ``out(used)``, bytes the consumer owns; shipped
+        batches with ``ships``. After the run the parent moves its own state
+        to where the run left the stream (``_forward``), so later forks
+        start from there."""
+        self._ensure_producers(self.slot_bytes(ships))
         self._cancel.clear()
         for producer in self._producers:
-            producer.cmd_q.put(("produce", epochs, 0))
+            producer.cmd_q.put(("produce", epochs, 0, ships))
         count = len(self._producers)
         running = set(range(count))  # producers that have not ended the run
         delivered = 0
@@ -724,7 +793,7 @@ class BatchPipeline:
         try:
             while True:
                 index = delivered % count
-                kind, *rest = self._read(index, epochs, delivered)
+                kind, *rest = self._read(index, epochs, delivered, ships)
                 if kind != "item":
                     break
                 seeds, where, roots = rest
@@ -736,7 +805,7 @@ class BatchPipeline:
             # producer's share of it
             for other in [index] + sorted(running - {index}):
                 if other != index:
-                    kind, *rest = self._read(other, epochs, delivered)
+                    kind, *rest = self._read(other, epochs, delivered, ships)
                 running.discard(other)
                 if kind != "done":
                     raise RuntimeError(f"prefetch worker failed:\n{rest[0]}")
@@ -777,7 +846,7 @@ class BatchPipeline:
                 elif error is None:
                     error = rest[0]
                 break
-        self.close()
+        self._stop_producers()
         # a serial windowed producer has pulled inflight - 1 batches ahead
         windowed = self.inflight > 1 and self._submit is not None and delivered > 0
         self._forward(epochs, delivered + self.inflight - 1 if windowed else delivered)
@@ -785,7 +854,19 @@ class BatchPipeline:
             raise RuntimeError(f"prefetch worker failed:\n{error}")
 
     def close(self, timeout: float = 2.0) -> None:
-        """Stop every producer process (no-op for thread/serial modes).
+        """Stop every producer process (none in thread/serial modes), and
+        free the page-locked host memory of a CUDA consumer: the copy of
+        the feature matrix and the staging buffers, once the card has read
+        them. A later run makes them anew."""
+        self._stop_producers(timeout)
+        if self._table is not None or self._pinned is not None:
+            torch.cuda.synchronize(self.device)
+        if self._table is not None:
+            self._table.close()
+        self._table, self._pinned = None, None
+
+    def _stop_producers(self, timeout: float = 2.0) -> None:
+        """Stop every producer process and unmap its ring.
 
         Bounded: a graceful ``stop`` + join escalates to ``terminate()``
         (SIGTERM) and finally ``kill()`` (SIGKILL), each step within one

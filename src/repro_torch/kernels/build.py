@@ -52,6 +52,12 @@ SIGNATURES = {
         "segment_max_key_words": (_c,),
         "segment_max": (_p, _p, _c, _c, _c, _p, _p, _p),
     },
+    "batch_finish": {
+        "table_rows": (_p, _l, _c, _p, _c, _c, _p, _p),
+        "sorted_counts": (_p, _c, _c, _p, _p),
+        "host_register": (_p, _l),
+        "host_unregister": (_p,),
+    },
     "segment_sort": {
         "segment_sort_pass": (_p, _p, _c, _c, _c, _c, _c, _c, _p, _p, _l, _p, _p, _p, _p),
     },

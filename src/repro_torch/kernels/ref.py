@@ -32,6 +32,8 @@ __all__ = [
     "gather_spmm_ragged_backward_ref",
     "segment_max_ref",
     "segment_sort_ref",
+    "table_rows_ref",
+    "sorted_counts_ref",
     "gat_softmax_aggregate_ref",
     "gat_softmax_aggregate_backward_ref",
     "attention_ref",
@@ -188,6 +190,25 @@ def segment_sort_ref(seg: torch.Tensor, num_segments: int) -> torch.Tensor:
     (``torch.sort``; never on the card's path)."""
     key = seg.long().masked_fill(~_valid(seg, num_segments), num_segments)
     return torch.sort(key, stable=True).indices.to(torch.int32)
+
+
+def table_rows_ref(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """float32 [len(ids), F]: row ``ids[r]`` of ``table`` [N, F], a zero row
+    where ``ids[r]`` is padding (< 0) or >= N. The plain version of
+    ``csrc/batch_finish.cu``'s ``table_rows_kernel``."""
+    out = torch.zeros((ids.shape[0], table.shape[1]), dtype=torch.float32)
+    keep = _valid(ids, table.shape[0])
+    out[keep] = table[ids[keep].long()].to(torch.float32)
+    return out
+
+
+def sorted_counts_ref(keys: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """float32 [num_rows, 1]: how many of ``keys`` equal each row in [0,
+    num_rows), keys out of that range (the padding) counting for none. The
+    plain version of ``csrc/batch_finish.cu``'s ``sorted_counts_kernel``,
+    which reads the counts off sorted keys."""
+    keep = keys[_valid(keys, num_rows)].long()
+    return torch.bincount(keep, minlength=num_rows).to(torch.float32)[:, None]
 
 
 def gat_softmax_aggregate_ref(

@@ -55,6 +55,7 @@ __all__ = [
     "hardware",
     "kernel_flops",
     "kernel_hbm_bytes",
+    "kernel_host_bytes",
     "kernel_roofline",
     "roofline",
 ]
@@ -63,7 +64,8 @@ __all__ = [
 # card at its 700 W limit; a card set below it runs slower under load, so a
 # share against these peaks is stated beside the card's power limit. The
 # interconnect figures are published ones too, not measured: NVLink 4 within
-# a node of 8 cards, one 400 Gb/s NDR InfiniBand port per card between nodes.
+# a node of 8 cards, one 400 Gb/s NDR InfiniBand port per card between nodes,
+# PCIe Gen5 x16 between the card and its host.
 HW = {
     "NVIDIA H100 80GB HBM3": {
         "peak_flops_bf16": 989e12,  # bf16 dense on the tensor cores
@@ -72,6 +74,7 @@ HW = {
         "nvlink_bw": 450e9,  # bytes/s per direction, NVLink 4
         "nvlink_ranks": 8,  # cards of one node, joined by NVLink
         "ib_bw": 50e9,  # bytes/s, one 400 Gb/s NDR port per card
+        "pcie_bw": 64e9,  # bytes/s per direction, PCIe Gen5 x16 to the host
     },
 }
 
@@ -467,6 +470,11 @@ def mesh_roofline(cfg: ArchConfig, shape: str | dict, mesh_shape: dict, num_chip
 # ``seq_q``, ``heads``, ``dim``, and optionally ``seq_kv`` (seq_q),
 # ``kv_heads`` (heads), ``dim_v`` (dim), ``causal`` (True), ``window`` (0),
 # ``kv_offset`` (0), ``o_bytes`` (the backward's saved output, dtype_bytes).
+# Finishing a batch: ``rows`` V (the padded table's), ``dim`` F,
+# ``rows_read`` R (its valid rows, default V), ``host_table`` (True: the
+# rows cross the host link, PCIe, rather than device memory); ``edges`` E
+# and ``segments`` N for the counts. A formula gives (flops, device-memory
+# bytes) or (flops, device-memory bytes, host-link bytes).
 # SSD: ``batch``, ``seq``, ``heads``, ``head_dim`` P, ``groups`` G,
 # ``state_dim`` N, and optionally ``init_state`` and ``final_state_grad``
 # (False). Every op: ``dtype_bytes`` b (default 4). Ids are int32; the GAT
@@ -531,6 +539,20 @@ def _segment_max(shape: dict) -> tuple[float, float]:
 def _segment_sort(shape: dict) -> tuple[float, float]:
     """Reads the ids; writes the permutation."""
     return 0.0, 8 * shape["edges"]
+
+
+def _table_rows(shape: dict) -> tuple[float, float, float]:
+    """Reads the valid rows, from the host over PCIe with ``host_table``,
+    and the int64 ids; writes the padded table (its padding rows zero)."""
+    v, f = shape["rows"], shape["dim"]
+    rows = shape.get("rows_read", v) * f * 4
+    host = rows if shape.get("host_table", False) else 0
+    return 0.0, v * 8 + v * f * 4 + rows - host, host
+
+
+def _sorted_counts(shape: dict) -> tuple[float, float]:
+    """Reads the sorted int32 keys once; writes one float32 count a row."""
+    return 0.0, 4 * shape["edges"] + 4 * shape["segments"]
 
 
 def _attn(shape: dict) -> tuple:
@@ -601,6 +623,8 @@ KERNEL_OPS = {
     "segment_max": _segment_max,
     "unfused_gather_spmm": _unfused_gather_sum,  # gather -> segment sum, for comparison
     "segment_sort": _segment_sort,
+    "table_rows": _table_rows,
+    "sorted_counts": _sorted_counts,
     "flash_attention": _flash,
     "flash_attention_backward": _flash_backward,
     "ssd_scan": _ssd_scan,
@@ -622,6 +646,12 @@ def kernel_hbm_bytes(op: str, shape: dict) -> float:
     return _formula(op)(shape)[1]
 
 
+def kernel_host_bytes(op: str, shape: dict) -> float:
+    """Bytes the op moves over the host link (PCIe); 0 for most."""
+    got = _formula(op)(shape)
+    return got[2] if len(got) > 2 else 0.0
+
+
 _PEAK = {"f32": "peak_flops_f32", "float32": "peak_flops_f32",
          "bf16": "peak_flops_bf16", "bfloat16": "peak_flops_bf16"}
 
@@ -630,14 +660,21 @@ def kernel_roofline(op: str, shape: dict, wall_s: float, dtype: str, hw: dict) -
     """Achieved against peak for one measured kernel time on the card
     ``hw``. ``dtype`` names the type of the operations, and so the peak:
     float32 (the GNN kernels add in float32 whatever they read) outside the
-    tensor cores, bf16 on them. ``bound_s`` is the least time the card
-    could take; ``frac_of_bound`` is it over ``wall_s``."""
+    tensor cores, bf16 on them. An op that reads over the host link
+    (:func:`kernel_host_bytes`) takes at least those bytes over
+    ``pcie_bw``. ``bound_s`` is the least time the card could take;
+    ``frac_of_bound`` is it over ``wall_s``."""
     if dtype not in _PEAK:
         raise ValueError(f"no peak for dtype {dtype!r}; known: {sorted(_PEAK)}")
-    fl, by = _formula(op)(shape)
+    fl, by = _formula(op)(shape)[:2]
+    host = kernel_host_bytes(op, shape)
     peak = hw[_PEAK[dtype]]
     compute_s = fl / peak
     memory_s = by / hw["hbm_bw"]
+    if host:
+        # bytes over the host link move beside the device-memory bytes: the
+        # slower of the two bounds the memory side
+        memory_s = max(memory_s, host / hw["pcie_bw"])
     bound_s = max(compute_s, memory_s)
     achieved_flops = fl / wall_s if wall_s > 0 else 0.0
     achieved_bw = by / wall_s if wall_s > 0 else 0.0

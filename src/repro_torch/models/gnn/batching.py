@@ -16,15 +16,30 @@ numpy:
 
 Summing in CSR order changes the float sum order against the JAX oracle,
 which sums in edge order: results agree at float tolerance, not bitwise.
+
+A batch is made in two steps. :func:`subgraph_to_batch` with
+``shipped=True`` stops after relabelling: the *shipped* batch holds
+``valid``, ``seed_pos``, ``labels``, the padded edge lists and
+``vertex_ids`` (the table's global vertex ids, -1 padding), and leaves
+``feats``, ``layer_cnt`` and both orders None. :func:`finish_batch` fills
+those in with numpy; :func:`complete_batch` fills them in on the device
+the shipped batch was moved to, through ``kernels/batch_finish.py``: on
+the card with hand-written kernels (the feature rows, read from a pinned
+host table, and the counts; the orders by the radix sort of
+``csrc/segment_sort.cu``), on the CPU with their plain versions. Either
+way the result is the whole batch ``subgraph_to_batch`` gives, bit for
+bit, with ``vertex_ids`` None.
+
 :meth:`GNNBatch.to` moves a batch to a device with pinned, non-blocking
 copies; an array already in pinned memory (the batch pipeline's staging
 buffers) is copied from where it lies, without pinning it again.
-:func:`largest_batch` gives the shapes of the largest batch a sampling
-plan can make, which sizes the pipeline's shared-memory slots.
+:func:`largest_batch` gives the shapes of the largest batch, whole or
+shipped, that a sampling plan can make, which sizes the pipeline's
+shared-memory slots.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
@@ -32,14 +47,18 @@ import torch
 from repro_torch import tracing
 from repro_torch.core.sampling.service import SampledSubgraph
 from repro_torch.core.storage import as_feature_source
+from repro_torch.kernels import batch_finish
 from repro_torch.utils import round_up
 
-__all__ = ["GNNBatch", "largest_batch", "subgraph_to_batch", "sorted_order"]
+__all__ = [
+    "GNNBatch", "largest_batch", "subgraph_to_batch", "finish_batch", "complete_batch",
+    "sorted_order",
+]
 
 
 @dataclass
 class GNNBatch:
-    feats: np.ndarray  # [V, F] float32, padded
+    feats: np.ndarray | None  # [V, F] float32, padded; None in a shipped batch
     valid: np.ndarray  # [V] bool
     seed_pos: np.ndarray  # [B] int32 position of seeds in the table
     labels: np.ndarray  # [B] int32
@@ -53,10 +72,13 @@ class GNNBatch:
     # per layer k: int32 [Ek] permutations (see the module docstring)
     layer_dst_order: list | None = None
     layer_src_order: list | None = None
+    # [V] int64 global vertex id of each table row, -1 padding: set in a
+    # shipped batch only, whose feature rows are gathered when it is finished
+    vertex_ids: np.ndarray | None = None
 
     @property
     def num_vertices(self) -> int:
-        return self.feats.shape[0]
+        return self.valid.shape[0]
 
     def to(self, device) -> "GNNBatch":
         """This batch with every array as a tensor on ``device``. Host
@@ -100,13 +122,15 @@ def largest_batch(
     num_layers: int,
     vertex_quantum: int = 256,
     edge_quantum: int = 1024,
+    shipped: bool = False,
 ) -> GNNBatch:
     """A batch of the largest shapes :func:`subgraph_to_batch` can give for
     ``batch_size`` seeds sampled with ``fanouts`` on a graph of
-    ``num_vertices``, as zero-stride arrays that hold no memory. A hop's
-    frontier is at most the graph and the seeds times the fanouts before
-    it; each frontier vertex brings at most its hop's fanout in edges; the
-    table holds at most the seeds and every edge's far end."""
+    ``num_vertices`` (with ``shipped``, the shipped batch's), as zero-stride
+    arrays that hold no memory. A hop's frontier is at most the graph and
+    the seeds times the fanouts before it; each frontier vertex brings at
+    most its hop's fanout in edges; the table holds at most the seeds and
+    every edge's far end."""
     frontier, edges = batch_size, []
     for f in fanouts:
         edges.append(frontier * f)
@@ -120,14 +144,20 @@ def largest_batch(
     def per_layer(dtype):
         return [empty((e,), dtype) for e in epads]
 
-    return GNNBatch(
-        feats=empty((vpad, feat_dim), np.float32),
+    batch = GNNBatch(
+        feats=None,
         valid=empty((vpad,), bool),
         seed_pos=empty((batch_size,), np.int32),
         labels=empty((batch_size,), np.int32),
         layer_dst=per_layer(np.int32),
         layer_src=per_layer(np.int32),
         layer_etype=per_layer(np.int32),
+    )
+    if shipped:
+        return replace(batch, vertex_ids=empty((vpad,), np.int64))
+    return replace(
+        batch,
+        feats=empty((vpad, feat_dim), np.float32),
         layer_cnt=[empty((vpad, 1), np.float32) for _ in epads],
         layer_dst_order=per_layer(np.int32),
         layer_src_order=per_layer(np.int32),
@@ -143,13 +173,15 @@ def subgraph_to_batch(
     edge_types: np.ndarray | None = None,  # global per-edge type table
     vertex_quantum: int = 256,
     edge_quantum: int = 1024,
+    shipped: bool = False,
 ) -> GNNBatch:
-    src = as_feature_source(feats)
+    """The padded batch of ``sub``; with ``shipped``, the shipped batch
+    (relabelled, ``feats`` not read), which :func:`finish_batch` or
+    :func:`complete_batch` turns into the same whole batch."""
     verts = sub.all_vertices()  # unique sorted gids
     vpad = _bucket(verts.shape[0], vertex_quantum)
-    table = np.zeros((vpad, src.dim), dtype=np.float32)
-    with tracing.span("batch.features"):
-        table[: verts.shape[0]] = src.gather(verts)
+    vertex_ids = np.full(vpad, -1, dtype=np.int64)
+    vertex_ids[: verts.shape[0]] = verts
     valid = np.zeros(vpad, dtype=bool)
     valid[: verts.shape[0]] = True
 
@@ -161,8 +193,7 @@ def subgraph_to_batch(
     )
 
     K = num_layers
-    layer_dst, layer_src, layer_et, layer_cnt = [], [], [], []
-    dst_orders, src_orders = [], []
+    layer_dst, layer_src, layer_et = [], [], []
     for k in range(K):
         hops = sub.hops[: K - k]
         src = np.concatenate([h.src for h in hops]) if hops else np.zeros(0, np.int64)
@@ -187,6 +218,32 @@ def subgraph_to_batch(
         layer_dst.append(d_pos)
         layer_src.append(s_pos)
         layer_et.append(et)
+    batch = GNNBatch(
+        feats=None,
+        valid=valid,
+        seed_pos=seed_pos,
+        labels=lab,
+        layer_dst=layer_dst,
+        layer_src=layer_src,
+        layer_etype=layer_et,
+        vertex_ids=vertex_ids,
+    )
+    return batch if shipped else finish_batch(batch, feats)
+
+
+def finish_batch(batch: GNNBatch, feats) -> GNNBatch:
+    """The whole batch of a shipped numpy ``batch``, with numpy: the
+    feature table gathered from ``feats`` (an ndarray or a
+    ``FeatureSource``) with zero padding rows, and per layer the counts
+    and the two orders."""
+    src = as_feature_source(feats)
+    vpad = batch.valid.shape[0]
+    n = int(np.count_nonzero(batch.valid))  # the real rows lead the table
+    table = np.zeros((vpad, src.dim), dtype=np.float32)
+    with tracing.span("batch.features"):
+        table[:n] = src.gather(batch.vertex_ids[:n])
+    layer_cnt, dst_orders, src_orders = [], [], []
+    for d_pos, s_pos in zip(batch.layer_dst, batch.layer_src):
         layer_cnt.append(
             np.bincount(d_pos[d_pos >= 0], minlength=vpad)
             .astype(np.float32)
@@ -195,15 +252,26 @@ def subgraph_to_batch(
         by_dst = sorted_order(d_pos)
         dst_orders.append(by_dst)
         src_orders.append(sorted_order(s_pos[by_dst]))
-    return GNNBatch(
-        feats=table,
-        valid=valid,
-        seed_pos=seed_pos,
-        labels=lab,
-        layer_dst=layer_dst,
-        layer_src=layer_src,
-        layer_etype=layer_et,
-        layer_cnt=layer_cnt,
-        layer_dst_order=dst_orders,
-        layer_src_order=src_orders,
-    )
+    return replace(batch, feats=table, layer_cnt=layer_cnt, layer_dst_order=dst_orders,
+                   layer_src_order=src_orders, vertex_ids=None)
+
+
+def complete_batch(batch: GNNBatch, table: torch.Tensor) -> GNNBatch:
+    """The whole batch of a shipped ``batch`` of tensors, on their device:
+    what :func:`finish_batch` computes, through ``kernels/batch_finish.py``.
+    One kernel gathers the rows of ``table`` (the feature matrix; on the
+    card a float32 tensor in pinned host memory, read in place, or on the
+    card) with zero padding rows; per layer one radix sort by ``dst_pos``
+    that also gathers ``src_pos`` in that order, a second sort of those,
+    and one kernel that reads each row's count off the sorted keys. On CPU
+    tensors the wrappers' plain versions run it."""
+    vpad = batch.valid.shape[0]
+    layer_cnt, dst_orders, src_orders = [], [], []
+    for d_pos, s_pos in zip(batch.layer_dst, batch.layer_src):
+        keys, by_dst, s_by_dst = batch_finish.sort_edges(d_pos, vpad, s_pos)
+        dst_orders.append(by_dst)
+        src_orders.append(batch_finish.sort_edges(s_by_dst, vpad)[1])
+        layer_cnt.append(batch_finish.sorted_counts(keys, vpad))
+    feats = batch_finish.table_rows(table, batch.vertex_ids)
+    return replace(batch, feats=feats, layer_cnt=layer_cnt, layer_dst_order=dst_orders,
+                   layer_src_order=src_orders, vertex_ids=None)

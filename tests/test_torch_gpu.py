@@ -1598,6 +1598,9 @@ def test_a_batch_moves_the_same_bits_from_pinned_and_pageable_memory(cuda, monke
     for name, va in vars(a).items():
         vb = getattr(b, name)
         for x, y in zip(va if isinstance(va, list) else [va], vb if isinstance(vb, list) else [vb]):
+            if x is None:  # vertex_ids: a whole batch has none
+                assert y is None, name
+                continue
             assert x.device.type == "cuda" and torch.equal(x, y), name
 
 
@@ -1628,4 +1631,221 @@ def test_forked_producers_to_the_card_give_the_serial_stream(cuda):
             vb = getattr(bb, name)
             for x, y in zip(va if isinstance(va, list) else [va],
                             vb if isinstance(vb, list) else [vb]):
+                if x is None:  # vertex_ids: a finished batch has none
+                    assert y is None, name
+                    continue
                 assert y.device.type == "cuda" and torch.equal(torch.from_numpy(x), y.cpu()), name
+
+
+# Finishing a shipped batch on the card (kernels/batch_finish.py,
+# models/gnn/batching.py::complete_batch): bit for bit the host's batch.
+
+
+def _same_on_card(want, got):
+    """Two batches of tensors on the card, every field bit for bit."""
+    torch.cuda.synchronize()
+    for name, va in vars(want).items():
+        vb = getattr(got, name)
+        for x, y in zip(va if isinstance(va, list) else [va],
+                        vb if isinstance(vb, list) else [vb]):
+            assert (x is None) == (y is None), name
+            if x is not None:
+                assert y.device.type == "cuda" and x.dtype == y.dtype, name
+                assert torch.equal(x, y), name
+
+
+def test_the_finishing_kernels_match_their_plain_versions(cuda):
+    """Rows of a pinned host table (PyTorch's and a ``HostTable``'s
+    registered copy) and of a table on the card, with padding and ids past
+    the table, at row widths 128, 34 and 7 (16-, 8- and 4-byte loads);
+    counts read off sorted keys with padding; the sort with a gathered
+    second array: each bit for bit its plain version. ``HostTable.close``
+    frees its copy, once."""
+    from repro_torch.kernels import batch_finish
+    from repro_torch.kernels.ref import sorted_counts_ref, table_rows_ref
+
+    g = torch.Generator().manual_seed(0)
+    for dim in (128, 34, 7):
+        table = torch.randn(500, dim, generator=g)
+        ids = torch.randint(-1, 520, (777,), generator=g)
+        want = table_rows_ref(table, ids)
+        host = batch_finish.HostTable(table.numpy())
+        assert host.tensor.is_pinned() and host.nbytes == table.numel() * 4
+        for where in (table.pin_memory(), host.tensor, table.to(cuda)):
+            got = batch_finish.table_rows(where, ids.to(cuda))
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (dim, where.device)
+        host.close()
+        assert host.tensor is None and host.nbytes == 0
+        host.close()
+    with pytest.raises(ValueError, match="pinned"):
+        batch_finish.table_rows(table, ids.to(cuda))  # pageable host memory
+    for n, e in ((35840, 50176), (300, 4096), (5, 1024)):
+        seg = torch.randint(-1, n + 3, (e,), generator=g, dtype=torch.int32)
+        idx = torch.randint(-1, n, (e,), generator=g, dtype=torch.int32)
+        want = batch_finish.sort_edges(seg, n, idx)
+        got = batch_finish.sort_edges(seg.to(cuda), n, idx.to(cuda))
+        torch.cuda.synchronize()
+        for a, b in zip(want, got):
+            assert torch.equal(a, b.cpu()), (n, e)
+        counts = batch_finish.sorted_counts(got[0], n)
+        torch.cuda.synchronize()
+        assert torch.equal(counts.cpu(), sorted_counts_ref(seg, n)), (n, e)
+
+
+def _shipped_pair(system, fanouts, layers, typed, vq, eq):
+    from repro_torch.models.gnn.batching import subgraph_to_batch
+
+    g = system.graph
+    sub = system.backend.sample(np.arange(0, 1500, 23)[:64], list(fanouts))
+    kw = dict(edge_types=g.edge_types if typed else None, vertex_quantum=vq, edge_quantum=eq)
+    return (subgraph_to_batch(sub, g.vertex_feats, g.labels, layers, **kw),
+            subgraph_to_batch(sub, g.vertex_feats, g.labels, layers, shipped=True, **kw))
+
+
+@pytest.mark.parametrize("plan", [((6, 4, 2), 3, False, 256, 1024), ((6, 4), 2, True, 64, 128)],
+                         ids=["sage-like", "hetero"])
+def test_a_shipped_batch_completed_on_the_card_is_the_host_batch(cuda, plan):
+    """``complete_batch`` of a shipped batch moved with ``.to``: every
+    field the host batch's moved with ``.to``, bit for bit, from a pinned
+    table and from a table on the card; one launch of the rows kernel, per
+    layer one of the counts kernel and two sorts, nothing of the model's
+    kernels counted."""
+    from repro_torch.kernels import batch_finish
+    from repro_torch.models.gnn.batching import complete_batch
+
+    system = _small_system()
+    whole, shipped = _shipped_pair(system, *plan)
+    layers = plan[1]
+    want = whole.to(cuda)
+    table = torch.from_numpy(system.graph.vertex_feats).pin_memory()
+    fused_gnn.reset_launches()
+    for where in (table, table.to(cuda)):
+        batch_finish.reset_launches()
+        _same_on_card(want, complete_batch(shipped.to(cuda), where))
+        passes = fused_gnn.sort_passes(whole.valid.shape[0])
+        assert batch_finish.LAUNCHES == {"table_rows": 1, "sorted_counts": layers,
+                                         "segment_sort": 2 * layers * 3 * passes}
+    assert set(fused_gnn.LAUNCHES.values()) == {0}
+
+
+def _stalling_pipeline(*a, **kw):
+    """A ``BatchPipeline`` whose producer 1 stalls in its second batch until
+    it is killed; the producer respawned in its place does not stall."""
+    import multiprocessing as mp
+    import time
+
+    from repro_torch.api import BatchPipeline
+
+    class Stalling(BatchPipeline):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.stalled = mp.get_context("fork").Event()
+            self._index = None
+            self._made = 0
+
+        def _worker_loop(self, index, *a):
+            self._index = index
+            super()._worker_loop(index, *a)
+
+        def make_batch(self, seeds, *args):
+            if self._index == 1 and not self.stalled.is_set():
+                self._made += 1
+                if self._made == 2:
+                    self.stalled.set()
+                    time.sleep(120)
+            return super().make_batch(seeds, *args)
+
+    return Stalling(*a, **kw)
+
+
+@pytest.mark.parametrize("respawn", [False, True], ids=["steady", "respawn"])
+def test_two_producers_ship_to_the_card_the_host_stream(cuda, respawn):
+    """Two forked producers ship eight batches that the card finishes: the
+    batches of ``host_batches()`` moved with ``.to``, bit for bit; also when
+    producer 1 is killed mid-run after the card path has run (CUDA
+    initialised, the table and the staging buffers pinned) and respawned.
+    Each batch is finished once in the consumer; the slot is a shipped
+    batch's."""
+    from repro_torch import tracing
+    from repro_torch.api import BatchPipeline
+    from repro_torch.kernels import batch_finish
+
+    system = _small_system()
+
+    def pipe(device, stalling=False):
+        args = (system.backend, system.graph, np.arange(0, 1024, 2), (6, 4), 2)
+        kw = dict(batch_size=64, prefetch=2, worker_cores=(0, 1), device=device)
+        return (_stalling_pipeline if stalling else BatchPipeline)(*args, **kw)
+
+    host = pipe("cpu")
+    try:
+        want = [(s, b.to(cuda)) for s, b in _host_batches(host, 1)]
+        whole_slot = host.slot_bytes()
+    finally:
+        host.close()
+    ahead = pipe("cuda", respawn)
+    tracing.reset()
+    batch_finish.reset_launches()
+    got = []
+    stream = ahead.batches(1)
+    try:
+        for item in stream:
+            got.append(item)
+            if respawn and len(got) == 2:
+                assert ahead.stalled.wait(timeout=60)
+                victim = ahead._producers[1].proc
+                victim.kill()
+                victim.join(timeout=10)
+        assert ahead.respawn_count == int(respawn)
+        assert ahead.slot_bytes(True) < whole_slot and ahead._table.tensor.is_pinned()
+        assert all(p.ring.slot_bytes == ahead.slot_bytes(True) for p in ahead._producers)
+    finally:
+        stream.close()
+        ahead.close()
+    assert ahead._table is None and ahead._pinned is None
+    assert len(got) == len(want) == 8
+    for (sa, a), (sb, b) in zip(want, got):
+        assert np.array_equal(sa, sb)
+        _same_on_card(a, b)
+    assert batch_finish.LAUNCHES["table_rows"] == 8
+    taken = tracing.roots("pipeline.next")
+    assert [r.count.get("batch.complete") for r in taken] == [1] * 8
+    assert not any("batch.complete" in r.count or "batch.features" in r.count
+                   for r in tracing.roots("pipeline.produce"))
+
+
+def test_a_store_backed_pipeline_gathers_on_the_host(cuda, tmp_path):
+    """Over a ``StoreFeatureSource`` the forked producers gather the rows
+    themselves and write whole batches; the card finishes nothing and no
+    table is pinned. The batches are the host stream's, moved with ``.to``."""
+    from repro_torch import tracing
+    from repro_torch.api import BatchPipeline
+    from repro_torch.core.storage import StoreFeatureSource
+    from repro_torch.kernels import batch_finish
+
+    system = _small_system()
+    source = StoreFeatureSource.from_array(system.graph.vertex_feats, str(tmp_path / "feats"),
+                                           chunk_rows=256)
+
+    def pipe(device, prefetch):
+        return BatchPipeline(system.backend, system.graph, np.arange(0, 1024, 2), (6, 4), 2,
+                             batch_size=64, prefetch=prefetch, worker_cores=(0, 1),
+                             feature_source=source, device=device)
+
+    want = [(s, b.to(cuda)) for s, b in _host_batches(pipe("cpu", 0), 1)]
+    ahead = pipe("cuda", 2)
+    tracing.reset()
+    batch_finish.reset_launches()
+    try:
+        got = list(ahead.batches(1))
+        assert ahead._table is None and not ahead._ships()
+    finally:
+        ahead.close()
+    assert len(got) == len(want) == 8
+    for (sa, a), (sb, b) in zip(want, got):
+        assert np.array_equal(sa, sb)
+        _same_on_card(a, b)
+    assert set(batch_finish.LAUNCHES.values()) == {0}
+    assert all("batch.features" in r.count for r in tracing.roots("pipeline.produce"))
+    assert not any("batch.complete" in r.count for r in tracing.roots("pipeline.next"))

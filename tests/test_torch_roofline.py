@@ -137,6 +137,30 @@ def test_every_reference_kernel_op_has_a_port_formula():
         "segment_spmm_ragged", {**shape, "valid_edges": 4096})
 
 
+@pytest.mark.parametrize("where", ["host", "card"])
+def test_the_batch_finishing_bounds(where):
+    """``table_rows`` from a pinned host table is bound by PCIe: the valid
+    rows over ``pcie_bw``; from a table on the card, by device memory (the
+    ids, the rows read and the table written). ``sorted_counts`` reads the
+    keys and writes a count a row."""
+    hw = rf.hardware(H100)
+    v, f, valid = 35840, 128, 35021
+    shape = dict(rows=v, dim=f, rows_read=valid, host_table=where == "host")
+    got = rf.kernel_roofline("table_rows", shape, 1e-3, "f32", hw)
+    written = v * 8 + v * f * 4
+    if where == "host":
+        assert rf.kernel_host_bytes("table_rows", shape) == valid * f * 4
+        assert got["hbm_bytes"] == written
+        assert got["bound_s"] == valid * f * 4 / 64e9
+    else:
+        assert rf.kernel_host_bytes("table_rows", shape) == 0
+        assert got["hbm_bytes"] == written + valid * f * 4
+        assert got["bound_s"] == got["hbm_bytes"] / 3.35e12
+    counts = rf.kernel_roofline("sorted_counts", dict(edges=50176, segments=v), 1e-5, "f32", hw)
+    assert counts["hbm_bytes"] == 4 * 50176 + 4 * v and counts["bound"] == "memory"
+    assert rf.kernel_host_bytes("segment_spmm", dict(edges=8, segments=2, dim=4)) == 0
+
+
 def test_kernel_roofline_returns_reference_keys():
     shape = dict(edges=4096, segments=512, dim=64)
     want = ref.kernel_roofline("segment_spmm", shape, 1e-3)
@@ -162,7 +186,7 @@ def test_kernel_roofline_peak_follows_dtype():
 def test_hardware():
     hw = rf.hardware(H100)
     assert hw == {"peak_flops_bf16": 989e12, "peak_flops_f32": 67e12, "hbm_bw": 3.35e12,
-                  "nvlink_bw": 450e9, "nvlink_ranks": 8, "ib_bw": 50e9}
+                  "nvlink_bw": 450e9, "nvlink_ranks": 8, "ib_bw": 50e9, "pcie_bw": 64e9}
     hw["hbm_bw"] = 0.0  # a copy: the table stays
     assert rf.HW[H100]["hbm_bw"] == 3.35e12
     with pytest.raises(ValueError, match="unknown card"):

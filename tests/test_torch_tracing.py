@@ -191,7 +191,8 @@ def _pipeline(system, workers, prefetch=2):
 def test_a_forked_producer_sends_its_roots_and_opens_no_range(system, monkeypatch):
     """Forked while a profiler records: the worker's ``pipeline.produce``
     roots reach the consumer with their sampling and batch spans, and the
-    worker opens no profiler range (one would fail its run)."""
+    worker opens no profiler range (one would fail its run). The producer
+    ships its batches: the consumer finishes them, feature rows included."""
     import torch.autograd.profiler as prof
 
     parent = os.getpid()
@@ -215,15 +216,18 @@ def test_a_forked_producer_sends_its_roots_and_opens_no_range(system, monkeypatc
     pids = {r.pid for r in produced}
     assert len(pids) == min(pipe.producers, 6) and parent not in pids
     for r in produced:
-        assert {"sampling.wait", "batch.assemble", "batch.features", "pipeline.put",
+        assert {"sampling.wait", "batch.assemble", "pipeline.put",
                 "pipeline.write"} <= set(r.self_ns)
+        assert "batch.features" not in r.self_ns
         assert sum(r.self_ns.values()) == r.dur_ns
     # a request in flight may be answered by an earlier batch's rounds
     assert {"sampling.submit", "sampling.round", "sampling.hop", "sampling.gather"} <= {
         n for r in produced for n in r.self_ns}
     # the consumer's own roots are ranges in the trace; the producer's are not
     names = {e.name for e in p.events() if e.name.startswith("span:")}
-    assert {"span:pipeline.next", "span:pipeline.receive", "span:batch.to_device"} <= names
+    assert {"span:pipeline.next", "span:pipeline.receive", "span:batch.to_device",
+            "span:batch.complete"} <= names
+    assert "span:batch.features" not in names
     assert "span:pipeline.produce" not in names
     assert len(tracing.roots("pipeline.next")) == 6
     assert pipe.sample_time == pytest.approx(
@@ -252,6 +256,32 @@ def test_each_forked_producer_sends_its_own_roots(system, cores):
             r.self_ns)
     assert pipe.sample_time == pytest.approx(
         sum(r.dur_ns - r.self_ns["pipeline.put"] for r in produced) / 1e9)
+
+
+@pytest.mark.parametrize("path", ["batches-process", "host_batches-process",
+                                  "batches-thread", "batches-serial"])
+def test_a_shipped_batch_is_completed_once_in_the_consumer(system, path):
+    """Forked producers feeding ``batches()`` ship their batches, and the
+    consumer finishes each once, inside its ``pipeline.next`` root
+    (``batch.to_device`` > ``batch.complete``), never in a producer's
+    ``pipeline.produce`` root; ``host_batches()``, thread and serial modes
+    make whole batches in the producer, and no ``batch.complete`` runs."""
+    consumer, workers = path.split("-")
+    pipe = _pipeline(system, "thread" if workers == "serial" else workers,
+                     0 if workers == "serial" else 2)
+    try:
+        got = list(getattr(pipe, consumer)(1))
+    finally:
+        pipe.close()
+    assert len(got) == 6
+    produced = tracing.roots("pipeline.produce")
+    assert len(produced) == 6 and not any("batch.complete" in r.count for r in produced)
+    shipped = path == "batches-process"
+    assert all(("batch.features" in r.count) != shipped for r in produced)
+    taken = tracing.roots("pipeline.next")
+    assert len(taken) == (6 if consumer == "batches" else 0)
+    assert [r.count.get("batch.complete", 0) for r in taken] == [int(shipped)] * len(taken)
+    assert not any("batch.features" in r.count for r in taken)
 
 
 @pytest.mark.parametrize("workers,prefetch", [("thread", 2), ("thread", 0)])
@@ -309,7 +339,7 @@ def test_batches_and_the_final_store_are_bitwise_equal_under_a_profiler(system, 
             vb = getattr(b, name)
             for x, y in zip(va if isinstance(va, list) else [va],
                             vb if isinstance(vb, list) else [vb]):
-                assert torch.equal(x, y), name
+                assert (x is None and y is None) or torch.equal(x, y), name
 
     model = _model("gat")
     fns = [model.embed_layer_fn(k) for k in range(2)]

@@ -49,6 +49,8 @@ from repro_torch.models.gnn import GNNModel, load_jax_params  # noqa: E402
 from repro_torch.api.pipeline import _views, write_batch  # noqa: E402
 from repro_torch.models.gnn.batching import (  # noqa: E402
     GNNBatch,
+    complete_batch,
+    finish_batch,
     largest_batch,
     sorted_order,
     subgraph_to_batch,
@@ -388,13 +390,13 @@ class _StallingProducer(torch_api.BatchPipeline):
         self._index = index
         super()._worker_loop(index, *a)
 
-    def make_batch(self, seeds):
+    def make_batch(self, seeds, *args):
         if self._index == 1 and not self.stalled.is_set():
             self._made += 1
             if self._made == 2:
                 self.stalled.set()
                 time.sleep(120)
-        return super().make_batch(seeds)
+        return super().make_batch(seeds, *args)
 
 
 def test_a_killed_producer_is_respawned_and_the_stream_stays_serial(port_system):
@@ -480,6 +482,8 @@ def test_no_yielded_batch_changes_while_the_rings_wrap(port_system, w, consumer)
 def _filled(batch: GNNBatch, rng) -> GNNBatch:
     """``batch`` with every array made real and filled at random."""
     def fill(a):
+        if a is None:
+            return None
         return (rng.random(a.shape) < 0.5 if a.dtype == bool
                 else rng.integers(-9, 9, a.shape).astype(a.dtype))
 
@@ -500,25 +504,126 @@ def test_a_batch_at_the_slot_bound_fits_and_one_beyond_raises(port_system):
         for name, b in vars(bound).items():
             r = getattr(real, name)
             for x, y in zip(r if isinstance(r, list) else [r], b if isinstance(b, list) else [b]):
+                assert (x is None) == (y is None), name
+                if x is None:
+                    continue
                 assert x.dtype == y.dtype and x.ndim == y.ndim, name
                 assert all(i <= j for i, j in zip(x.shape, y.shape)), name
     rng = np.random.default_rng(0)
     big = _filled(bound, rng)
-    slot = np.zeros(pipe.slot_bytes, np.uint8)
+    slot = np.zeros(pipe.slot_bytes(), np.uint8)
     plan, used = write_batch(slot, big)
-    assert pipe.slot_bytes - mmap.PAGESIZE < used <= pipe.slot_bytes
+    assert pipe.slot_bytes() - mmap.PAGESIZE < used <= pipe.slot_bytes()
     _same_batches([(None, big)], [(None, _views(slot, plan))])
     over = largest_batch(g.vertex_feats.shape[0] + pipe.vertex_quantum, g.vertex_feats.shape[1],
                          64, (5, 3), LAYERS, pipe.vertex_quantum, pipe.edge_quantum)
     assert over.feats.shape[0] == bound.feats.shape[0] + pipe.vertex_quantum
-    fresh = np.zeros(pipe.slot_bytes, np.uint8)
+    fresh = np.zeros(pipe.slot_bytes(), np.uint8)
     with pytest.raises(ValueError, match="does not fit a slot"):
         write_batch(fresh, _filled(over, rng))
     assert not fresh.any()
 
 
+# the shipped batch against the whole one: (fanouts, layers, edge types)
+# of a SAGE-like, a GAT-like and a heterogeneous plan, each at two quanta
+# (vertex, edge), then a sample whose last hop is empty, and the slot of
+# the largest shipped batch
+PLANS = {"sage": ((5, 3, 2), 3, False), "gat": ((4, 4), 2, False), "hetero": ((5, 3), 2, True)}
+SHIPPED = [pytest.param(plan, quanta, id=f"{plan}-q{quanta[0]}-{quanta[1]}")
+           for plan in PLANS for quanta in ((256, 1024), (64, 128))] + [
+    pytest.param("empty-last-hop", (64, 128), id="empty-last-hop"),
+    pytest.param("slot", (256, 1024), id="slot")]
+
+
+def _fields_equal(a: GNNBatch, b: GNNBatch) -> None:
+    """Every field of two batches, bit for bit (tensors as arrays)."""
+    def host(x):
+        return x.numpy() if torch.is_tensor(x) else x
+
+    for name, va in vars(a).items():
+        vb = getattr(b, name)
+        assert isinstance(va, list) == isinstance(vb, list), name
+        for x, y in zip(va if isinstance(va, list) else [va], vb if isinstance(vb, list) else [vb]):
+            assert (x is None) == (y is None), name
+            if x is not None:
+                x, y = host(x), host(y)
+                assert x.dtype == y.dtype and np.array_equal(x, y), name
+
+
+@pytest.mark.parametrize("plan,quanta", SHIPPED)
+def test_a_shipped_batch_finishes_to_the_whole_batch(port_system, plan, quanta):
+    """A shipped batch holds no feature rows, counts or orders, and
+    finished with numpy (``finish_batch``) it is ``subgraph_to_batch``'s
+    batch in every field; so is ``complete_batch`` of it on CPU tensors,
+    the card's wrappers run by their plain versions. The largest shipped
+    batch fits the slot a pipeline of shipped batches makes."""
+    g = port_system.graph
+    fanouts, layers, typed = PLANS.get(plan, ((5, 3), 2, True))
+    vq, eq = quanta
+    if plan == "slot":
+        pipe = _pipe(port_system, 0)
+        whole = pipe.slot_bytes()
+        bound = largest_batch(g.vertex_feats.shape[0], g.vertex_feats.shape[1], 64, (5, 3),
+                              LAYERS, pipe.vertex_quantum, pipe.edge_quantum, shipped=True)
+        assert bound.feats is None and bound.layer_cnt is None and bound.layer_dst_order is None
+        assert bound.vertex_ids.dtype == np.int64
+        slot = np.zeros(pipe.slot_bytes(True), np.uint8)
+        plan_, used = write_batch(slot, _filled(bound, np.random.default_rng(1)))
+        assert pipe.slot_bytes(True) - mmap.PAGESIZE < used <= pipe.slot_bytes(True) < whole
+        return
+    sub = port_system.backend.sample(np.arange(0, 1200, 37)[:32], list(fanouts))
+    if plan == "empty-last-hop":
+        last = sub.hops[-1]
+        last.src, last.dst = last.src[:0], last.dst[:0]
+        last.eid = None if last.eid is None else last.eid[:0]
+    kw = dict(edge_types=g.edge_types if typed else None, vertex_quantum=vq, edge_quantum=eq)
+    whole = subgraph_to_batch(sub, g.vertex_feats, g.labels, layers, **kw)
+    shipped = subgraph_to_batch(sub, g.vertex_feats, g.labels, layers, shipped=True, **kw)
+    assert shipped.feats is None and shipped.layer_cnt is None
+    assert shipped.layer_dst_order is None and shipped.layer_src_order is None
+    n = int(whole.valid.sum())
+    assert np.array_equal(shipped.vertex_ids[:n], sub.all_vertices())
+    assert np.all(shipped.vertex_ids[n:] == -1) and whole.vertex_ids is None
+    if plan == "empty-last-hop":
+        # layer 0 reads every hop: with the last one empty, the first hop's edges
+        valid = [int((d >= 0).sum()) for d in shipped.layer_dst]
+        assert valid[0] == valid[-1] == sub.hops[0].src.shape[0] > 0
+        assert whole.layer_cnt[0].sum() == valid[0]
+    _fields_equal(whole, finish_batch(shipped, g.vertex_feats))
+    _fields_equal(whole.to("cpu"), complete_batch(shipped.to("cpu"),
+                                                  torch.from_numpy(g.vertex_feats)))
+
+
+@pytest.mark.parametrize("case,want", [
+    ("process-cpu", True), ("thread-cpu", False), ("serial-cpu", False),
+    ("process-store-cpu", False), ("process-cuda", True), ("process-cuda-past-share", False),
+])
+def test_the_producers_ship_where_the_consumer_can_finish(port_system, tmp_path, monkeypatch,
+                                                          case, want):
+    """``batches()``' producers ship only when forked over an in-memory
+    matrix; to a CUDA device only while the matrix's page-locked float32
+    copy fits ``PINNED_TABLE_SHARE`` of the host's memory."""
+    from repro_torch.api import pipeline as pipeline_mod
+    from repro_torch.core.storage import StoreFeatureSource
+
+    kw = {}
+    if "store" in case:
+        kw["feature_source"] = StoreFeatureSource.from_array(
+            port_system.graph.vertex_feats, str(tmp_path / "feats"), chunk_rows=256)
+    pipe = _pipe(port_system, 0 if case.startswith("serial") else 2, (0, 1), **kw)
+    pipe.workers = "thread" if case.startswith("thread") else "process"
+    if "cuda" in case:
+        pipe.device = torch.device("cuda")
+        matrix = pipe.feature_source.num_rows * pipe.feature_source.dim * 4
+        host = os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+        share = matrix / host * (0.5 if "past" in case else 1.0)
+        monkeypatch.setattr(pipeline_mod, "PINNED_TABLE_SHARE", share)
+    assert pipe._ships() is want
+
+
 class _SmallSlots(torch_api.BatchPipeline):
-    slot_bytes = mmap.PAGESIZE
+    def slot_bytes(self, shipped=False):
+        return mmap.PAGESIZE
 
 
 def test_a_batch_larger_than_its_slot_raises_in_the_run(port_system):
