@@ -32,12 +32,13 @@ three at full width:
   weight decay 1e-4), then the first batch's loss and every gradient
   with kernels vs plain versions, and determinism: two 6-step runs, and a
   run checkpointed at step 3 and resumed to 6, must end with the same bits.
-  The forked producers ship their batches and the consumer finishes each
-  on the card (``batching.complete_batch``): exactly one ``table_rows``,
-  one ``sorted_counts`` a layer and two sorts a layer per batch delivered;
-  the first shipped batch finished again on the card must have the bits
-  of numpy's ``finish_batch`` moved with ``.to``, field by field, and each
-  finishing wrapper those of its plain version at that batch's shapes;
+  The forked producers leave the feature rows to the consumer, which
+  completes each batch on the card (``batching.complete_batch``): exactly
+  one ``table_rows``, one ``sorted_counts`` a layer and two sorts a layer
+  per batch delivered; the first such batch completed again on the card
+  must have the bits of ``complete_batch`` on CPU tensors (the plain
+  versions) moved with ``.to``, field by field, and each completing
+  wrapper those of its plain version at that batch's shapes;
 * sample-wise inference: ``repro_torch.core.inference.samplewise_inference``
   (the paper's baseline: each target's 3-hop subgraph through the whole
   model) for SAGE and GAT over 2,048 seeded targets, batch 256, with the
@@ -939,7 +940,8 @@ def time_table_rows(args, launches: int, hw: dict) -> dict:
             "name": "table_rows",
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/batch_finish.cu",
-            "replaces": "src/repro_torch/models/gnn/batching.py::finish_batch (numpy gather)",
+            "replaces": "src/repro_torch/models/gnn/batching.py::with_rows (numpy gather in "
+                        "the batch producer)",
             "launches": launches,
             "max_abs_err": err,
             "ms": ms,
@@ -976,7 +978,7 @@ def time_sorted_counts(args, launches: int, hw: dict) -> dict:
         "name": "sorted_counts",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/batch_finish.cu",
-        "replaces": "src/repro_torch/models/gnn/batching.py::finish_batch (np.bincount)",
+        "replaces": "src/repro/models/gnn/batching.py::subgraph_to_batch (np.bincount)",
         "launches": launches,
         "max_abs_err": err,
         "ms": ms,
@@ -1718,15 +1720,15 @@ def keep_largest(captured: dict, name: str, call: LargestCall) -> None:
 
 class ShippedBatches:
     """Wraps ``complete_batch`` where the batch pipeline calls it: keeps
-    the first shipped batch (its tensors on the card, before it is
-    finished) and the padded rows of every batch it finishes."""
+    the first batch (its tensors on the card, before it is completed) and
+    the padded rows of every batch it completes."""
 
     def __init__(self, fn):
         self.fn = fn
         self.first = None
         self.vpads: list = []
 
-    def __call__(self, batch, table):
+    def __call__(self, batch, table=None):
         if self.first is None:
             self.first = batch
         self.vpads.append(batch.valid.shape[0])
@@ -1744,17 +1746,20 @@ def host_batch(batch):
 
 def check_finished_batch(kind: str, shipped: ShippedBatches, feats: np.ndarray,
                          finished: dict) -> dict:
-    """The run's first shipped batch finished again on the card, from a
-    fresh page-locked copy of the matrix, against numpy's ``finish_batch``
-    of it moved with ``.to``: every field bit for bit; then each finishing
-    wrapper against its plain version at that batch's shapes. Keeps the
-    ids and the largest layer's sorted keys for the kernel times."""
+    """The run's first batch completed again on the card, from a fresh
+    page-locked copy of the matrix, against ``complete_batch`` of it on CPU
+    tensors (the plain versions) moved with ``.to``: every field bit for
+    bit; then each completing wrapper against its plain version at that
+    batch's shapes. Keeps the ids and the largest layer's sorted keys for
+    the kernel times."""
     from repro_torch.kernels import batch_finish
     from repro_torch.kernels.ref import sorted_counts_ref, table_rows_ref
-    from repro_torch.models.gnn.batching import complete_batch, finish_batch
+    from repro_torch.models.gnn.batching import complete_batch
 
     first = shipped.first
-    want = finish_batch(host_batch(first), feats).to("cuda")
+    if first.feats is not None:
+        fail(f"{kind} training: the producers gathered the rows the card reads")
+    want = complete_batch(host_batch(first).to("cpu"), torch.from_numpy(feats)).to("cuda")
     table = batch_finish.HostTable(feats)
     try:
         got = complete_batch(first, table.tensor)
@@ -1764,9 +1769,9 @@ def check_finished_batch(kind: str, shipped: ShippedBatches, feats: np.ndarray,
             for k, (x, y) in enumerate(zip(va if isinstance(va, list) else [va],
                                            vb if isinstance(vb, list) else [vb])):
                 if (x is None) != (y is None):
-                    fail(f"{kind} finished batch: {name}[{k}] is None on one side only")
+                    fail(f"{kind} completed batch: {name}[{k}] is None on one side only")
                 if x is not None:
-                    check_bitwise(f"{kind} first shipped batch finished on the card: "
+                    check_bitwise(f"{kind} first batch completed on the card: "
                                   f"{name}[{k}] {tuple(x.shape)}", y, x)
         ids, vpad = first.vertex_ids, first.valid.shape[0]
         check_bitwise(f"table_rows V={vpad} F={feats.shape[1]} from the pinned matrix",
@@ -1798,9 +1803,9 @@ def check_finished_batch(kind: str, shipped: ShippedBatches, feats: np.ndarray,
 def train_model(system, kind: str, train_ids, launches: dict, captured: dict,
                 finished: dict) -> dict:
     """``system.trainer(model, train_ids).train(max_steps=...)`` with the
-    config's prefetch; checks the launches (the model's and the finishing
+    config's prefetch; checks the launches (the model's and the completing
     kernels') and the losses, then holds the first batch against the plain
-    versions and the first shipped batch's finish against numpy's."""
+    versions and its completion on the card against the plain versions'."""
     from repro_torch.api import pipeline as pipeline_mod
     from repro_torch.kernels import batch_finish, fused_gnn
     from repro_torch.models.gnn import models
@@ -1842,7 +1847,7 @@ def train_model(system, kind: str, train_ids, launches: dict, captured: dict,
     # the trainer draws one batch past max_steps, which the pipeline also finishes
     done = len(shipped.vpads)
     if shipped.first is None or done != steps + 1:
-        fail(f"{kind} training finished {done} shipped batches on the card for {steps} steps")
+        fail(f"{kind} training completed {done} batches on the card for {steps} steps")
     layers = len(shipped.first.layer_dst)
     finish_want = {"table_rows": done, "sorted_counts": layers * done,
                    "segment_sort": sum(2 * layers * 3 * fused_gnn.sort_passes(v)
@@ -2121,6 +2126,7 @@ def dp_train(remote, kind: str, num_shards: int, train_ids, launches: dict) -> d
     per-shard twin's, its launches one per layer whatever S (the twin's S),
     and the first step's merged aggregates bitwise each shard's own."""
     from repro_torch.kernels import fused_gnn
+    from repro_torch.models.gnn.batching import complete_batch
     from repro_torch.train.data_parallel import shard
 
     tr = remote.dp_trainer(fresh_model(kind), train_ids, num_shards=num_shards,
@@ -2188,7 +2194,7 @@ def dp_train(remote, kind: str, num_shards: int, train_ids, launches: dict) -> d
     with torch.no_grad(), twin.patched():
         model = fresh_model(kind)
         for s in range(num_shards):
-            model.apply(shard(stacked_first, s).to(merged_batch.feats.device))
+            model.apply(complete_batch(shard(stacked_first, s).to(merged_batch.feats.device)))
     twin_bad = []
     for k in range(3):
         merged_out = rec.calls[k][2]

@@ -55,24 +55,25 @@ Two worker modes:
     later batch: a pinned buffer is written again only after the event
     recorded behind its last batch's copies to the card has passed.
 
-    What a producer writes. In :meth:`batches` over an in-memory feature
-    matrix (``ArrayFeatureSource``) the producer stops after relabelling
-    and writes the *shipped* batch (``subgraph_to_batch(...,
-    shipped=True)``: the edge lists and the table's global vertex ids, no
-    feature rows, counts or orders); the consumer moves it with
-    :meth:`GNNBatch.to` and finishes it there (``complete_batch``): on the
-    card by hand-written kernels that read the feature rows from a
-    page-locked copy of the matrix (``HostTable``: the matrix's size at
-    float32, made at the first such run and freed by :meth:`close`), on
-    the CPU by their plain versions over the matrix itself. A slot then
-    holds the largest shipped batch (4.7 MB at the benchmark's papers100M
-    size, against 84.4 MB for a whole one). :meth:`host_batches`, a feature
-    source backed by a store, thread mode, serial mode, and a CUDA device
-    where the copy would take more than ``PINNED_TABLE_SHARE`` of the
-    host's memory keep whole batches, made in the producer.
+    What a producer writes: the relabelled batch (``subgraph_to_batch``:
+    the edge lists and the table's global vertex ids), never counts or
+    orders, and the feature rows unless the pipeline, when it is built,
+    leaves them to the consumer: forked producers over an in-memory matrix
+    (``ArrayFeatureSource``), to a CPU device or while a page-locked copy
+    of it takes at most ``PINNED_TABLE_SHARE`` of the host's memory (a
+    slot then holds 4.7 MB at the benchmark's papers100M size).
 ``thread`` — in-process double buffering via one daemon thread.
     Zero-copy hand-off, but overlap is limited to the consumer's
     GIL-released windows.
+
+In every mode the consumer of :meth:`batches` moves each batch with
+:meth:`GNNBatch.to` and completes it there (``complete_batch``: the
+counts, the two orders, and the rows of a batch without them): on the
+card by hand-written kernels that read the rows from a page-locked copy
+of the matrix (``HostTable``, made at the first run and freed by
+:meth:`close`), on the CPU by their plain versions. :meth:`host_batches`
+yields numpy batches with their rows and nothing derived, gathering in
+the consumer the rows the producers left out.
 
 Determinism: every producer (process or thread) runs the serial code path
 from the same initial state, and sampling randomness is keyed per request
@@ -91,7 +92,7 @@ Spans (``repro_torch.tracing``): the producer makes each batch inside one
 free slot, then ``pipeline.write``, the copy into it); the consumer takes
 each inside one ``pipeline.next`` root (``pipeline.receive``: the message
 and the copy out of the slot; ``batch.to_device``, and inside it
-``batch.complete`` for a shipped batch). A forked worker's root
+``batch.complete``). A forked worker's root
 summaries ride to the consumer with the batches; ``sample_time`` sums
 every producer's roots less their waits for a slot.
 """
@@ -125,6 +126,7 @@ from repro_torch.models.gnn.batching import (
     complete_batch,
     largest_batch,
     subgraph_to_batch,
+    with_rows,
 )
 from repro_torch.utils import prefetch_iterator, round_up
 
@@ -150,11 +152,11 @@ MAX_PRODUCERS = 5
 _ALIGN = 64  # bytes: where each of a slot's arrays may start
 
 # At most this share of the host's physical memory goes to the page-locked
-# copy of the feature matrix that a CUDA consumer finishes shipped batches
-# from (beside the matrix itself, which the producers read); past it the
-# producers gather rows and write whole batches. A quarter of the card
-# host's 96 GiB is 24 GiB: the benchmark's 77 MB matrix ships, papers100M's
-# whole 57 GB (111 M x 128 float32) would not.
+# copy of the feature matrix that a CUDA consumer gathers rows from
+# (beside the matrix itself, which the producers read); past it the
+# producers gather the rows. A quarter of the card host's 96 GiB is
+# 24 GiB: the benchmark's 77 MB matrix fits, papers100M's whole 57 GB
+# (111 M x 128 float32) would not.
 PINNED_TABLE_SHARE = 0.25
 
 
@@ -406,6 +408,16 @@ class BatchPipeline:
         self._cancel = None  # mp.Event: stop the producers' current run early
         self._pinned = None  # _Pinned: a CUDA consumer's staging buffers
         self._table = None  # HostTable: the matrix page-locked, that the card reads rows from
+        # whether the producers leave the rows to the consumer: forked, over
+        # an in-memory matrix, and to a CUDA device only while its
+        # page-locked float32 copy takes at most PINNED_TABLE_SHARE of the
+        # host's physical memory
+        source = self.feature_source
+        host = os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+        self._rows_as_ids = (
+            self._forked and isinstance(source, ArrayFeatureSource)
+            and (self.device.type != "cuda"
+                 or source.num_rows * source.dim * 4 <= PINNED_TABLE_SHARE * host))
 
     # ------------------------------------------------------------------
     def _next_key(self) -> tuple:
@@ -436,9 +448,12 @@ class BatchPipeline:
         with tracing.span("sampling.wait"):
             return ticket.result(timeout=self.ticket_timeout)
 
-    def make_batch(self, seeds: np.ndarray, shipped: bool = False) -> GNNBatch:
-        """One seed batch through sampling + padding (numpy, no prefetch);
-        with ``shipped``, the shipped batch."""
+    def make_batch(self, seeds: np.ndarray) -> GNNBatch:
+        """One seed batch through sampling + padding (numpy, no prefetch),
+        with its feature rows; ``complete_batch`` adds the rest."""
+        return self._assemble(seeds, True)
+
+    def _assemble(self, seeds: np.ndarray, rows: bool) -> GNNBatch:
         sub = self._take_sample(seeds)
         with tracing.span("batch.assemble"):
             return subgraph_to_batch(
@@ -449,7 +464,7 @@ class BatchPipeline:
                 edge_types=self.graph.edge_types,
                 vertex_quantum=self.vertex_quantum,
                 edge_quantum=self.edge_quantum,
-                shipped=shipped,
+                rows=rows,
             )
 
     def _seed_stream(self, epochs: int):
@@ -473,8 +488,7 @@ class BatchPipeline:
             if self._submit is not None:
                 self._next_key()
 
-    def _produce_np(self, epochs: int, skip: int = 0, index: int = 0, count: int = 1,
-                    shipped: bool = False):
+    def _produce_np(self, epochs: int, skip: int = 0, index: int = 0, count: int = 1):
         """The serial producer: pure numpy, safe inside a forked worker.
         With ``inflight >= 2`` and a service backend it keeps a window of
         sample requests in flight ahead of the batch being padded.
@@ -525,7 +539,7 @@ class BatchPipeline:
                     seeds = next(stream, None)
                     if seeds is None:
                         return
-                yield seeds, self.make_batch(seeds, shipped)
+                yield seeds, self._assemble(seeds, not self._rows_as_ids)
         finally:
             self._drop_pending()
 
@@ -549,42 +563,53 @@ class BatchPipeline:
         finally:
             items.close()
 
-    def host_batches(self, epochs: int):
-        """Yield ``(seeds, GNNBatch)`` with numpy fields, before any copy
-        to a device (the data-parallel trainer merges shards on the host);
-        closing the generator stops the producer."""
+    def _stream(self, epochs: int, out=_fresh):
+        """The run's batches as the producers make them, in order; forked
+        producers' copied out of their slots into ``out(used)``."""
         if self.prefetch <= 0:
             return self._produce_roots(epochs)
         if self._forked:
-            return self._process_batches(epochs, _fresh)
+            return self._process_batches(epochs, out)
         # thread mode: prefetch_iterator stops and joins its producer when
         # the generator is closed/abandoned, so the shared loader/backend
         # state is never mutated concurrently with a later epoch
         return prefetch_iterator(self._produce_roots(epochs), self.prefetch)
 
+    def host_batches(self, epochs: int):
+        """Yield ``(seeds, GNNBatch)`` with numpy fields and their feature
+        rows, before any copy to a device (the data-parallel trainer merges
+        shards on the host); closing the generator stops the producer."""
+        stream = self._stream(epochs)
+        return self._gathered(stream) if self._rows_as_ids else stream
+
+    def _gathered(self, stream):
+        """``stream`` with each batch's rows gathered here, in the consumer."""
+        try:
+            for seeds, batch in stream:
+                yield seeds, with_rows(batch, self.feature_source)
+        finally:
+            stream.close()
+
     def batches(self, epochs: int = 1):
         """Yield ``(seeds, GNNBatch)`` with tensors on the pipeline's
-        device; sampling runs ahead of the consumer when ``prefetch >= 1``.
-        The copies to the device are made here, in the consumer: from
-        forked producers to a CUDA device, out of the slot into a reused
-        pinned buffer, and from there to the card. Forked producers over
-        an in-memory feature matrix ship their batches, which are finished
-        here on the device (``batch.complete``)."""
+        device, completed (``batch.complete``); sampling runs ahead of the
+        consumer when ``prefetch >= 1``. The copies to the device are made
+        here, in the consumer: from forked producers to a CUDA device, out
+        of the slot into a reused pinned buffer, and from there to the
+        card."""
         pinned, table, out = None, None, _fresh
-        ships = self._ships()
         if self._forked and self.device.type == "cuda":
             if self._pinned is None:
-                self._pinned = _Pinned(self.slot_bytes(ships))
+                self._pinned = _Pinned(self.slot_bytes())
             pinned = self._pinned
             out = pinned.buffer
-        if ships and self.device.type == "cuda":
+        if self._rows_as_ids and self.device.type == "cuda":
             if self._table is None:
                 self._table = HostTable(self.feature_source.feats)
             table = self._table.tensor
-        elif ships:
+        elif self._rows_as_ids:
             table = torch.from_numpy(self.feature_source.feats)
-        stream = self._process_batches(epochs, out, ships) if self._forked else \
-            self.host_batches(epochs)
+        stream = self._stream(epochs, out)
         try:
             while True:
                 with tracing.span("pipeline.next") as root:
@@ -596,27 +621,13 @@ class BatchPipeline:
                     seeds, batch = item
                     with tracing.span("batch.to_device"):
                         batch = batch.to(self.device)
-                        if ships:
-                            with tracing.span("batch.complete"):
-                                batch = complete_batch(batch, table)
+                        with tracing.span("batch.complete"):
+                            batch = complete_batch(batch, table)
                         if pinned is not None:
                             pinned.moved(self.device)
                 yield seeds, batch
         finally:
             stream.close()
-
-    def _ships(self) -> bool:
-        """Whether the producers of a :meth:`batches` run ship their batches:
-        forked, over an in-memory feature matrix, and to a CUDA device only
-        while its page-locked float32 copy takes at most
-        ``PINNED_TABLE_SHARE`` of the host's physical memory."""
-        source = self.feature_source
-        if not (self._forked and isinstance(source, ArrayFeatureSource)):
-            return False
-        if self.device.type != "cuda":
-            return True
-        host = os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
-        return source.num_rows * source.dim * 4 <= PINNED_TABLE_SHARE * host
 
     def __iter__(self):
         return self.batches(1)
@@ -644,13 +655,14 @@ class BatchPipeline:
             usable = (os.cpu_count() or 1) - 1
         return max(1, min(usable, MAX_PRODUCERS))
 
-    def slot_bytes(self, shipped: bool = False) -> int:
-        """Bytes of one ring slot: the span of the largest batch, whole or
-        ``shipped``, that this pipeline can make (:func:`largest_batch`), in
-        whole pages."""
+    def slot_bytes(self) -> int:
+        """Bytes of one ring slot: the span of the largest batch that this
+        pipeline's producers can write (:func:`largest_batch`, with rows
+        unless they travel as ids), in whole pages."""
         biggest = largest_batch(self.feature_source.num_rows, self.feature_source.dim,
                                 self.loader.batch, self.fanouts, self.num_layers,
-                                self.vertex_quantum, self.edge_quantum, shipped=shipped)
+                                self.vertex_quantum, self.edge_quantum,
+                                rows=not self._rows_as_ids)
         return round_up(_plan(biggest)[1], mmap.PAGESIZE)
 
     def _worker_loop(self, index: int, count: int, ring: _Ring, cmd_q, data_q):
@@ -673,8 +685,7 @@ class BatchPipeline:
             try:
                 # a batch's root closes after its put, so its summary rides
                 # with the next message
-                items = self._produce_np(cmd[1], skip=cmd[2], index=index, count=count,
-                                         shipped=cmd[3])
+                items = self._produce_np(cmd[1], skip=cmd[2], index=index, count=count)
                 while True:
                     with tracing.span("pipeline.produce") as root:
                         item = next(items, None)
@@ -693,15 +704,16 @@ class BatchPipeline:
                     ("error", f"{type(exc).__name__}: {exc}\n{traceback.format_exc()}")
                 )
 
-    def _fork(self, index: int, slot_bytes: int) -> None:
+    def _fork(self, index: int) -> None:
         """Fork producer ``index`` from this process's state, with fresh
-        queues and a fresh ring of ``prefetch // W`` slots of ``slot_bytes``
-        (two at least: one filled while the consumer reads another); a
-        producer holds at most one more finished batch, waiting for a slot."""
+        queues and a fresh ring of ``prefetch // W`` slots of
+        :meth:`slot_bytes` (two at least: one filled while the consumer
+        reads another); a producer holds at most one more finished batch,
+        waiting for a slot."""
         ctx = mp.get_context("fork")
         count = len(self._producers)
         slots = max(2, self.prefetch // count)
-        ring = _Ring(ctx, slots, slot_bytes)
+        ring = _Ring(ctx, slots, self.slot_bytes())
         cmd_q = ctx.SimpleQueue()
         # the ring bounds the items queued; one more for the end of a run
         data_q = ctx.Queue(maxsize=slots + 1)
@@ -715,19 +727,17 @@ class BatchPipeline:
             proc.start()
         self._producers[index] = _Producer(proc, cmd_q, data_q, ring)
 
-    def _ensure_producers(self, slot_bytes: int) -> None:
-        """Fork ``producers`` producers unless every one is alive with slots
-        of ``slot_bytes``, the size the run's batches need."""
-        if self._producers and all(p.proc.is_alive() and p.ring.slot_bytes == slot_bytes
-                                   for p in self._producers):
+    def _ensure_producers(self) -> None:
+        """Fork ``producers`` producers unless every one is alive."""
+        if self._producers and all(p.proc.is_alive() for p in self._producers):
             return
         self._stop_producers()
         self._cancel = mp.get_context("fork").Event()
         self._producers = [None] * self.producers
         for index in range(len(self._producers)):
-            self._fork(index, slot_bytes)
+            self._fork(index)
 
-    def _read(self, index: int, epochs: int, delivered: int, ships: bool):
+    def _read(self, index: int, epochs: int, delivered: int):
         """The next message of producer ``index``. A dead producer is
         respawned (crash budget permitting) and resumes the run at the
         ``delivered``-th batch: the parent still holds the state the run
@@ -766,8 +776,8 @@ class BatchPipeline:
                 delivered,
             )
             producer.ring.close()
-            self._fork(index, producer.ring.slot_bytes)
-            self._producers[index].cmd_q.put(("produce", epochs, delivered, ships))
+            self._fork(index)
+            self._producers[index].cmd_q.put(("produce", epochs, delivered))
 
     def _absorb(self, roots: list) -> None:
         """Keep a forked worker's root summaries; count its batches'."""
@@ -776,16 +786,15 @@ class BatchPipeline:
             if root.name == "pipeline.produce":
                 self._count(root)
 
-    def _process_batches(self, epochs: int, out, ships: bool = False):
+    def _process_batches(self, epochs: int, out):
         """Batch ``i`` of the run from producer ``i mod W``, copied out of
-        its slot into ``out(used)``, bytes the consumer owns; shipped
-        batches with ``ships``. After the run the parent moves its own state
-        to where the run left the stream (``_forward``), so later forks
-        start from there."""
-        self._ensure_producers(self.slot_bytes(ships))
+        its slot into ``out(used)``, bytes the consumer owns. After the run
+        the parent moves its own state to where the run left the stream
+        (``_forward``), so later forks start from there."""
+        self._ensure_producers()
         self._cancel.clear()
         for producer in self._producers:
-            producer.cmd_q.put(("produce", epochs, 0, ships))
+            producer.cmd_q.put(("produce", epochs, 0))
         count = len(self._producers)
         running = set(range(count))  # producers that have not ended the run
         delivered = 0
@@ -793,7 +802,7 @@ class BatchPipeline:
         try:
             while True:
                 index = delivered % count
-                kind, *rest = self._read(index, epochs, delivered, ships)
+                kind, *rest = self._read(index, epochs, delivered)
                 if kind != "item":
                     break
                 seeds, where, roots = rest
@@ -805,7 +814,7 @@ class BatchPipeline:
             # producer's share of it
             for other in [index] + sorted(running - {index}):
                 if other != index:
-                    kind, *rest = self._read(other, epochs, delivered, ships)
+                    kind, *rest = self._read(other, epochs, delivered)
                 running.discard(other)
                 if kind != "done":
                     raise RuntimeError(f"prefetch worker failed:\n{rest[0]}")

@@ -1,24 +1,27 @@
-"""The kernels that finish a shipped training batch on the card.
+"""The kernels that complete a training batch on the card.
 
-A batch producer ships relabelled edge lists and the table's global vertex
-ids (``models/gnn/batching.py``); ``batching.complete_batch`` turns such a
-batch, moved to the card, into the whole batch with three wrappers:
+A batch producer writes the relabelled batch: the edge lists, the table's
+global vertex ids, and the feature rows only where the card cannot read
+the matrix (``models/gnn/batching.py``). ``batching.complete_batch``, the
+one place a batch's counts and orders are built, turns such a batch,
+moved to its device, into the batch the model reads with three wrappers:
 
-* :func:`table_rows`: the padded feature table, ``table[ids]`` with zero
-  padding rows (``csrc/batch_finish.cu``). The table is a float32 tensor in
-  pinned host memory, read in place by the card, or on the card;
-  :class:`HostTable` makes such a pinned copy of a feature matrix.
 * :func:`sort_edges`: the stable radix sort of ``csrc/segment_sort.cu``
   (padding and ids >= n last), which can also gather a second id array in
   the sorted order: one pass gives a layer's ``layer_dst_order`` and
   ``layer_src[by_dst]``, a second sort of that the ``layer_src_order``.
 * :func:`sorted_counts`: each row's edges read off the dst-sorted keys
   (``csrc/batch_finish.cu``), no atomics.
+* :func:`table_rows`, for a batch without rows: the padded feature table,
+  ``table[ids]`` with zero padding rows (``csrc/batch_finish.cu``). The
+  table is a float32 tensor in pinned host memory, read in place by the
+  card, or on the card; :class:`HostTable` makes such a pinned copy of a
+  feature matrix.
 
 A CPU tensor runs the plain version in ``ref.py``. Each kernel launched
 adds one to ``LAUNCHES[name]`` here, not to ``fused_gnn.LAUNCHES``, which
 counts the model's kernels: ``segment_sort`` counts the sort's kernels
-(three a pass) that finishing a batch launches.
+(three a pass) that completing a batch launches.
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
-// Finishing a training batch on the card (models/gnn/batching.py::
-// complete_batch). A batch producer ships the table's global vertex ids and
-// each layer's relabelled edge lists; the card turns them into the batch
-// that subgraph_to_batch builds on the host, bit for bit, with these two
-// kernels and the radix sort of segment_sort.cu (the two edge orders):
+// Completing a training batch on the card (models/gnn/batching.py::
+// complete_batch). A batch producer writes each layer's relabelled edge
+// lists and the table's global vertex ids; the card builds the counts, the
+// feature rows of a batch without them, and (with the radix sort of
+// segment_sort.cu) the two edge orders, with these two kernels:
 //   1. table_rows_kernel: out[r] = table[ids[r]], a zero row where ids[r] is
 //      padding (< 0) or past the table. The table may lie in pinned host
 //      memory, mapped into the card's address space: each row then crosses

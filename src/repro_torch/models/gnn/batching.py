@@ -2,10 +2,23 @@
 
 Counterpart of ``repro/models/gnn/batching.py``: the same bucket padding
 of the vertex table and the per-layer edge lists, with every field
-bit-equal to the reference's. Layer-k edge list = concat of hops
-0..K-1-k, so its edges are not sorted by destination; the kernels read
-CSR rows, so each layer also carries two permutations, built here with
-numpy:
+bit-equal to the reference's. A batch is made in two steps, each with one
+owner:
+
+* :func:`subgraph_to_batch`, in the batch producer (numpy): the
+  *relabelled* batch, ``valid``, ``seed_pos``, ``labels``, the padded edge
+  lists and ``vertex_ids`` (the table's global vertex ids, -1 padding),
+  and, when asked for ``rows``, the padded feature table (zero padding
+  rows, :func:`with_rows`). Nothing else.
+* :func:`complete_batch`, on the step's device after :meth:`GNNBatch.to`:
+  the feature rows when the batch has none, and per layer the counts and
+  the two orders, through ``kernels/batch_finish.py`` (on the card
+  hand-written kernels and the radix sort of ``csrc/segment_sort.cu``, on
+  the CPU their plain versions). It is the only code that builds them.
+
+Layer-k edge list = concat of hops 0..K-1-k, so its edges are not sorted
+by destination; the kernels read CSR rows, so each completed layer
+carries two permutations and the in-degrees:
 
 * ``layer_dst_order[k]``: stable-sorts the layer's edges by ``dst_pos``
   (the aggregation target), padding last. ``dst[order]`` is the CSR the
@@ -13,28 +26,17 @@ numpy:
 * ``layer_src_order[k]``: stable-sorts those dst-sorted edges by
   ``src_pos``, padding last: the order the gather backwards read
   (``kernels/fused_gnn.py``).
+* ``layer_cnt[k]``: [V, 1] float32 valid-edge in-degree per row, as the
+  reference counts them on the host.
 
 Summing in CSR order changes the float sum order against the JAX oracle,
 which sums in edge order: results agree at float tolerance, not bitwise.
 
-A batch is made in two steps. :func:`subgraph_to_batch` with
-``shipped=True`` stops after relabelling: the *shipped* batch holds
-``valid``, ``seed_pos``, ``labels``, the padded edge lists and
-``vertex_ids`` (the table's global vertex ids, -1 padding), and leaves
-``feats``, ``layer_cnt`` and both orders None. :func:`finish_batch` fills
-those in with numpy; :func:`complete_batch` fills them in on the device
-the shipped batch was moved to, through ``kernels/batch_finish.py``: on
-the card with hand-written kernels (the feature rows, read from a pinned
-host table, and the counts; the orders by the radix sort of
-``csrc/segment_sort.cu``), on the CPU with their plain versions. Either
-way the result is the whole batch ``subgraph_to_batch`` gives, bit for
-bit, with ``vertex_ids`` None.
-
 :meth:`GNNBatch.to` moves a batch to a device with pinned, non-blocking
 copies; an array already in pinned memory (the batch pipeline's staging
 buffers) is copied from where it lies, without pinning it again.
-:func:`largest_batch` gives the shapes of the largest batch, whole or
-shipped, that a sampling plan can make, which sizes the pipeline's
+:func:`largest_batch` gives the shapes of the largest batch, with or
+without rows, that a sampling plan can make, which sizes the pipeline's
 shared-memory slots.
 """
 from __future__ import annotations
@@ -50,15 +52,12 @@ from repro_torch.core.storage import as_feature_source
 from repro_torch.kernels import batch_finish
 from repro_torch.utils import round_up
 
-__all__ = [
-    "GNNBatch", "largest_batch", "subgraph_to_batch", "finish_batch", "complete_batch",
-    "sorted_order",
-]
+__all__ = ["GNNBatch", "largest_batch", "subgraph_to_batch", "with_rows", "complete_batch"]
 
 
 @dataclass
 class GNNBatch:
-    feats: np.ndarray | None  # [V, F] float32, padded; None in a shipped batch
+    feats: np.ndarray | None  # [V, F] float32, padded; None until the rows are gathered
     valid: np.ndarray  # [V] bool
     seed_pos: np.ndarray  # [B] int32 position of seeds in the table
     labels: np.ndarray  # [B] int32
@@ -66,14 +65,14 @@ class GNNBatch:
     layer_dst: list
     layer_src: list
     layer_etype: list
-    # per layer k: [V, 1] float32 valid-edge in-degree per destination,
-    # counted once here (host-side bincount); None = compute in-model
+    # per layer k: [V, 1] float32 valid-edge in-degree per destination, and
+    # int32 [Ek] permutations (see the module docstring); set by
+    # complete_batch, None before
     layer_cnt: list | None = None
-    # per layer k: int32 [Ek] permutations (see the module docstring)
     layer_dst_order: list | None = None
     layer_src_order: list | None = None
-    # [V] int64 global vertex id of each table row, -1 padding: set in a
-    # shipped batch only, whose feature rows are gathered when it is finished
+    # [V] int64 global vertex id of each table row, -1 padding; None once
+    # the batch is completed
     vertex_ids: np.ndarray | None = None
 
     @property
@@ -108,12 +107,6 @@ def _bucket(n: int, quantum: int = 256) -> int:
     return max(quantum, round_up(n, quantum))
 
 
-def sorted_order(pos: np.ndarray) -> np.ndarray:
-    """int32 permutation that stable-sorts ``pos`` with padding (< 0) last."""
-    key = np.where(pos < 0, np.iinfo(np.int32).max, pos)
-    return np.argsort(key, kind="stable").astype(np.int32)
-
-
 def largest_batch(
     num_vertices: int,
     feat_dim: int,
@@ -122,15 +115,15 @@ def largest_batch(
     num_layers: int,
     vertex_quantum: int = 256,
     edge_quantum: int = 1024,
-    shipped: bool = False,
+    rows: bool = True,
 ) -> GNNBatch:
     """A batch of the largest shapes :func:`subgraph_to_batch` can give for
     ``batch_size`` seeds sampled with ``fanouts`` on a graph of
-    ``num_vertices`` (with ``shipped``, the shipped batch's), as zero-stride
-    arrays that hold no memory. A hop's frontier is at most the graph and
-    the seeds times the fanouts before it; each frontier vertex brings at
-    most its hop's fanout in edges; the table holds at most the seeds and
-    every edge's far end."""
+    ``num_vertices``, with or without ``rows``, as zero-stride arrays that
+    hold no memory. A hop's frontier is at most the graph and the seeds
+    times the fanouts before it; each frontier vertex brings at most its
+    hop's fanout in edges; the table holds at most the seeds and every
+    edge's far end."""
     frontier, edges = batch_size, []
     for f in fanouts:
         edges.append(frontier * f)
@@ -144,23 +137,15 @@ def largest_batch(
     def per_layer(dtype):
         return [empty((e,), dtype) for e in epads]
 
-    batch = GNNBatch(
-        feats=None,
+    return GNNBatch(
+        feats=empty((vpad, feat_dim), np.float32) if rows else None,
         valid=empty((vpad,), bool),
         seed_pos=empty((batch_size,), np.int32),
         labels=empty((batch_size,), np.int32),
         layer_dst=per_layer(np.int32),
         layer_src=per_layer(np.int32),
         layer_etype=per_layer(np.int32),
-    )
-    if shipped:
-        return replace(batch, vertex_ids=empty((vpad,), np.int64))
-    return replace(
-        batch,
-        feats=empty((vpad, feat_dim), np.float32),
-        layer_cnt=[empty((vpad, 1), np.float32) for _ in epads],
-        layer_dst_order=per_layer(np.int32),
-        layer_src_order=per_layer(np.int32),
+        vertex_ids=empty((vpad,), np.int64),
     )
 
 
@@ -173,11 +158,11 @@ def subgraph_to_batch(
     edge_types: np.ndarray | None = None,  # global per-edge type table
     vertex_quantum: int = 256,
     edge_quantum: int = 1024,
-    shipped: bool = False,
+    rows: bool = True,
 ) -> GNNBatch:
-    """The padded batch of ``sub``; with ``shipped``, the shipped batch
-    (relabelled, ``feats`` not read), which :func:`finish_batch` or
-    :func:`complete_batch` turns into the same whole batch."""
+    """The relabelled, padded batch of ``sub``, with its feature rows
+    gathered from ``feats`` when ``rows`` (else ``feats`` is not read); no
+    counts or orders (:func:`complete_batch`)."""
     verts = sub.all_vertices()  # unique sorted gids
     vpad = _bucket(verts.shape[0], vertex_quantum)
     vertex_ids = np.full(vpad, -1, dtype=np.int64)
@@ -228,43 +213,29 @@ def subgraph_to_batch(
         layer_etype=layer_et,
         vertex_ids=vertex_ids,
     )
-    return batch if shipped else finish_batch(batch, feats)
+    return with_rows(batch, feats) if rows else batch
 
 
-def finish_batch(batch: GNNBatch, feats) -> GNNBatch:
-    """The whole batch of a shipped numpy ``batch``, with numpy: the
-    feature table gathered from ``feats`` (an ndarray or a
-    ``FeatureSource``) with zero padding rows, and per layer the counts
-    and the two orders."""
+def with_rows(batch: GNNBatch, feats) -> GNNBatch:
+    """``batch`` (numpy) with its feature table gathered from ``feats`` (an
+    ndarray or a ``FeatureSource``), zero padding rows."""
     src = as_feature_source(feats)
-    vpad = batch.valid.shape[0]
     n = int(np.count_nonzero(batch.valid))  # the real rows lead the table
-    table = np.zeros((vpad, src.dim), dtype=np.float32)
+    table = np.zeros((batch.valid.shape[0], src.dim), dtype=np.float32)
     with tracing.span("batch.features"):
         table[:n] = src.gather(batch.vertex_ids[:n])
-    layer_cnt, dst_orders, src_orders = [], [], []
-    for d_pos, s_pos in zip(batch.layer_dst, batch.layer_src):
-        layer_cnt.append(
-            np.bincount(d_pos[d_pos >= 0], minlength=vpad)
-            .astype(np.float32)
-            .reshape(vpad, 1)
-        )
-        by_dst = sorted_order(d_pos)
-        dst_orders.append(by_dst)
-        src_orders.append(sorted_order(s_pos[by_dst]))
-    return replace(batch, feats=table, layer_cnt=layer_cnt, layer_dst_order=dst_orders,
-                   layer_src_order=src_orders, vertex_ids=None)
+    return replace(batch, feats=table)
 
 
-def complete_batch(batch: GNNBatch, table: torch.Tensor) -> GNNBatch:
-    """The whole batch of a shipped ``batch`` of tensors, on their device:
-    what :func:`finish_batch` computes, through ``kernels/batch_finish.py``.
-    One kernel gathers the rows of ``table`` (the feature matrix; on the
-    card a float32 tensor in pinned host memory, read in place, or on the
-    card) with zero padding rows; per layer one radix sort by ``dst_pos``
-    that also gathers ``src_pos`` in that order, a second sort of those,
-    and one kernel that reads each row's count off the sorted keys. On CPU
-    tensors the wrappers' plain versions run it."""
+def complete_batch(batch: GNNBatch, table: torch.Tensor | None = None) -> GNNBatch:
+    """The batch the model reads, from a relabelled ``batch`` of tensors, on
+    their device, through ``kernels/batch_finish.py``. Per layer one radix
+    sort by ``dst_pos`` that also gathers ``src_pos`` in that order, a
+    second sort of those, and one kernel that reads each row's count off
+    the sorted keys; and when ``feats`` is None one kernel that gathers the
+    rows of ``table`` (the feature matrix; on the card a float32 tensor in
+    pinned host memory, read in place, or on the card) with zero padding
+    rows. On CPU tensors the wrappers' plain versions run it."""
     vpad = batch.valid.shape[0]
     layer_cnt, dst_orders, src_orders = [], [], []
     for d_pos, s_pos in zip(batch.layer_dst, batch.layer_src):
@@ -272,6 +243,10 @@ def complete_batch(batch: GNNBatch, table: torch.Tensor) -> GNNBatch:
         dst_orders.append(by_dst)
         src_orders.append(batch_finish.sort_edges(s_by_dst, vpad)[1])
         layer_cnt.append(batch_finish.sorted_counts(keys, vpad))
-    feats = batch_finish.table_rows(table, batch.vertex_ids)
+    feats = batch.feats
+    if feats is None:
+        if table is None:
+            raise ValueError("a batch without feature rows is completed from the feature table")
+        feats = batch_finish.table_rows(table, batch.vertex_ids)
     return replace(batch, feats=feats, layer_cnt=layer_cnt, layer_dst_order=dst_orders,
                    layer_src_order=src_orders, vertex_ids=None)

@@ -11,14 +11,17 @@ and then runs the S shards as one batch:
   the SAME shared backend, seeded ``seed + 7919 * i``: every shard's batch
   stream is deterministic however the service interleaves them, and a
   remote backend's channel fds stay in this process;
-- each step takes one padded batch per shard and pads them to a common
-  bucket (:func:`stack_batches`, bitwise the reference's arrays);
+- each step takes one padded batch per shard (``host_batches``: rows, no
+  counts or orders) and pads them to a common bucket
+  (:func:`stack_batches`, bitwise the reference's arrays);
 - :func:`merge_shards` lays the S padded batches out block-diagonally as
   one ``GNNBatch``: shard s's vertex rows at ``[s*V, (s+1)*V)``, its edge
   endpoints and seed positions offset by ``s*V`` (``-1`` padding stays
-  ``-1``), and the dst / src orders recomputed over the merged edge lists,
-  so every shard's padding moves to the global tail as ``GNNModel.layer``
-  requires;
+  ``-1``);
+- the merged batch is moved to the device and completed there
+  (``complete_batch``): its counts and its dst / src orders over the
+  merged edge lists, so every shard's padding sorts to the global tail as
+  ``GNNModel.layer`` requires;
 - the step is one forward and one ``backward()`` over the merged batch, so
   each aggregation kernel launches once per layer whatever S is, and the
   loss is ``CE.view(S, B/S).mean(1).mean()``, the reference's
@@ -31,11 +34,11 @@ gives every shard rows of its own, so the merged forward's aggregates
 are, row for row, those of the shard alone on the same inputs.
 
 ``reference=True`` keeps a deep copy of the initial model and optimizer
-state and runs the per-shard loop on the very same batches: each shard's
-own ``model.loss`` (S launches per layer), the mean of the S losses, one
-``backward()``, AdamW. It logs those losses as ``ref_losses``: a program
-other than the merged step, as the reference's unsharded jit is other
-than its sharded one.
+state and runs the per-shard loop on the very same batches: each shard
+moved and completed on its own, its own ``model.loss`` (S launches per
+layer), the mean of the S losses, one ``backward()``, AdamW. It logs
+those losses as ``ref_losses``: a program other than the merged step, as
+the reference's unsharded jit is other than its sharded one.
 
 The initial parameters are the model's own (as ``GNNTrainer``); the model
 is trained in place, on ``device``. On a CUDA device the kernels run or
@@ -52,7 +55,7 @@ import torch
 from repro_torch import tracing
 from repro_torch.api.pipeline import BatchPipeline
 from repro_torch.device import resolve_device
-from repro_torch.models.gnn.batching import GNNBatch, sorted_order
+from repro_torch.models.gnn.batching import GNNBatch, complete_batch
 from repro_torch.train.loop import descend
 from repro_torch.train.optim import AdamWConfig, adamw_init
 
@@ -81,16 +84,18 @@ class DPTrainLog:
 
 
 def stack_batches(batches: list[GNNBatch]) -> GNNBatch:
-    """Stack per-shard numpy ``GNNBatch``es along a new leading shard axis.
+    """Stack per-shard numpy ``GNNBatch``es, with their rows, along a new
+    leading shard axis.
 
     Shards sample independently, so their padded bucket shapes may
     differ; every array is first padded to the max bucket across shards
     using the batching pads (zero feature rows, ``valid=False``, edge
-    positions ``-1``, edge type ``0``, zero degree) — semantically inert
-    by the same argument as the original padding. The fields the JAX
-    package stacks are bitwise its arrays; each shard's dst / src orders
-    are recomputed over its padded edge lists. Seed counts must match (the
-    caller drops ragged tails); stacking never changes any shard's rows.
+    positions ``-1``, edge type ``0``) — semantically inert by the same
+    argument as the original padding. The fields the JAX package stacks
+    are bitwise its arrays; no counts or orders are stacked
+    (``complete_batch`` builds them on the device). Seed counts must match
+    (the caller drops ragged tails); stacking never changes any shard's
+    rows.
     """
     bs = {b.seed_pos.shape[0] for b in batches}
     if len(bs) != 1:
@@ -106,35 +111,18 @@ def stack_batches(batches: list[GNNBatch]) -> GNNBatch:
         out[: arr.shape[0]] = arr
         return out
 
-    dst = [[pad0(b.layer_dst[k], emax[k], -1) for b in batches] for k in range(num_layers)]
-    src = [[pad0(b.layer_src[k], emax[k], -1) for b in batches] for k in range(num_layers)]
-    by_dst = [[sorted_order(d) for d in dst[k]] for k in range(num_layers)]
+    def per_layer(name, fill):
+        return [np.stack([pad0(getattr(b, name)[k], emax[k], fill) for b in batches])
+                for k in range(num_layers)]
+
     return GNNBatch(
         feats=np.stack([pad0(b.feats, vmax, 0.0) for b in batches]),
         valid=np.stack([pad0(b.valid, vmax, False) for b in batches]),
         seed_pos=np.stack([b.seed_pos for b in batches]),
         labels=np.stack([b.labels for b in batches]),
-        layer_dst=[np.stack(d) for d in dst],
-        layer_src=[np.stack(s) for s in src],
-        layer_etype=[
-            np.stack([pad0(b.layer_etype[k], emax[k], 0) for b in batches])
-            for k in range(num_layers)
-        ],
-        # degree columns are per-vertex-row, so the vertex pad (zero
-        # count) keeps them consistent with the -1-padded edge lists
-        layer_cnt=(
-            [
-                np.stack([pad0(b.layer_cnt[k], vmax, 0.0) for b in batches])
-                for k in range(num_layers)
-            ]
-            if all(b.layer_cnt is not None for b in batches)
-            else None
-        ),
-        layer_dst_order=[np.stack(o) for o in by_dst],
-        layer_src_order=[
-            np.stack([sorted_order(s[o]) for s, o in zip(src[k], by_dst[k])])
-            for k in range(num_layers)
-        ],
+        layer_dst=per_layer("layer_dst", -1),
+        layer_src=per_layer("layer_src", -1),
+        layer_etype=per_layer("layer_etype", 0),
     )
 
 
@@ -154,9 +142,8 @@ def merge_shards(stacked: GNNBatch) -> GNNBatch:
     """The S shards of a stacked batch as one block-diagonal ``GNNBatch``:
     shard s's vertex rows at ``[s*V, (s+1)*V)``, its edge endpoints and
     seed positions offset by ``s*V`` (``-1`` stays ``-1``), its edges at
-    ``[s*E, (s+1)*E)`` of each layer's list, and both orders recomputed
-    over the merged lists (padding at the global tail). The seeds come out
-    shard by shard, ``B/S`` each."""
+    ``[s*E, (s+1)*E)`` of each layer's list. The seeds come out shard by
+    shard, ``B/S`` each."""
     num_shards, rows = stacked.feats.shape[:2]
     edges = max(d.shape[1] for d in stacked.layer_dst)
     if num_shards * max(rows, edges) > _INT32_MAX:
@@ -169,24 +156,14 @@ def merge_shards(stacked: GNNBatch) -> GNNBatch:
     def shift(pos):
         return np.where(pos >= 0, pos + off, -1).astype(np.int32).reshape(-1)
 
-    dst = [shift(d) for d in stacked.layer_dst]
-    src = [shift(s) for s in stacked.layer_src]
-    by_dst = [sorted_order(d) for d in dst]
     return GNNBatch(
         feats=stacked.feats.reshape(num_shards * rows, -1),
         valid=stacked.valid.reshape(-1),
         seed_pos=(stacked.seed_pos + off).reshape(-1),
         labels=stacked.labels.reshape(-1),
-        layer_dst=dst,
-        layer_src=src,
+        layer_dst=[shift(d) for d in stacked.layer_dst],
+        layer_src=[shift(s) for s in stacked.layer_src],
         layer_etype=[e.reshape(-1) for e in stacked.layer_etype],
-        layer_cnt=(
-            None
-            if stacked.layer_cnt is None
-            else [c.reshape(num_shards * rows, 1) for c in stacked.layer_cnt]
-        ),
-        layer_dst_order=by_dst,
-        layer_src_order=[sorted_order(s[o]) for s, o in zip(src, by_dst)],
     )
 
 
@@ -270,8 +247,8 @@ class DataParallelGNNTrainer:
         return ce.view(self.num_shards, -1).mean(1).mean()
 
     def merged_step(self, batch: GNNBatch) -> torch.Tensor:
-        """One step of the model over a merged batch on the device; returns
-        the loss (0-d, not waited for)."""
+        """One step of the model over a merged batch, completed on the
+        device; returns the loss (0-d, not waited for)."""
         loss, self.opt_state = descend(
             self.model.param_tree(), lambda: self.merged_loss(batch), self.opt_state,
             self.opt_cfg,
@@ -280,7 +257,8 @@ class DataParallelGNNTrainer:
 
     def reference_step(self, stacked: GNNBatch) -> torch.Tensor:
         """One step of the twin: each shard's own loss, their mean."""
-        shards = [shard(stacked, s).to(self.device) for s in range(self.num_shards)]
+        shards = [complete_batch(shard(stacked, s).to(self.device))
+                  for s in range(self.num_shards)]
         loss, self.ref_opt_state = descend(
             self.ref_model.param_tree(),
             lambda: torch.stack([self.ref_model.loss(b) for b in shards]).mean(),
@@ -310,7 +288,7 @@ class DataParallelGNNTrainer:
                     merged = merge_shards(stacked)
                 self.log.sample_time += shards.seconds
                 with tracing.span("trainer.compute") as compute:
-                    loss = float(self.merged_step(merged.to(self.device)))
+                    loss = float(self.merged_step(complete_batch(merged.to(self.device))))
                 self.log.compute_time += compute.seconds
                 self.log.wall.append(shards.seconds + compute.seconds)
                 if step % log_every == 0:

@@ -45,6 +45,7 @@ from repro_torch.core.sampling.service import DEFAULT_DIRECTION
 from repro_torch.data.graph_loader import SeedBatchLoader
 from repro_torch.data.tokens import SyntheticTokenStream
 from repro_torch.device import resolve_device
+from repro_torch.models.gnn.batching import complete_batch
 from repro_torch.models.gnn.models import GNNModel
 from repro_torch.models.transformer.config import ArchConfig
 from repro_torch.models.transformer.layers import Params
@@ -244,7 +245,7 @@ class GNNTrainer:
         for i, seeds in enumerate(loader.epoch()):
             if i >= batches:
                 break
-            batch = self.make_batch(seeds).to(self.model.device)
+            batch = complete_batch(self.make_batch(seeds).to(self.model.device))
             logits = self.model.apply(batch)
             accs.append(float((logits.argmax(-1) == batch.labels.long()).float().mean()))
         return float(np.mean(accs)) if accs else 0.0

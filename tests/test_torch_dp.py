@@ -4,8 +4,11 @@ One card has only the shard axis: the port lays the S shard batches out
 block-diagonally as one batch and takes one step over it
 (``repro_torch/train/data_parallel.py``). Held here:
 
-- ``stack_batches`` bitwise the reference's, orders recomputed;
-- the merged layout (offsets, ``-1`` kept, padding at the global tail);
+- ``stack_batches`` bitwise the reference's; each shard completed
+  (``complete_batch``, the plain versions) has the reference's counts and
+  the stable host argsort's orders;
+- the merged layout (offsets, ``-1`` kept), completed: padding at the
+  global tail, the counts of the merged edges;
 - at S = 1 the loss trajectory of the JAX ``DataParallelGNNTrainer`` over a
   one-device mesh, from the JAX parameters: rtol 1e-5;
 - at S = 2 and 4 one merged step against the JAX step rebuilt from its
@@ -39,7 +42,7 @@ from repro.train import data_parallel as jax_dp  # noqa: E402
 from repro.train import optim as jax_optim  # noqa: E402
 from repro_torch.graph import power_law_graph  # noqa: E402
 from repro_torch.models.gnn import GNNModel, load_jax_params  # noqa: E402
-from repro_torch.models.gnn.batching import GNNBatch, sorted_order  # noqa: E402
+from repro_torch.models.gnn.batching import GNNBatch, complete_batch  # noqa: E402
 from repro_torch.train import DataParallelGNNTrainer, stack_batches  # noqa: E402
 from repro_torch.train.data_parallel import merge_shards, shard  # noqa: E402
 from repro_torch.train.optim import adamw_init  # noqa: E402
@@ -50,6 +53,18 @@ IDS = np.arange(0, 2000, 3)
 HIDDEN, LAYERS, HEADS = 16, 2, 2
 SHARED = ("feats", "valid", "seed_pos", "labels", "layer_dst", "layer_src", "layer_etype",
           "layer_cnt")
+
+
+def _stable_order(pos: np.ndarray) -> np.ndarray:
+    """The oracle of the orders: the int32 permutation that stable-sorts
+    ``pos`` with padding (< 0) last."""
+    key = np.where(pos < 0, np.iinfo(np.int32).max, pos)
+    return np.argsort(key, kind="stable").astype(np.int32)
+
+
+def _counts(dst: np.ndarray, rows: int) -> np.ndarray:
+    """The reference's counts: ``subgraph_to_batch``'s host ``bincount``."""
+    return np.bincount(dst[dst >= 0], minlength=rows).astype(np.float32).reshape(rows, 1)
 
 
 @pytest.fixture(scope="module")
@@ -83,7 +98,14 @@ def _shard_batches(system, num_shards, batch_size=64):
 
 
 def _as_jax(b: GNNBatch) -> JaxBatch:
-    return JaxBatch(**{name: getattr(b, name) for name in SHARED})
+    """The JAX batch of a shard's host batch, with the reference's counts."""
+    rows = b.valid.shape[0]
+    return JaxBatch(**{name: getattr(b, name) for name in SHARED if name != "layer_cnt"},
+                    layer_cnt=[_counts(d, rows) for d in b.layer_dst])
+
+
+def _np(t) -> np.ndarray:
+    return t.numpy()
 
 
 def _equal(a, b):
@@ -98,17 +120,21 @@ def test_stack_batches_is_the_references(systems, num_shards):
     _, batches = _shard_batches(st, num_shards)
     ours = stack_batches(batches)
     theirs = jax_dp.stack_batches([_as_jax(b) for b in batches])
-    for name in SHARED:
+    for name in SHARED[:-1]:
         assert _equal(getattr(ours, name), getattr(theirs, name)), name
-    for k in range(LAYERS):
-        for s in range(num_shards):
+    assert ours.layer_cnt is None and ours.layer_dst_order is None
+    for s in range(num_shards):
+        done = complete_batch(shard(ours, s).to("cpu"))
+        own = complete_batch(batches[s].to("cpu"))
+        for k in range(LAYERS):
             dst, src = ours.layer_dst[k][s], ours.layer_src[k][s]
-            by_dst = ours.layer_dst_order[k][s]
-            assert np.array_equal(by_dst, sorted_order(dst))
-            assert np.array_equal(ours.layer_src_order[k][s], sorted_order(src[by_dst]))
+            by_dst = _np(done.layer_dst_order[k])
+            assert np.array_equal(by_dst, _stable_order(dst))
+            assert np.array_equal(_np(done.layer_src_order[k]), _stable_order(src[by_dst]))
+            assert _equal(_np(done.layer_cnt[k]), theirs.layer_cnt[k][s])
             # a shard's own orders, extended over its padding
             e = batches[s].layer_dst[k].shape[0]
-            assert np.array_equal(by_dst[:e], batches[s].layer_dst_order[k])
+            assert np.array_equal(by_dst[:e], _np(own.layer_dst_order[k]))
 
 
 def test_stack_batches_pads_and_rejects_ragged():
@@ -127,7 +153,7 @@ def test_stack_batches_pads_and_rejects_ragged():
 
     stacked = stack_batches([mk(8, 6, 4), mk(5, 9, 4)])
     assert stacked.feats.shape == (2, 8, 4)
-    assert stacked.layer_dst[0].shape == stacked.layer_dst_order[0].shape == (2, 9)
+    assert stacked.layer_dst[0].shape == (2, 9) and stacked.layer_dst_order is None
     assert not stacked.valid[1, 5:].any()
     assert (stacked.layer_dst[0][0, 6:] == -1).all()
     assert stacked.layer_cnt is None
@@ -140,28 +166,30 @@ def test_merge_shards_lays_the_shards_out_block_diagonally(systems, num_shards):
     _, st = systems
     _, batches = _shard_batches(st, num_shards, batch_size=48)
     stacked = stack_batches(batches)
-    merged = merge_shards(stacked)
+    host = merge_shards(stacked)
+    assert host.layer_cnt is None and host.layer_dst_order is None
+    merged = complete_batch(host.to("cpu"))
     S, V = stacked.feats.shape[:2]
     assert merged.feats.shape == (S * V, 16)
-    assert np.array_equal(merged.feats, np.concatenate(list(stacked.feats)))
+    assert np.array_equal(_np(merged.feats), np.concatenate(list(stacked.feats)))
     B = stacked.seed_pos.shape[1]
     for s in range(S):
-        assert np.array_equal(merged.seed_pos[s * B:(s + 1) * B], stacked.seed_pos[s] + s * V)
+        assert np.array_equal(_np(merged.seed_pos)[s * B:(s + 1) * B],
+                              stacked.seed_pos[s] + s * V)
     for k in range(LAYERS):
-        dst, src = merged.layer_dst[k], merged.layer_src[k]
+        dst, src = host.layer_dst[k], host.layer_src[k]
         E = stacked.layer_dst[k].shape[1]
         for s in range(S):
             d = stacked.layer_dst[k][s]
             assert np.array_equal(dst[s * E:(s + 1) * E], np.where(d >= 0, d + s * V, -1))
-        by_dst = merged.layer_dst_order[k]
-        assert by_dst.dtype == np.int32 and np.array_equal(by_dst, sorted_order(dst))
+        by_dst = _np(merged.layer_dst_order[k])
+        assert by_dst.dtype == np.int32 and np.array_equal(by_dst, _stable_order(dst))
         real = int((dst >= 0).sum())
         # every shard's padding at the global tail, the rows ascending
         assert (dst[by_dst][:real] >= 0).all() and (dst[by_dst][real:] == -1).all()
         assert np.all(np.diff(dst[by_dst][:real]) >= 0)
-        assert np.array_equal(merged.layer_src_order[k], sorted_order(src[by_dst]))
-        assert np.array_equal(merged.layer_cnt[k][:, 0],
-                              np.bincount(dst[dst >= 0], minlength=S * V).astype(np.float32))
+        assert np.array_equal(_np(merged.layer_src_order[k]), _stable_order(src[by_dst]))
+        assert np.array_equal(_np(merged.layer_cnt[k]), _counts(dst, S * V))
     # one shard's own batch, as the per-shard loop sees it
     one = shard(stacked, S - 1)
     assert np.array_equal(one.feats, stacked.feats[S - 1])
@@ -222,7 +250,7 @@ def test_merged_step_matches_the_jax_vmap_step(systems, kind, num_shards):
 
     tr.model = tm
     tr.opt_state = adamw_init(tm.param_tree())
-    loss_t = tr.merged_step(merge_shards(stacked).to("cpu"))
+    loss_t = tr.merged_step(complete_batch(merge_shards(stacked).to("cpu")))
     np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-5)
     pairs = [("out", tm.out, grads_j["out"], new_j["out"])] + [
         (f"layer {k} {name}", p, grads_j["layers"][k][name], new_j["layers"][k][name])

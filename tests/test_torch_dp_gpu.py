@@ -27,6 +27,7 @@ import repro_torch.api as torch_api  # noqa: E402
 from repro_torch.graph import power_law_graph  # noqa: E402
 from repro_torch.kernels import fused_gnn, ops  # noqa: E402
 from repro_torch.models.gnn import GNNModel, models  # noqa: E402
+from repro_torch.models.gnn.batching import complete_batch  # noqa: E402
 from repro_torch.train.data_parallel import merge_shards, shard, stack_batches  # noqa: E402
 
 CONFIG = dict(num_parts=4, fanouts=(15, 10, 5), seed=0, dist_dispatch_timeout=60.0)
@@ -128,7 +129,7 @@ def _aggregates_check(system, kind, device, *, loop=False):
                      num_classes=8, num_heads=4, device=device)
     rec = AggregateRecorder()
     with torch.no_grad(), rec.patched():
-        model.apply(merge_shards(stacked).to(device))
+        model.apply(complete_batch(merge_shards(stacked).to(device)))
     assert len(rec.calls) == 3
     rows = stacked.feats.shape[1]
     bad = shard_mismatches(rec.calls, SHARDS, rows)
@@ -137,7 +138,7 @@ def _aggregates_check(system, kind, device, *, loop=False):
         each = AggregateRecorder()
         with torch.no_grad(), each.patched():
             for s in range(SHARDS):
-                model.apply(shard(stacked, s).to(device))
+                model.apply(complete_batch(shard(stacked, s).to(device)))
         for k in range(3):
             merged = rec.calls[k][2]
             for s in range(SHARDS):

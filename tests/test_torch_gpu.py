@@ -1572,6 +1572,14 @@ def _host_batches(pipe, epochs):
         stream.close()
 
 
+def _completed_on_the_cpu(items, device):
+    """Host batches completed by the plain versions, then moved to
+    ``device``: what the card's completion must give, bit for bit."""
+    from repro_torch.models.gnn.batching import complete_batch
+
+    return [(s, complete_batch(b.to("cpu")).to(device)) for s, b in items]
+
+
 def test_a_batch_moves_the_same_bits_from_pinned_and_pageable_memory(cuda, monkeypatch):
     """``GNNBatch.to`` gives the same tensors from a pageable batch and from
     one whose arrays lie in a pinned buffer, and pins only the pageable
@@ -1598,7 +1606,7 @@ def test_a_batch_moves_the_same_bits_from_pinned_and_pageable_memory(cuda, monke
     for name, va in vars(a).items():
         vb = getattr(b, name)
         for x, y in zip(va if isinstance(va, list) else [va], vb if isinstance(vb, list) else [vb]):
-            if x is None:  # vertex_ids: a whole batch has none
+            if x is None:  # counts and orders: a host batch has none
                 assert y is None, name
                 continue
             assert x.device.type == "cuda" and torch.equal(x, y), name
@@ -1606,8 +1614,9 @@ def test_a_batch_moves_the_same_bits_from_pinned_and_pageable_memory(cuda, monke
 
 def test_forked_producers_to_the_card_give_the_serial_stream(cuda):
     """Three forked producers, each batch copied out of its slot into a
-    reused pinned buffer and on to the card: every batch of two epochs,
-    held to the end, is the serial stream's, bit for bit."""
+    reused pinned buffer and on to the card, completed there: every batch
+    of two epochs, held to the end, is the serial stream's completed by
+    the plain versions, bit for bit."""
     from repro_torch.api import BatchPipeline
 
     system = _small_system()
@@ -1616,7 +1625,7 @@ def test_forked_producers_to_the_card_give_the_serial_stream(cuda):
         return BatchPipeline(system.backend, system.graph, np.arange(0, 1500, 2), (6, 4), 2,
                              batch_size=64, prefetch=prefetch, worker_cores=cores, device=device)
 
-    want = _host_batches(pipe(0, "cpu"), 2)
+    want = _completed_on_the_cpu(_host_batches(pipe(0, "cpu"), 2), "cpu")
     ahead = pipe(2, "cuda", (0, 1, 2))
     try:
         got = list(ahead.batches(2))
@@ -1631,14 +1640,14 @@ def test_forked_producers_to_the_card_give_the_serial_stream(cuda):
             vb = getattr(bb, name)
             for x, y in zip(va if isinstance(va, list) else [va],
                             vb if isinstance(vb, list) else [vb]):
-                if x is None:  # vertex_ids: a finished batch has none
+                if x is None:  # vertex_ids: a completed batch has none
                     assert y is None, name
                     continue
-                assert y.device.type == "cuda" and torch.equal(torch.from_numpy(x), y.cpu()), name
+                assert y.device.type == "cuda" and torch.equal(x, y.cpu()), name
 
 
-# Finishing a shipped batch on the card (kernels/batch_finish.py,
-# models/gnn/batching.py::complete_batch): bit for bit the host's batch.
+# Completing a batch on the card (kernels/batch_finish.py,
+# models/gnn/batching.py::complete_batch): bit for bit the plain versions'.
 
 
 def _same_on_card(want, got):
@@ -1700,32 +1709,37 @@ def _shipped_pair(system, fanouts, layers, typed, vq, eq):
     sub = system.backend.sample(np.arange(0, 1500, 23)[:64], list(fanouts))
     kw = dict(edge_types=g.edge_types if typed else None, vertex_quantum=vq, edge_quantum=eq)
     return (subgraph_to_batch(sub, g.vertex_feats, g.labels, layers, **kw),
-            subgraph_to_batch(sub, g.vertex_feats, g.labels, layers, shipped=True, **kw))
+            subgraph_to_batch(sub, g.vertex_feats, g.labels, layers, rows=False, **kw))
 
 
 @pytest.mark.parametrize("plan", [((6, 4, 2), 3, False, 256, 1024), ((6, 4), 2, True, 64, 128)],
                          ids=["sage-like", "hetero"])
 def test_a_shipped_batch_completed_on_the_card_is_the_host_batch(cuda, plan):
-    """``complete_batch`` of a shipped batch moved with ``.to``: every
-    field the host batch's moved with ``.to``, bit for bit, from a pinned
-    table and from a table on the card; one launch of the rows kernel, per
-    layer one of the counts kernel and two sorts, nothing of the model's
-    kernels counted."""
+    """``complete_batch`` of a batch without rows moved with ``.to``: every
+    field the plain versions' completion of the batch with rows, bit for
+    bit, from a pinned table and from a table on the card; one launch of
+    the rows kernel, per layer one of the counts kernel and two sorts,
+    nothing of the model's kernels counted. The batch with rows completes
+    to the same without the rows kernel."""
     from repro_torch.kernels import batch_finish
     from repro_torch.models.gnn.batching import complete_batch
 
     system = _small_system()
     whole, shipped = _shipped_pair(system, *plan)
     layers = plan[1]
-    want = whole.to(cuda)
+    want = _completed_on_the_cpu([(None, whole)], cuda)[0][1]
     table = torch.from_numpy(system.graph.vertex_feats).pin_memory()
+    passes = fused_gnn.sort_passes(whole.valid.shape[0])
     fused_gnn.reset_launches()
     for where in (table, table.to(cuda)):
         batch_finish.reset_launches()
         _same_on_card(want, complete_batch(shipped.to(cuda), where))
-        passes = fused_gnn.sort_passes(whole.valid.shape[0])
         assert batch_finish.LAUNCHES == {"table_rows": 1, "sorted_counts": layers,
                                          "segment_sort": 2 * layers * 3 * passes}
+    batch_finish.reset_launches()
+    _same_on_card(want, complete_batch(whole.to(cuda)))
+    assert batch_finish.LAUNCHES == {"table_rows": 0, "sorted_counts": layers,
+                                     "segment_sort": 2 * layers * 3 * passes}
     assert set(fused_gnn.LAUNCHES.values()) == {0}
 
 
@@ -1748,25 +1762,25 @@ def _stalling_pipeline(*a, **kw):
             self._index = index
             super()._worker_loop(index, *a)
 
-        def make_batch(self, seeds, *args):
+        def _assemble(self, seeds, *args):
             if self._index == 1 and not self.stalled.is_set():
                 self._made += 1
                 if self._made == 2:
                     self.stalled.set()
                     time.sleep(120)
-            return super().make_batch(seeds, *args)
+            return super()._assemble(seeds, *args)
 
     return Stalling(*a, **kw)
 
 
 @pytest.mark.parametrize("respawn", [False, True], ids=["steady", "respawn"])
 def test_two_producers_ship_to_the_card_the_host_stream(cuda, respawn):
-    """Two forked producers ship eight batches that the card finishes: the
-    batches of ``host_batches()`` moved with ``.to``, bit for bit; also when
-    producer 1 is killed mid-run after the card path has run (CUDA
-    initialised, the table and the staging buffers pinned) and respawned.
-    Each batch is finished once in the consumer; the slot is a shipped
-    batch's."""
+    """Two forked producers leave the rows of eight batches to the card,
+    which completes them: the batches of ``host_batches()`` completed by
+    the plain versions, bit for bit; also when producer 1 is killed
+    mid-run after the card path has run (CUDA initialised, the table and
+    the staging buffers pinned) and respawned. Each batch is completed
+    once in the consumer; the slot holds no rows."""
     from repro_torch import tracing
     from repro_torch.api import BatchPipeline
     from repro_torch.kernels import batch_finish
@@ -1780,8 +1794,8 @@ def test_two_producers_ship_to_the_card_the_host_stream(cuda, respawn):
 
     host = pipe("cpu")
     try:
-        want = [(s, b.to(cuda)) for s, b in _host_batches(host, 1)]
-        whole_slot = host.slot_bytes()
+        want = _completed_on_the_cpu(_host_batches(host, 1), cuda)
+        bare_slot = host.slot_bytes()
     finally:
         host.close()
     ahead = pipe("cuda", respawn)
@@ -1798,8 +1812,9 @@ def test_two_producers_ship_to_the_card_the_host_stream(cuda, respawn):
                 victim.kill()
                 victim.join(timeout=10)
         assert ahead.respawn_count == int(respawn)
-        assert ahead.slot_bytes(True) < whole_slot and ahead._table.tensor.is_pinned()
-        assert all(p.ring.slot_bytes == ahead.slot_bytes(True) for p in ahead._producers)
+        assert ahead._rows_as_ids and host._rows_as_ids and ahead._table.tensor.is_pinned()
+        assert ahead.slot_bytes() == bare_slot
+        assert all(p.ring.slot_bytes == bare_slot for p in ahead._producers)
     finally:
         stream.close()
         ahead.close()
@@ -1817,8 +1832,9 @@ def test_two_producers_ship_to_the_card_the_host_stream(cuda, respawn):
 
 def test_a_store_backed_pipeline_gathers_on_the_host(cuda, tmp_path):
     """Over a ``StoreFeatureSource`` the forked producers gather the rows
-    themselves and write whole batches; the card finishes nothing and no
-    table is pinned. The batches are the host stream's, moved with ``.to``."""
+    themselves; the card completes each batch without the rows kernel, and
+    no table is pinned. The batches are the host stream's completed by the
+    plain versions."""
     from repro_torch import tracing
     from repro_torch.api import BatchPipeline
     from repro_torch.core.storage import StoreFeatureSource
@@ -1833,19 +1849,19 @@ def test_a_store_backed_pipeline_gathers_on_the_host(cuda, tmp_path):
                              batch_size=64, prefetch=prefetch, worker_cores=(0, 1),
                              feature_source=source, device=device)
 
-    want = [(s, b.to(cuda)) for s, b in _host_batches(pipe("cpu", 0), 1)]
+    want = _completed_on_the_cpu(_host_batches(pipe("cpu", 0), 1), cuda)
     ahead = pipe("cuda", 2)
     tracing.reset()
     batch_finish.reset_launches()
     try:
         got = list(ahead.batches(1))
-        assert ahead._table is None and not ahead._ships()
+        assert ahead._table is None and not ahead._rows_as_ids
     finally:
         ahead.close()
     assert len(got) == len(want) == 8
     for (sa, a), (sb, b) in zip(want, got):
         assert np.array_equal(sa, sb)
         _same_on_card(a, b)
-    assert set(batch_finish.LAUNCHES.values()) == {0}
+    assert batch_finish.LAUNCHES["table_rows"] == 0 and batch_finish.LAUNCHES["sorted_counts"] == 16
     assert all("batch.features" in r.count for r in tracing.roots("pipeline.produce"))
-    assert not any("batch.complete" in r.count for r in tracing.roots("pipeline.next"))
+    assert [r.count.get("batch.complete") for r in tracing.roots("pipeline.next")] == [1] * 8

@@ -183,9 +183,11 @@ def test_no_range_without_a_profiler(monkeypatch):
 
 
 def _pipeline(system, workers, prefetch=2):
-    pipe = system.loader(np.arange(0, 1200, 3), batch_size=64, prefetch=prefetch, device="cpu")
-    pipe.workers = workers
-    return pipe
+    """``system.loader``'s pipeline, built for ``workers``."""
+    cfg = system.config
+    return torch_api.BatchPipeline(system.backend, system.graph, np.arange(0, 1200, 3), (5, 3),
+                                   2, batch_size=64, spec=cfg.sampling_spec(), prefetch=prefetch,
+                                   inflight=cfg.inflight, workers=workers, device="cpu")
 
 
 def test_a_forked_producer_sends_its_roots_and_opens_no_range(system, monkeypatch):
@@ -261,11 +263,13 @@ def test_each_forked_producer_sends_its_own_roots(system, cores):
 @pytest.mark.parametrize("path", ["batches-process", "host_batches-process",
                                   "batches-thread", "batches-serial"])
 def test_a_shipped_batch_is_completed_once_in_the_consumer(system, path):
-    """Forked producers feeding ``batches()`` ship their batches, and the
-    consumer finishes each once, inside its ``pipeline.next`` root
-    (``batch.to_device`` > ``batch.complete``), never in a producer's
-    ``pipeline.produce`` root; ``host_batches()``, thread and serial modes
-    make whole batches in the producer, and no ``batch.complete`` runs."""
+    """In every mode the consumer of ``batches()`` completes each batch
+    once, inside its ``pipeline.next`` root (``batch.to_device`` >
+    ``batch.complete``), never in a producer's ``pipeline.produce`` root.
+    Forked producers over the in-memory matrix leave the rows to the
+    consumer (``host_batches()`` gathers them outside any ``pipeline.next``
+    root, ``batches()`` on the device); thread and serial producers gather
+    them (``batch.features``)."""
     consumer, workers = path.split("-")
     pipe = _pipeline(system, "thread" if workers == "serial" else workers,
                      0 if workers == "serial" else 2)
@@ -276,12 +280,16 @@ def test_a_shipped_batch_is_completed_once_in_the_consumer(system, path):
     assert len(got) == 6
     produced = tracing.roots("pipeline.produce")
     assert len(produced) == 6 and not any("batch.complete" in r.count for r in produced)
-    shipped = path == "batches-process"
-    assert all(("batch.features" in r.count) != shipped for r in produced)
+    forked = workers == "process"
+    assert pipe._rows_as_ids is forked
+    assert all(("batch.features" in r.count) != forked for r in produced)
     taken = tracing.roots("pipeline.next")
     assert len(taken) == (6 if consumer == "batches" else 0)
-    assert [r.count.get("batch.complete", 0) for r in taken] == [int(shipped)] * len(taken)
+    assert [r.count.get("batch.complete", 0) for r in taken] == [1] * len(taken)
     assert not any("batch.features" in r.count for r in taken)
+    # host_batches() gathers the rows it was left, each in a root of its own
+    gathered = len(tracing.roots("batch.features"))
+    assert gathered == (6 if consumer == "host_batches" else 0)
 
 
 @pytest.mark.parametrize("workers,prefetch", [("thread", 2), ("thread", 0)])

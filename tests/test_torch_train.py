@@ -46,17 +46,17 @@ from repro_torch.kernels.ref import (  # noqa: E402
     gather_spmm_ref,
 )
 from repro_torch.models.gnn import GNNModel, load_jax_params  # noqa: E402
-from repro_torch.api.pipeline import _views, write_batch  # noqa: E402
+from repro_torch.api.pipeline import _plan, _views, write_batch  # noqa: E402
 from repro_torch.models.gnn.batching import (  # noqa: E402
     GNNBatch,
     complete_batch,
-    finish_batch,
     largest_batch,
-    sorted_order,
     subgraph_to_batch,
+    with_rows,
 )
 from repro_torch.train import DataParallelGNNTrainer, GNNTrainer, optim  # noqa: E402
 from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
+from repro_torch.utils import round_up  # noqa: E402
 
 HIDDEN, LAYERS, HEADS, FANOUTS = 32, 2, 2, [5, 3]
 KINDS = ["gcn", "sage", "gat", "hgt"]
@@ -89,19 +89,31 @@ def _pair(kind, g, seed=0):
     return jm, params, tm
 
 
+def _stable_order(pos: np.ndarray) -> np.ndarray:
+    """The oracle of a completed batch's orders: the int32 permutation that
+    stable-sorts ``pos`` with padding (< 0) last."""
+    key = np.where(pos < 0, np.iinfo(np.int32).max, pos)
+    return np.argsort(key, kind="stable").astype(np.int32)
+
+
+def _host(x):
+    return x.numpy() if torch.is_tensor(x) else x
+
+
 def test_batch_fields_are_bit_equal_and_orders_sort(small_graph, sub):
+    """The completed batch (``complete_batch`` on CPU tensors, the plain
+    versions) has the JAX batch's fields, its counts included, and orders
+    that stable-sort the edges, padding last."""
     g = small_graph
     jb = jax_batch(sub, g.vertex_feats, g.labels, LAYERS, edge_types=g.edge_types)
-    tb = subgraph_to_batch(sub, g.vertex_feats, g.labels, LAYERS, edge_types=g.edge_types)
-    for name in ("feats", "valid", "seed_pos", "labels"):
-        a, b = getattr(jb, name), getattr(tb, name)
-        assert a.dtype == b.dtype and np.array_equal(a, b), name
-    for name in ("layer_dst", "layer_src", "layer_etype", "layer_cnt"):
-        for a, b in zip(getattr(jb, name), getattr(tb, name)):
-            assert a.dtype == b.dtype and np.array_equal(a, b), name
+    host = subgraph_to_batch(sub, g.vertex_feats, g.labels, LAYERS, edge_types=g.edge_types)
+    assert host.layer_cnt is None and host.layer_dst_order is None
+    tb = complete_batch(host.to("cpu"))
+    assert isinstance(tb, GNNBatch)
+    _completed_like_the_oracles(tb, jb)
     for k in range(LAYERS):
-        dst, src = tb.layer_dst[k], tb.layer_src[k]
-        by_dst, by_src = tb.layer_dst_order[k], tb.layer_src_order[k]
+        dst, src = host.layer_dst[k], host.layer_src[k]
+        by_dst, by_src = _host(tb.layer_dst_order[k]), _host(tb.layer_src_order[k])
         e = dst.shape[0]
         assert by_dst.dtype == by_src.dtype == np.int32
         assert np.array_equal(np.sort(by_dst), np.arange(e))
@@ -119,16 +131,20 @@ def test_batch_fields_are_bit_equal_and_orders_sort(small_graph, sub):
         # padding last in both orders
         valid = int((dst >= 0).sum())
         assert np.all(dst[by_dst][:valid] >= 0) and np.all(s_sorted[by_src][:valid] >= 0)
-    moved = tb.to("cpu")
-    assert isinstance(moved, GNNBatch) and moved.layer_src_order[1].dtype == torch.int32
-    assert torch.equal(moved.feats, torch.from_numpy(tb.feats))
+    assert tb.layer_src_order[1].dtype == torch.int32
+    assert torch.equal(tb.feats, torch.from_numpy(host.feats))
 
 
 def test_sort_order_on_tensors_matches_the_host_order():
+    """The model's sort and the one that completes a batch give the stable
+    host order, padding last."""
+    from repro_torch.kernels import batch_finish
+
     rng = np.random.default_rng(0)
     idx = rng.integers(-1, 9, 200).astype(np.int32)
     got = fused_gnn.sort_order(torch.as_tensor(idx)).numpy()
-    assert np.array_equal(got, sorted_order(idx))
+    assert np.array_equal(got, _stable_order(idx))
+    assert np.array_equal(batch_finish.sort_edges(torch.as_tensor(idx), 9)[1].numpy(), got)
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -139,7 +155,7 @@ def test_loss_and_every_gradient_match_jax(kind, small_graph, sub):
                                              edge_types=g.edge_types))
     loss_j, grads_j = jax.value_and_grad(jm.loss)(params, jb)
     tb = subgraph_to_batch(sub, g.vertex_feats, g.labels, LAYERS, edge_types=g.edge_types)
-    loss_t = tm.loss(tb.to("cpu"))
+    loss_t = tm.loss(complete_batch(tb.to("cpu")))
     loss_t.backward()
     np.testing.assert_allclose(loss_t.item(), float(loss_j), rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(tm.out.grad.numpy(), np.asarray(grads_j["out"]), rtol=1e-4, atol=1e-6)
@@ -390,13 +406,13 @@ class _StallingProducer(torch_api.BatchPipeline):
         self._index = index
         super()._worker_loop(index, *a)
 
-    def make_batch(self, seeds, *args):
+    def _assemble(self, seeds, *args):
         if self._index == 1 and not self.stalled.is_set():
             self._made += 1
             if self._made == 2:
                 self.stalled.set()
                 time.sleep(120)
-        return super().make_batch(seeds, *args)
+        return super()._assemble(seeds, *args)
 
 
 def test_a_killed_producer_is_respawned_and_the_stream_stays_serial(port_system):
@@ -468,8 +484,10 @@ def test_no_yielded_batch_changes_while_the_rings_wrap(port_system, w, consumer)
     """Every batch of a two-epoch run held to its end, while each
     producer's two slots are written over and over (18 batches): the held
     batches are the serial stream's, bit for bit. ``batches`` to the CPU
-    is the same stream as tensors."""
+    is the same stream as tensors, completed."""
     want = _run(_pipe(port_system, 0), 2)
+    if consumer == "batches":
+        want = [(s, complete_batch(b.to("cpu"))) for s, b in want]
     pipe = _pipe(port_system, 2, tuple(range(w)))
     try:
         got = list(getattr(pipe, consumer)(2))
@@ -524,10 +542,10 @@ def test_a_batch_at_the_slot_bound_fits_and_one_beyond_raises(port_system):
     assert not fresh.any()
 
 
-# the shipped batch against the whole one: (fanouts, layers, edge types)
-# of a SAGE-like, a GAT-like and a heterogeneous plan, each at two quanta
-# (vertex, edge), then a sample whose last hop is empty, and the slot of
-# the largest shipped batch
+# the relabelled batch without rows against the one with them: (fanouts,
+# layers, edge types) of a SAGE-like, a GAT-like and a heterogeneous plan,
+# each at two quanta (vertex, edge), then a sample whose last hop is empty,
+# and the slot of the largest batch without rows
 PLANS = {"sage": ((5, 3, 2), 3, False), "gat": ((4, 4), 2, False), "hetero": ((5, 3), 2, True)}
 SHIPPED = [pytest.param(plan, quanta, id=f"{plan}-q{quanta[0]}-{quanta[1]}")
            for plan in PLANS for quanta in ((256, 1024), (64, 128))] + [
@@ -537,39 +555,57 @@ SHIPPED = [pytest.param(plan, quanta, id=f"{plan}-q{quanta[0]}-{quanta[1]}")
 
 def _fields_equal(a: GNNBatch, b: GNNBatch) -> None:
     """Every field of two batches, bit for bit (tensors as arrays)."""
-    def host(x):
-        return x.numpy() if torch.is_tensor(x) else x
-
     for name, va in vars(a).items():
         vb = getattr(b, name)
         assert isinstance(va, list) == isinstance(vb, list), name
         for x, y in zip(va if isinstance(va, list) else [va], vb if isinstance(vb, list) else [vb]):
             assert (x is None) == (y is None), name
             if x is not None:
-                x, y = host(x), host(y)
+                x, y = _host(x), _host(y)
                 assert x.dtype == y.dtype and np.array_equal(x, y), name
+
+
+def _completed_like_the_oracles(batch: GNNBatch, jb) -> None:
+    """A completed batch of CPU tensors against the oracles: the JAX batch's
+    fields and counts, and the stable host argsort for both orders."""
+    assert batch.vertex_ids is None
+    for name in ("feats", "valid", "seed_pos", "labels"):
+        want, got = np.asarray(getattr(jb, name)), _host(getattr(batch, name))
+        assert want.dtype == got.dtype and np.array_equal(want, got), name
+    for name in ("layer_dst", "layer_src", "layer_etype", "layer_cnt"):
+        for want, got in zip(getattr(jb, name), getattr(batch, name)):
+            want, got = np.asarray(want), _host(got)
+            assert want.dtype == got.dtype and np.array_equal(want, got), name
+    for dst, src, by_dst, by_src in zip(batch.layer_dst, batch.layer_src,
+                                        batch.layer_dst_order, batch.layer_src_order):
+        dst, src, by_dst = _host(dst), _host(src), _host(by_dst)
+        assert np.array_equal(by_dst, _stable_order(dst))
+        assert np.array_equal(_host(by_src), _stable_order(src[by_dst]))
 
 
 @pytest.mark.parametrize("plan,quanta", SHIPPED)
 def test_a_shipped_batch_finishes_to_the_whole_batch(port_system, plan, quanta):
-    """A shipped batch holds no feature rows, counts or orders, and
-    finished with numpy (``finish_batch``) it is ``subgraph_to_batch``'s
-    batch in every field; so is ``complete_batch`` of it on CPU tensors,
-    the card's wrappers run by their plain versions. The largest shipped
-    batch fits the slot a pipeline of shipped batches makes."""
+    """A batch made without rows holds no feature rows, counts or orders;
+    with its rows gathered (``with_rows``) it is the batch made with them,
+    and completed on CPU tensors from the matrix (``complete_batch``, the
+    card's wrappers run by their plain versions) it is that batch
+    completed, in every field, and has the JAX batch's fields and counts
+    and the stable host argsort's orders. The largest batch without rows
+    fits the slot of a pipeline whose rows travel as ids."""
     g = port_system.graph
     fanouts, layers, typed = PLANS.get(plan, ((5, 3), 2, True))
     vq, eq = quanta
     if plan == "slot":
-        pipe = _pipe(port_system, 0)
-        whole = pipe.slot_bytes()
+        with_rows_slot = _pipe(port_system, 0).slot_bytes()
+        pipe = _pipe(port_system, 2, (0, 1))
+        assert pipe._rows_as_ids
         bound = largest_batch(g.vertex_feats.shape[0], g.vertex_feats.shape[1], 64, (5, 3),
-                              LAYERS, pipe.vertex_quantum, pipe.edge_quantum, shipped=True)
+                              LAYERS, pipe.vertex_quantum, pipe.edge_quantum, rows=False)
         assert bound.feats is None and bound.layer_cnt is None and bound.layer_dst_order is None
         assert bound.vertex_ids.dtype == np.int64
-        slot = np.zeros(pipe.slot_bytes(True), np.uint8)
+        slot = np.zeros(pipe.slot_bytes(), np.uint8)
         plan_, used = write_batch(slot, _filled(bound, np.random.default_rng(1)))
-        assert pipe.slot_bytes(True) - mmap.PAGESIZE < used <= pipe.slot_bytes(True) < whole
+        assert pipe.slot_bytes() - mmap.PAGESIZE < used <= pipe.slot_bytes() < with_rows_slot
         return
     sub = port_system.backend.sample(np.arange(0, 1200, 37)[:32], list(fanouts))
     if plan == "empty-last-hop":
@@ -578,20 +614,24 @@ def test_a_shipped_batch_finishes_to_the_whole_batch(port_system, plan, quanta):
         last.eid = None if last.eid is None else last.eid[:0]
     kw = dict(edge_types=g.edge_types if typed else None, vertex_quantum=vq, edge_quantum=eq)
     whole = subgraph_to_batch(sub, g.vertex_feats, g.labels, layers, **kw)
-    shipped = subgraph_to_batch(sub, g.vertex_feats, g.labels, layers, shipped=True, **kw)
-    assert shipped.feats is None and shipped.layer_cnt is None
-    assert shipped.layer_dst_order is None and shipped.layer_src_order is None
+    bare = subgraph_to_batch(sub, g.vertex_feats, g.labels, layers, rows=False, **kw)
+    for b in (whole, bare):
+        assert b.layer_cnt is None and b.layer_dst_order is None and b.layer_src_order is None
+    assert bare.feats is None
     n = int(whole.valid.sum())
-    assert np.array_equal(shipped.vertex_ids[:n], sub.all_vertices())
-    assert np.all(shipped.vertex_ids[n:] == -1) and whole.vertex_ids is None
+    assert np.array_equal(bare.vertex_ids[:n], sub.all_vertices())
+    assert np.all(bare.vertex_ids[n:] == -1)
+    _fields_equal(whole, with_rows(bare, g.vertex_feats))
+    done = complete_batch(whole.to("cpu"))
     if plan == "empty-last-hop":
         # layer 0 reads every hop: with the last one empty, the first hop's edges
-        valid = [int((d >= 0).sum()) for d in shipped.layer_dst]
+        valid = [int((d >= 0).sum()) for d in bare.layer_dst]
         assert valid[0] == valid[-1] == sub.hops[0].src.shape[0] > 0
-        assert whole.layer_cnt[0].sum() == valid[0]
-    _fields_equal(whole, finish_batch(shipped, g.vertex_feats))
-    _fields_equal(whole.to("cpu"), complete_batch(shipped.to("cpu"),
-                                                  torch.from_numpy(g.vertex_feats)))
+        assert done.layer_cnt[0].sum() == valid[0]
+    _fields_equal(done, complete_batch(bare.to("cpu"), torch.from_numpy(g.vertex_feats)))
+    _completed_like_the_oracles(done, jax_batch(sub, g.vertex_feats, g.labels, layers, **kw))
+    with pytest.raises(ValueError, match="feature table"):
+        complete_batch(bare.to("cpu"))
 
 
 @pytest.mark.parametrize("case,want", [
@@ -600,29 +640,98 @@ def test_a_shipped_batch_finishes_to_the_whole_batch(port_system, plan, quanta):
 ])
 def test_the_producers_ship_where_the_consumer_can_finish(port_system, tmp_path, monkeypatch,
                                                           case, want):
-    """``batches()``' producers ship only when forked over an in-memory
-    matrix; to a CUDA device only while the matrix's page-locked float32
-    copy fits ``PINNED_TABLE_SHARE`` of the host's memory."""
+    """A pipeline decides when it is built that its producers leave the
+    rows to the consumer: only when forked over an in-memory matrix, and to
+    a CUDA device only while the matrix's page-locked float32 copy fits
+    ``PINNED_TABLE_SHARE`` of the host's memory. Its slots hold the
+    largest batch its producers write."""
     from repro_torch.api import pipeline as pipeline_mod
     from repro_torch.core.storage import StoreFeatureSource
 
-    kw = {}
+    kw = {"workers": "thread" if case.startswith("thread") else "process"}
     if "store" in case:
         kw["feature_source"] = StoreFeatureSource.from_array(
             port_system.graph.vertex_feats, str(tmp_path / "feats"), chunk_rows=256)
-    pipe = _pipe(port_system, 0 if case.startswith("serial") else 2, (0, 1), **kw)
-    pipe.workers = "thread" if case.startswith("thread") else "process"
     if "cuda" in case:
-        pipe.device = torch.device("cuda")
-        matrix = pipe.feature_source.num_rows * pipe.feature_source.dim * 4
+        # built for a card, which this test never touches
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        matrix = port_system.graph.vertex_feats.size * 4
         host = os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
         share = matrix / host * (0.5 if "past" in case else 1.0)
         monkeypatch.setattr(pipeline_mod, "PINNED_TABLE_SHARE", share)
-    assert pipe._ships() is want
+    pipe = torch_api.BatchPipeline(
+        port_system.backend, port_system.graph, np.arange(0, 1200, 2), (5, 3), LAYERS,
+        batch_size=64, prefetch=0 if case.startswith("serial") else 2, worker_cores=(0, 1),
+        device="cuda" if "cuda" in case else "cpu", **kw)
+    assert pipe._rows_as_ids is want
+    g = port_system.graph
+    bound = largest_batch(g.vertex_feats.shape[0], g.vertex_feats.shape[1], 64, (5, 3), LAYERS,
+                          pipe.vertex_quantum, pipe.edge_quantum, rows=not want)
+    assert pipe.slot_bytes() == round_up(_plan(bound)[1], mmap.PAGESIZE)
+
+
+# every mode of batches() on the CPU, and forked producers over a feature
+# source backed by a store
+MODES = ["serial", "thread", "process", "process-store"]
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_every_mode_yields_the_same_completed_batches(port_system, tmp_path, mode):
+    """``batches()`` completes every batch in the consumer in every mode:
+    serial, thread and forked producers (rows as ids, or gathered in the
+    producers over a store) yield the same batches field for field, each
+    the oracles' completion of the serial host batch."""
+    from repro_torch.core.storage import StoreFeatureSource
+
+    kw = {}
+    if mode == "process-store":
+        kw["feature_source"] = StoreFeatureSource.from_array(
+            port_system.graph.vertex_feats, str(tmp_path / "feats"), chunk_rows=256)
+    host = _run(_pipe(port_system, 0), 1)
+    pipe = _pipe(port_system, 0 if mode == "serial" else 2, (0, 1),
+                 workers="thread" if mode == "thread" else "process", **kw)
+    assert pipe._rows_as_ids is (mode == "process")
+    try:
+        got = list(pipe.batches(1))
+    finally:
+        pipe.close()
+    assert len(got) == len(host) == 9
+    g = port_system.graph
+    for (sa, hb), (sb, b) in zip(host, got):
+        assert np.array_equal(sa, sb)
+        _fields_equal(complete_batch(hb.to("cpu")), b)
+        assert b.vertex_ids is None and b.feats.shape == hb.feats.shape
+        for dst, cnt in zip(hb.layer_dst, b.layer_cnt):
+            want = np.bincount(dst[dst >= 0], minlength=hb.valid.shape[0]).astype(np.float32)
+            assert np.array_equal(cnt.numpy()[:, 0], want)
+        for dst, src, by_dst, by_src in zip(hb.layer_dst, hb.layer_src, b.layer_dst_order,
+                                            b.layer_src_order):
+            assert np.array_equal(by_dst.numpy(), _stable_order(dst))
+            assert np.array_equal(by_src.numpy(), _stable_order(src[by_dst.numpy()]))
+        assert np.array_equal(b.feats.numpy(), with_rows(hb, g.vertex_feats).feats)
+
+
+def test_a_host_run_after_a_device_run_forks_no_producer(port_system):
+    """One forked pipeline, a ``batches()`` run then a ``host_batches()``
+    run: the same producers and rings serve both, and the host run's
+    batches have their rows (gathered in the consumer), as the serial
+    pipeline's."""
+    want = _run(_pipe(port_system, 0), 2)
+    pipe = _pipe(port_system, 2, (0, 1))
+    try:
+        assert len(list(pipe.batches(1))) == 9
+        procs = [(p.proc.pid, p.ring) for p in pipe._producers]
+        got = _run(pipe, 1)
+        assert [(p.proc.pid, p.ring) for p in pipe._producers] == procs
+        assert all(p.proc.is_alive() for p in pipe._producers)
+    finally:
+        pipe.close()
+    _same_batches(want[9:], got)
+    assert all(b.feats is not None and b.layer_cnt is None for _, b in got)
 
 
 class _SmallSlots(torch_api.BatchPipeline):
-    def slot_bytes(self, shipped=False):
+    def slot_bytes(self):
         return mmap.PAGESIZE
 
 
@@ -751,7 +860,7 @@ def test_gather_backward_twin_matches_autograd(m, f, n, d, frac, seed):
     rows = ops.gather_rows(y, torch.as_tensor(idx))
     assert torch.equal(rows[torch.as_tensor(idx) < 0], torch.zeros_like(rows[torch.as_tensor(idx) < 0]))
     rows.backward(g_rows)
-    order = torch.as_tensor(sorted_order(idx))
+    order = torch.as_tensor(_stable_order(idx))
     twin = gather_spmm_ragged_backward_ref(g_rows[order.long()], torch.as_tensor(idx)[order.long()],
                                            torch.arange(m, dtype=torch.int32), f)
     np.testing.assert_allclose(twin.numpy(), y.grad.numpy(), rtol=1e-5, atol=1e-6)

@@ -1,5 +1,5 @@
 """The host cost of the page-locked copy of the feature matrix that a CUDA
-batch consumer finishes shipped batches from.
+batch consumer gathers feature rows from.
 
     python3 tools/host_table_cost.py [--gib 0.0768 1 4 16]
 
